@@ -1,0 +1,223 @@
+"""Decoder-only transformer LM, dense family, decode path (counterpart of
+``repro/models/lm.py``; the training ``forward`` waits for the training
+slice).
+
+Params keep the JAX tree: nested dicts with stacked ``[L, ...]`` layer
+leaves, so plan keys (``layers/mlp/gate/kernel``) and ``from_jax`` carry
+over unchanged.  ``lax.scan`` over layers becomes a Python loop over
+per-layer views ``leaf[l]``.  The residual stream stays unquantized;
+activation quantizers sit at the norm and projection outputs.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+from torch import nn
+
+from ..core import hgq
+from ..core.hgq import ActState, QTensor
+from ..device import resolve_device
+from ..dist.perf import is_packed, packed_mantissas
+from ..kernels.qmatmul.ops import qmatmul_any
+from ..nn.attention import (AttnConfig, GQAAttention, KVCache, QKVCache,
+                            decode_positions)
+from ..nn.basic import HDense, HEmbedding, LayerNorm, RMSNorm
+from ..nn.common import get_qw
+from ..nn.mlp import GLUMLP
+from .config import ModelConfig
+
+Caches = Union[KVCache, QKVCache]
+
+
+def _norm_cls(cfg: ModelConfig):
+    return RMSNorm if cfg.norm == "rms" else LayerNorm
+
+
+def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
+    return AttnConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                      n_kv=cfg.n_kv, head_dim=cfg.hd, qkv_bias=cfg.qkv_bias,
+                      rope_theta=cfg.rope_theta, window=cfg.window,
+                      causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+
+
+def _tree_map(fn, *trees):
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, ActState):
+        return ActState(*(_tree_map(fn, *f) for f in zip(*trees)))
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_tree_map(fn, *f) for f in zip(*trees))
+    if t0 is None:
+        return None
+    return fn(*trees)
+
+
+def layer_views(stacked: Any, n_layers: int) -> List[Any]:
+    """Stacked ``[L, ...]`` layer tree -> one tree of views per layer."""
+    return [_tree_map(lambda a, i=i: a[i], stacked) for i in range(n_layers)]
+
+
+def _check_positions(cache_pos, S: int, W: int) -> None:
+    """An unwindowed cache holds positions 0..W-1: reject a chunk that
+    would write past it (checked only where the positions live on the
+    host, so no decode tick waits for the device)."""
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.is_cuda:
+        return
+    top = int(torch.as_tensor(cache_pos).max()) + S
+    if top > W:
+        raise ValueError(f"positions up to {top - 1} do not fit the "
+                         f"{W}-slot cache")
+
+
+class TransformerLM(nn.Module):
+    """Holds one params / qstate tree (buffers, for ``.to()`` and
+    ``state_dict``); the static ``init`` / ``init_cache`` /
+    ``decode_step`` take trees explicitly, as the engine serves a packed
+    copy of the tree."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
+                 qstate: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.params = params
+        self.qstate = qstate if qstate is not None else {}
+        for prefix, tree in (("p", self.params), ("q", self.qstate)):
+            for path, leaf in _flatten(tree):
+                self.register_buffer("__".join((prefix,) + path), leaf,
+                                     persistent=True)
+
+    def forward(self, tokens: torch.Tensor, caches: Caches, cache_pos,
+                kv_bits: Optional[int] = None):
+        return self.decode_step(self.params, self.qstate, caches, tokens,
+                                cache_pos, self.cfg, kv_bits=kv_bits)
+
+    # ---------------------------- init ----------------------------------
+    @staticmethod
+    def init(gen: torch.Generator, cfg: ModelConfig, device=None):
+        """Seeded init with the reference's distributions (its numbers
+        differ: ``torch.Generator`` is not ``jax.random``)."""
+        dev = resolve_device(device)
+        Norm = _norm_cls(cfg)
+        p: Dict[str, Any] = {}
+        q: Dict[str, Any] = {}
+        p["embed"], q["embed"] = HEmbedding.init(gen, cfg.vocab, cfg.d_model,
+                                                 cfg.hgq, dev)
+        per_p, per_q = [], []
+        for _ in range(cfg.n_layers):
+            lp: Dict[str, Any] = {}
+            lq: Dict[str, Any] = {}
+            lp["ln1"], lq["ln1"] = Norm.init(gen, cfg.d_model, cfg.hgq,
+                                             device=dev)
+            lp["attn"], lq["attn"] = GQAAttention.init(gen, _attn_cfg(cfg),
+                                                       cfg.hgq, dev)
+            lp["ln2"], lq["ln2"] = Norm.init(gen, cfg.d_model, cfg.hgq,
+                                             device=dev)
+            lp["mlp"], lq["mlp"] = GLUMLP.init(gen, cfg.d_model, cfg.d_ff,
+                                               cfg.hgq, dev)
+            per_p.append(lp)
+            per_q.append(lq)
+        p["layers"] = _tree_map(lambda *a: torch.stack(a), *per_p)
+        q["layers"] = _tree_map(lambda *a: torch.stack(a), *per_q)
+        p["final_norm"], q["final_norm"] = Norm.init(gen, cfg.d_model,
+                                                     cfg.hgq, device=dev)
+        if not cfg.tie_embeddings:
+            p["lm_head"], q["lm_head"] = HDense.init(
+                gen, cfg.d_model, cfg.vocab, cfg.hgq, bias=False,
+                out_q=False, device=dev)
+        return p, q
+
+    # -------------------------- layer body ------------------------------
+    @staticmethod
+    def _layer(lp, lq, x, positions, cache, cache_pos, cfg: ModelConfig,
+               mode: str, kv_bits: Optional[int]):
+        Norm = _norm_cls(cfg)
+        h, _ = Norm.apply(lp["ln1"], lq["ln1"], x, mode=mode, aux=None)
+        a, _, _ = GQAAttention.apply(
+            lp["attn"], lq["attn"], h, cfg=_attn_cfg(cfg), mode=mode,
+            aux=None, positions=positions, cache=cache, cache_pos=cache_pos,
+            kv_bits=kv_bits)
+        x = x + a.q
+        h, _ = Norm.apply(lp["ln2"], lq["ln2"], x, mode=mode, aux=None)
+        m, _ = GLUMLP.apply(lp["mlp"], lq["mlp"], h, mode=mode, aux=None,
+                            act=cfg.act)
+        return x + m.q
+
+    @staticmethod
+    def _logits(p, h: QTensor, cfg: ModelConfig, mode: str) -> torch.Tensor:
+        if not cfg.tie_embeddings:
+            lt, _ = HDense.apply(p["lm_head"], {}, h, mode=mode, aux=None)
+            return lt.q
+        tbl = p["embed"]["table"]
+        if is_packed(tbl):
+            # tied head over the packed table: the per-embedding-column
+            # scales fold into the activation, h @ (m * s).T ==
+            # (h * s) @ m.T, and the kernel reads m.T without a copy
+            s_d = tbl["scale"].reshape(cfg.d_model)
+            ones = torch.ones((cfg.vocab,), dtype=torch.float32,
+                              device=h.q.device)
+            return qmatmul_any(h.q.to(torch.float32) * s_d,
+                               packed_mantissas(tbl).T, ones)
+        wq = get_qw(tbl, mode)
+        return torch.matmul(h.q.to(wq.q.dtype), wq.q.T)
+
+    # ---------------------------- decode --------------------------------
+    @staticmethod
+    def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, ring_slack: int = 0,
+                   kv_bits: Optional[int] = None, device=None) -> Caches:
+        """Zeroed ``[L, B, W, KV, hd]`` cache stack; ``kv_bits`` selects the
+        plan-width quantized storage (``serving/kvcache.py``)."""
+        dev = resolve_device(device)
+        kv_len = min(max_len, cfg.window + ring_slack) if cfg.window \
+            else max_len
+        shape = (cfg.n_layers, batch, kv_len, cfg.n_kv, cfg.hd)
+        if kv_bits is not None:
+            from ..serving.kvcache import quantized_cache
+            return quantized_cache(shape, kv_bits, device=dev)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                       v=torch.zeros(shape, dtype=dtype, device=dev))
+
+    @staticmethod
+    def decode_step(p, q, caches: Caches, tokens: torch.Tensor, cache_pos,
+                    cfg: ModelConfig, mode: str = hgq.EVAL,
+                    kv_bits: Optional[int] = None):
+        """One decode step over tokens [B, S_new] at ``cache_pos`` (scalar
+        or per-slot [B]).  Writes the new rows into ``caches`` in place;
+        returns (logits [B, S_new, V], caches).  ``p["layers"]`` may be
+        the stacked tree or its :func:`layer_views` list."""
+        B, S = tokens.shape
+        dev = tokens.device
+        W = caches.k.shape[2]
+        if cfg.window is None:
+            _check_positions(cache_pos, S, W)
+        cp = torch.as_tensor(cache_pos, device=dev)
+        L = cfg.n_layers
+        lps = p["layers"] if isinstance(p["layers"], list) \
+            else layer_views(p["layers"], L)
+        lqs = q["layers"] if isinstance(q["layers"], list) \
+            else layer_views(q["layers"], L)
+        e, _ = HEmbedding.apply(p["embed"], q["embed"], tokens, mode=mode,
+                                aux=None)
+        positions = decode_positions(cp, S)
+        x = e.q
+        for l in range(L):
+            cache_l = type(caches)(*(c[l] for c in caches))
+            x = TransformerLM._layer(lps[l], lqs[l], x, positions, cache_l,
+                                     cp, cfg, mode, kv_bits)
+        Norm = _norm_cls(cfg)
+        h, _ = Norm.apply(p["final_norm"], q["final_norm"], x, mode=mode,
+                          aux=None)
+        return TransformerLM._logits(p, h, cfg, mode), caches
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, prefix + (str(i),))
+    elif isinstance(tree, torch.Tensor):
+        yield prefix, tree
