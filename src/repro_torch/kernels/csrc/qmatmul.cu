@@ -11,16 +11,12 @@
 //
 // Design.  Weights are read once, coalesced, as int8, and converted in registers;
 // fp32 accumulators stay in registers; the scale multiplies once at the end (exact:
-// a power of two).  Two layouts:
-//   * nk: w stored [N, K], each output channel's mantissas contiguous.  The serving
-//     packer stores every layer so, and the tied lm head reads the [vocab, d]
-//     embedding mantissas through their transpose without a copy.  For the
-//     layers, blocks of CPW columns split K across their warps, so even N = 128
-//     puts many loads in flight; for the head (N >= NK_WIDE_N) each warp owns its
-//     columns over the whole of K.
-//   * kn: w stored [K, N] row-major, for callers that hold that layout.  A block
-//     owns 128 columns (32 lanes x 4 bytes) and stages x in shared memory; its 4
-//     warps split K and meet in shared memory.  Few blocks: the slow layout.
+// a power of two).  w is stored [N, K], each output channel's mantissas
+// contiguous: the serving packer stores every layer so, and the tied lm head reads
+// the [vocab, d] embedding mantissas through their transpose without a copy.  For
+// the layers, blocks of CPW columns split K across their warps, so even N = 128
+// puts many loads in flight; for the head (N >= NK_WIDE_N) each warp owns its
+// columns over the whole of K.
 // Each output's summation order depends only on K, never on M, so a row gives the
 // same result in a decode tick and in a prefill chunk.
 // Later work: nibble unpacking in the kernel, split-K, and wgmma for larger M.
@@ -29,79 +25,8 @@
 
 namespace {
 
-constexpr int KN_BN = 128;   // columns per block (32 lanes x 4)
-constexpr int KN_WARPS = 4;  // warps splitting K
-constexpr int KC = 512;      // K chunk of x staged in shared memory
-constexpr int NK_WARPS = 4;  // warps of an [N, K] block
+constexpr int NK_WARPS = 4;  // warps of a block
 constexpr int NK_WIDE_N = 16384;  // from this N on, each [N, K] warp owns its columns
-
-template <int MT>
-__global__ void __launch_bounds__(KN_WARPS * 32)
-qmatmul_kn_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, float* __restrict__ y,
-                  int M, int K, int N, int vec) {
-  // x chunk [MT][KC]; reused afterwards as the cross-warp sums [WARPS][MT][BN]
-  __shared__ float xs[MT * KC];
-  static_assert(KN_WARPS * KN_BN <= KC, "reduction buffer must fit");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nb = blockIdx.x * KN_BN;
-  const int n0 = nb + lane * 4;
-  const int m0 = blockIdx.y * MT;
-  const int mrows = min(MT, M - m0);
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int kc = 0; kc < K; kc += KC) {
-    const int klen = min(KC, K - kc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < MT * klen; i += blockDim.x) {
-      const int m = i / klen, k = i - m * klen;
-      xs[m * KC + k] = m < mrows ? x[(size_t)(m0 + m) * K + kc + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = warp; k < klen; k += KN_WARPS) {
-      const int8_t* wr = w + (size_t)(kc + k) * N;
-      float wf[4];
-      if (vec && n0 + 3 < N) {
-        const char4 c = *reinterpret_cast<const char4*>(wr + n0);
-        wf[0] = c.x; wf[1] = c.y; wf[2] = c.z; wf[3] = c.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wf[j] = n0 + j < N ? static_cast<float>(wr[n0 + j]) : 0.f;
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = xs[m * KC + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, wf[j], acc[m][j]);
-      }
-    }
-  }
-
-  __syncthreads();
-  float* red = xs;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      red[(warp * MT + m) * KN_BN + lane * 4 + j] = acc[m][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < mrows * KN_BN; i += blockDim.x) {
-    const int m = i / KN_BN, c = i - m * KN_BN, n = nb + c;
-    if (n < N) {
-      float s = red[m * KN_BN + c];
-#pragma unroll
-      for (int wv = 1; wv < KN_WARPS; ++wv) s += red[(wv * MT + m) * KN_BN + c];
-      y[(size_t)(m0 + m) * N + n] = s * scale[n];
-    }
-  }
-}
 
 // [N, K] layout.  The block's NK_WARPS warps form NK_WARPS / KSPLIT groups; a
 // group owns CPW columns and the MT rows of an M tile, and its KSPLIT warps split
@@ -200,8 +125,8 @@ qmatmul_nk_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// One [N, K] launch: the K split is chosen from N alone (so a row's result never
-// depends on M); the head's 151936 columns take KSPLIT = 1.
+// One launch: the K split is chosen from N alone (so a row's result never depends
+// on M); the head's 151936 columns take KSPLIT = 1.
 template <int MT, int CPW>
 void launch_nk(const float* x, const int8_t* w, const float* scale, float* y, int M,
                int K, int N, int vec, cudaStream_t s) {
@@ -217,25 +142,15 @@ void launch_nk(const float* x, const int8_t* w, const float* scale, float* y, in
 
 }  // namespace
 
-// x [M, K] fp32 contiguous; w int8, [K, N] contiguous (w_nk = 0) or [N, K]
-// contiguous (w_nk = 1); scale [N] fp32; y [M, N] fp32 contiguous.  vec = 1 when
-// the vector loads are aligned: 4-byte weight loads (N % 4 == 0 for kn, K % 4 == 0
-// for nk, a 4-aligned base) and, for nk, 16-byte x loads (a 16-aligned x).
-// Returns cudaGetLastError() after the launch.
+// x [M, K] fp32 contiguous; w int8 stored [N, K] contiguous; scale [N] fp32;
+// y [M, N] fp32 contiguous.  vec = 1 when the vector loads are aligned: 4-byte
+// weight loads (K % 4 == 0, a 4-aligned base) and 16-byte x loads (a 16-aligned
+// x).  Returns cudaGetLastError() after the launch.
 extern "C" int qmatmul_launch(const float* x, const int8_t* w, const float* scale,
-                              float* y, int M, int K, int N, int w_nk, int vec,
-                              void* stream) {
+                              float* y, int M, int K, int N, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  if (!w_nk) {
-    if (M <= 8) {
-      dim3 grid((N + KN_BN - 1) / KN_BN, (M + 7) / 8);
-      qmatmul_kn_kernel<8><<<grid, KN_WARPS * 32, 0, s>>>(x, w, scale, y, M, K, N, vec);
-    } else {
-      dim3 grid((N + KN_BN - 1) / KN_BN, (M + 15) / 16);
-      qmatmul_kn_kernel<16><<<grid, KN_WARPS * 32, 0, s>>>(x, w, scale, y, M, K, N, vec);
-    }
-  } else if (M <= 8) {
+  if (M <= 8) {
     launch_nk<8, 8>(x, w, scale, y, M, K, N, vec, s);
   } else {
     launch_nk<16, 4>(x, w, scale, y, M, K, N, vec, s);

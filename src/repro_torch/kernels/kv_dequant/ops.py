@@ -11,6 +11,7 @@ cache, and the packed rows it writes per tick are tiny.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -55,10 +56,13 @@ def kv_quantize_rows(rows: torch.Tensor, bits: int
         rows.data_ptr(), q.data_ptr(), f.data_ptr(), R, hd, bits,
         _build.stream_ptr(rows.device)), "kv_quantize_rows")
     kv_quantize_rows.launches += 1
+    kv_quantize_rows.shapes[R, hd, bits] += 1
     return q, f
 
 
+# launches of the kernel, in all and by (R, hd, bits)
 kv_quantize_rows.launches = 0
+kv_quantize_rows.shapes = collections.Counter()
 
 
 def kv_quantize(x: torch.Tensor, bits: int = 8
@@ -141,10 +145,13 @@ def kv_attention_rows(qh: torch.Tensor, km: torch.Tensor, kf: torch.Tensor,
         -1 if window is None else int(window), float(hd) ** -0.5,
         _build.stream_ptr(qh.device)), "kv_attention_rows")
     kv_attention_rows.launches += 1
+    kv_attention_rows.shapes[B, S, H, KV, hd, W, hdm] += 1
     return out
 
 
+# launches of the kernel, in all and by (B, S, H, KV, hd, W, hdm)
 kv_attention_rows.launches = 0
+kv_attention_rows.shapes = collections.Counter()
 
 
 def kv_attention_decode(qh: torch.Tensor, km: torch.Tensor, kf: torch.Tensor,

@@ -9,6 +9,7 @@ version in ``ref.py``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional, Tuple
@@ -105,7 +106,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("qmatmul")
     if not getattr(lib, "typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qmatmul_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.qmatmul_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.qmatmul_launch.restype = ci
         lib.typed = True
     return lib
@@ -113,10 +114,11 @@ def _lib() -> ctypes.CDLL:
 
 def qmatmul(x: torch.Tensor, w_int: torch.Tensor,
             scale: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x [M, K] fp32, w_int [K, N] int8 stored [K, N]
-    row-major or as the transpose of a row-major [N, K] (the tied head's
-    ``table.T``, read without a copy), scale [N] fp32 -> [M, N] fp32.
-    Raises on anything the kernel does not take."""
+    """The CUDA kernel: x [M, K] fp32, w_int [K, N] int8 stored N-major
+    (the transpose of a contiguous [N, K], as the serving packer stores
+    every layer and as the tied head's ``table.T`` reads without a copy),
+    scale [N] fp32 -> [M, N] fp32.  Raises on anything the kernel does
+    not take."""
     M, K = x.shape
     K2, N = w_int.shape
     if K2 != K or tuple(scale.shape) != (N,):
@@ -129,23 +131,23 @@ def qmatmul(x: torch.Tensor, w_int: torch.Tensor,
         raise TypeError("qmatmul kernel takes fp32 x / scale, int8 w")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("qmatmul kernel needs contiguous x and scale")
-    if w_int.stride() == (N, 1):
-        w_nk, vec = 0, N % 4 == 0
-    elif w_int.stride() == (1, K):
-        w_nk, vec = 1, K % 4 == 0 and x.data_ptr() % 16 == 0
-    else:
-        raise ValueError(f"qmatmul kernel takes [K, N] or [N, K] storage, "
+    if w_int.stride() != (1, K):
+        raise ValueError(f"qmatmul kernel takes N-major [N, K] storage, "
                          f"got strides {w_int.stride()}")
-    vec = int(vec and w_int.data_ptr() % 4 == 0)
+    vec = int(K % 4 == 0 and x.data_ptr() % 16 == 0
+              and w_int.data_ptr() % 4 == 0)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     _build.check(_lib().qmatmul_launch(
         x.data_ptr(), w_int.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        M, K, N, w_nk, vec, _build.stream_ptr(x.device)), "qmatmul")
+        M, K, N, vec, _build.stream_ptr(x.device)), "qmatmul")
     qmatmul.launches += 1
+    qmatmul.shapes[M, K, N] += 1
     return y
 
 
+# launches of the kernel, in all and by (M, K, N)
 qmatmul.launches = 0
+qmatmul.shapes = collections.Counter()
 
 
 def qmatmul_any(x: torch.Tensor, w_int: torch.Tensor,

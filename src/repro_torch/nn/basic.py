@@ -128,18 +128,17 @@ class RMSNorm:
 
 
 def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
-    """Mean of squares over the last axis, in float32.
+    """Mean of squares over the last axis, rounded to float32.
 
     The card's float32 reduction picks its summation tree by the number
     of rows, so a row's mean would depend on the batch it rides in (a
     decode tick of 8 slots vs one request's prefill) and an activation
-    quantizer downstream can round it across a grid point.  On the card
-    the squares (exact in float64) are summed in float64 and rounded
-    once, which makes each row's result independent of the batch."""
-    if xf.is_cuda:
-        xd = xf.to(torch.float64)
-        return torch.mean(xd * xd, dim=-1, keepdim=True).to(torch.float32)
-    return torch.mean(xf * xf, dim=-1, keepdim=True)
+    quantizer downstream can round it across a grid point.  The squares
+    (exact in float64) are summed in float64 and rounded once, which
+    makes each row's result independent of the batch, and the same on
+    the card and on the CPU."""
+    xd = xf.to(torch.float64)
+    return torch.mean(xd * xd, dim=-1, keepdim=True).to(torch.float32)
 
 
 class LayerNorm:
