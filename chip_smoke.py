@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the HGQ serving path on one CUDA card.
+"""Drive the PyTorch port of HGQ (serving and training) on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -12,23 +12,34 @@ only the port under ``src/repro_torch``, never JAX.  In order it
 2. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 3. kernel phase: holds every kernel against its plain PyTorch version at
-   the shapes the serving path gives it, under the stated tolerances,
-   and times the kernel, the plain version and a one-call library
-   yardstick with CUDA events, beside the least time the card could take;
+   the shapes its main path gives it, under the stated tolerances, checks
+   that two launches give the same bits where the kernel promises it, and
+   times the kernel, the plain version and a one-call library yardstick
+   (where one exists) with CUDA events, beside the least time the card
+   could take;
 4. slice phase: serves qwen2-0.5b at full width (random weights from a
    seed) through the port's ``Engine`` in two configurations, holds the
    tokens against ``generate()`` and the logits against the CPU's plain
    path (a limit that two faulty controls must exceed), checks that every
-   kernel's launch counter moved, and tallies one full tick's launches by
-   shape; only after every timed run is one full tick per configuration
-   traced with ``torch.profiler``;
-5. prints one JSON line with every kernel's numbers, its times per full
-   decode tick weighted by that tally, then, last,
-   ``{"ok": true, "device": {...}}``.
+   serving kernel's launch counter moved, and tallies one full tick's
+   launches by shape; only after every timed run is one full tick per
+   configuration traced with ``torch.profiler``;
+5. train phase: trains the paper's jet tagger at its full width with
+   ``examples/quickstart.py``'s configuration through the port's
+   ``Trainer.run`` (300 steps, batch 1024), calibrates it on a held-out
+   batch and checks accuracy, ~EBOPs, layer-0 bits and the fixed-point
+   proxy; tallies one step's ``hgq_quantize`` launches by shape; runs 20
+   steps on the card and on the CPU from one init (a limit that two faulty
+   controls must exceed) and twice on the card (bit-identical); then
+   traces one step with ``torch.profiler``;
+6. prints one JSON line with every kernel's numbers, its times per unit
+   of its main path (a full decode tick, a training step) weighted by
+   those tallies, then, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
-kernel) and leaves the per-tick fields null.
+kernel) and leaves the per-unit fields null; ``--phase train`` skips
+step 4.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -66,9 +78,17 @@ TPU_KERNELS = [
     ("wire_pack_rows", "src/repro/kernels/wire_pack/kernel.py:141"),
     ("wire_dequant_rows", "src/repro/kernels/wire_pack/kernel.py:161"),
 ]
-SOURCES = {"qmatmul": "src/repro_torch/kernels/csrc/qmatmul.cu",
-           "kv_quantize_rows": "src/repro_torch/kernels/csrc/kv_dequant.cu",
-           "kv_attention_rows": "src/repro_torch/kernels/csrc/kv_dequant.cu"}
+_CSRC = "src/repro_torch/kernels/csrc/"
+# every kernel wrapper of the port: (source, the TPU kernel it replaces)
+KERNELS = {
+    "qmatmul": (_CSRC + "qmatmul.cu", "qmatmul"),
+    "kv_quantize_rows": (_CSRC + "kv_dequant.cu", "kv_quantize_rows"),
+    "kv_attention_rows": (_CSRC + "kv_dequant.cu", "kv_attention_rows"),
+    "hgq_quantize_fwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
+    "hgq_quantize_bwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
+}
+SERVING = ("qmatmul", "kv_quantize_rows", "kv_attention_rows")
+TRAINING = ("hgq_quantize_fwd", "hgq_quantize_bwd")
 
 
 class SmokeFailure(RuntimeError):
@@ -312,13 +332,103 @@ def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64):
             "bytes": nbytes, "flops": flops}
 
 
+# the quantizer's shapes: the training slice's own (the jet tagger's input
+# quantizer per channel, weights and biases per parameter, outputs per
+# tensor, batch 1024), a qwen2-0.5b layer (the MLP weight per channel, a
+# prefill's activations per tensor) in float32 and bfloat16
+HGQ_SHAPES = (
+    [((1024, 16), (16,), torch.float32)]
+    + [(s, s, torch.float32) for s in ((16, 64), (64, 32), (32, 32), (32, 5),
+                                       (64,), (32,), (5,))]
+    + [((1024, 64), (), torch.float32), ((1024, 32), (), torch.float32)]
+    + [(s, f, dt) for dt in (torch.float32, torch.bfloat16)
+       for s, f in (((896, 4864), (1, 4864)), ((8192, 896), ()))])
+# rows of one partial sum of the backward kernel (csrc/hgq_quantize.cu):
+# TILE_ROWS per channel, TILE_ELEMS / cols per tensor
+HGQ_TILE_ROWS, HGQ_TILE_ELEMS = 32, 2048
+
+
+def _bits_of(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def hgq_quantize_case(shape, fshape, dtype, dev, g):
+    """Forward and backward kernels vs their plain versions on one shape:
+    the forward bit for bit; df bit for bit per parameter, and for the
+    per-channel and per-tensor sums within 1e-5 of the sum of |terms| (a
+    float32 sum taken in another order); two launches give the same bits.
+    Some x sit exactly on rounding ties (k + 1/2) * 2^-fi."""
+    from repro_torch.kernels.hgq_quantize import (hgq_quantize_bwd,
+                                                  hgq_quantize_fwd,
+                                                  hgq_quantize_grad_ref,
+                                                  hgq_quantize_ref, layout_of)
+    from repro_torch.kernels.hgq_quantize.ref import LN2
+    lay = layout_of(shape, fshape)
+    n = math.prod(shape)
+    fn = math.prod(fshape)
+    item = torch.finfo(dtype).bits // 8
+    what = f"hgq_quantize {lay} {tuple(shape)} {str(dtype)[6:]}"
+
+    def make():
+        x = torch.randn(shape, generator=g, device=dev) * 4
+        f = torch.rand(fshape, generator=g, device=dev) * 8 - 1
+        fi = torch.floor(torch.broadcast_to(f, shape) + 0.5).reshape(-1)
+        ties = min(n, 256)
+        k = torch.arange(ties, device=dev, dtype=torch.float32) - ties // 2
+        x.view(-1)[:ties] = (k + 0.5) * torch.pow(2.0, -fi[:ties])
+        gy = torch.randn(shape, generator=g, device=dev)
+        return x.to(dtype), f, gy.to(dtype)
+
+    fwd_bytes = 2 * n * item + fn * 4
+    bwd_bytes = 2 * n * item + 2 * fn * 4
+    sets = [make() for _ in range(n_copies(bwd_bytes))]
+    x, f, gy = sets[0]
+    out = hgq_quantize_fwd(x, f)
+    ref = hgq_quantize_ref(x, f)
+    check(torch.equal(_bits_of(out), _bits_of(ref)),
+          f"{what}: forward not bit-exact")
+    check(torch.equal(_bits_of(out), _bits_of(hgq_quantize_fwd(x, f))),
+          f"{what}: forward not repeatable")
+    df = hgq_quantize_bwd(gy, x, f)
+    dref = hgq_quantize_grad_ref(gy, x, f)
+    check(torch.equal(_bits_of(df), _bits_of(hgq_quantize_bwd(gy, x, f))),
+          f"{what}: backward not repeatable")
+    err = float((df - dref).abs().max())
+    if lay == "per_parameter":
+        check(torch.equal(_bits_of(df), _bits_of(dref)),
+              f"{what}: df not bit-exact")
+    else:
+        terms = (gy.float() * LN2 * (x.float() - ref.float())).abs()
+        lim = 1e-5 * terms.sum_to_size(fshape)
+        check(bool(((df - dref).abs() <= lim).all()),
+              f"{what}: df off by {err} beyond 1e-5 * sum |terms|")
+    base = {"shape": f"{lay} {tuple(shape)} {str(dtype)[6:]}",
+            "library_ms": None}
+    key = (lay, tuple(shape), str(dtype)[6:])
+    fb_ms, fb_by = bound(fwd_bytes, 5.0 * n)
+    bb_ms, bb_by = bound(bwd_bytes, 9.0 * n)
+    fwd = dict(base, max_abs_err=0.0,
+               ms=time_ms(hgq_quantize_fwd, [a[:2] for a in sets]),
+               plain_ms=time_ms(hgq_quantize_ref, [a[:2] for a in sets], 16),
+               bound_ms=fb_ms, bound_by=fb_by, bytes=fwd_bytes,
+               flops=5.0 * n)
+    bsets = [(gg, xx, ff) for xx, ff, gg in sets]
+    bwd = dict(base, max_abs_err=err,
+               ms=time_ms(hgq_quantize_bwd, bsets),
+               plain_ms=time_ms(hgq_quantize_grad_ref, bsets, 16),
+               bound_ms=bb_ms, bound_by=bb_by, bytes=bwd_bytes,
+               flops=9.0 * n)
+    return key, fwd, bwd
+
+
 def kernel_phase(dev):
-    """Every kernel at the serving path's shapes: {kernel: {shape key:
+    """Every kernel at its main path's shapes: {kernel: {shape key:
     case}}, keyed as the wrappers key their launch tallies."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     H, KV, hd, W = 14, 2, 64, 1024
-    cases = {"qmatmul": {}, "kv_quantize_rows": {}, "kv_attention_rows": {}}
+    cases = {"qmatmul": {}, "kv_quantize_rows": {}, "kv_attention_rows": {},
+             "hgq_quantize_fwd": {}, "hgq_quantize_bwd": {}}
     for M in (8, 16):
         # q, o; k, v; gate, up; down; the tied head
         for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896),
@@ -333,6 +443,10 @@ def kernel_phase(dev):
             key = (B, S, H, KV, hd, W, hd // 2 if nibble else hd)
             cases["kv_attention_rows"][key] = kv_attention_case(
                 B, S, W, nibble, 6.0, dev, g, H=H, KV=KV, hd=hd)
+    for shape, fshape, dtype in HGQ_SHAPES:
+        key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
+        cases["hgq_quantize_fwd"][key] = fwd
+        cases["hgq_quantize_bwd"][key] = bwd
     for name, by_shape in cases.items():
         print(f"[kernels] {name}: max err "
               f"{max(c['max_abs_err'] for c in by_shape.values()):.3g}",
@@ -345,43 +459,47 @@ def kernel_phase(dev):
     return cases
 
 
-def kernels_line(cases, tick_shapes):
-    """The ``kernels`` entries.  With ``tick_shapes`` (the launches by
-    shape of one full decode tick of configuration (a), counted on the
-    main path) each time is the tick's: per-call times weighted by those
-    counts; every counted shape must have been timed.  Without it (the
-    kernel phase alone) the per-tick fields are null."""
+def kernels_line(cases, tallies):
+    """The ``kernels`` entries.  ``tallies`` maps a kernel to (its
+    launches by shape in one unit of its main path -- a full decode tick
+    of serving configuration (a), or a training step -- as the wrappers
+    counted them, a description of that unit).  Each time is the unit's:
+    per-call times weighted by those counts; every counted shape must have
+    been timed.  A kernel without a tally (the kernel phase alone) has
+    null per-unit fields."""
     out = []
     for name, by_shape in cases.items():
-        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
-                 "replaces": dict(TPU_KERNELS)[name], "launches": 0,
+        source, tpu = KERNELS[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": dict(TPU_KERNELS)[tpu], "launches": 0,
                  "max_abs_err": max(c["max_abs_err"]
                                     for c in by_shape.values()),
                  "ms": None, "plain_ms": None, "bound_ms": None,
                  "bound_by": None, "library_ms": None,
-                 "per": None, "calls_per_tick": None}
-        if tick_shapes is not None:
-            tick = tick_shapes[name]
-            missing = [k for k in tick if k not in by_shape]
+                 "per": None, "calls_per_unit": None}
+        if name == "hgq_quantize_bwd":
+            entry["note"] = ("the backward of the kernel's op, the custom_vjp "
+                             "at src/repro/kernels/hgq_quantize/ops.py:164")
+        if name in tallies:
+            unit, per = tallies[name]
+            missing = [k for k in unit if k not in by_shape]
             check(not missing, f"{name}: the main path launched shapes the "
                                f"kernel phase did not time: {missing}")
-            check(sum(tick.values()) > 0, f"{name}: not in the full tick")
+            check(sum(unit.values()) > 0, f"{name}: not in the unit")
             for key in ("ms", "plain_ms"):
-                entry[key] = sum(n * by_shape[k][key] for k, n in tick.items())
-            if all(by_shape[k]["library_ms"] is not None for k in tick):
+                entry[key] = sum(n * by_shape[k][key] for k, n in unit.items())
+            if all(by_shape[k]["library_ms"] is not None for k in unit):
                 entry["library_ms"] = sum(n * by_shape[k]["library_ms"]
-                                          for k, n in tick.items())
+                                          for k, n in unit.items())
             entry["bound_ms"], entry["bound_by"] = bound(
-                sum(n * by_shape[k]["bytes"] for k, n in tick.items()),
-                sum(n * by_shape[k]["flops"] for k, n in tick.items()))
-            entry["per"] = ("one full decode tick of configuration (a), "
-                            "calls by shape as counted on the main path")
-            entry["calls_per_tick"] = {by_shape[k]["shape"]: n
-                                       for k, n in tick.items()}
-            print(f"[kernels] {name}: full tick of (a) "
-                  f"{sum(tick.values())} calls, {entry['ms']:.4f} ms (plain "
-                  f"{entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f})",
-                  flush=True)
+                sum(n * by_shape[k]["bytes"] for k, n in unit.items()),
+                sum(n * by_shape[k]["flops"] for k, n in unit.items()))
+            entry["per"] = per
+            entry["calls_per_unit"] = {by_shape[k]["shape"]: n
+                                       for k, n in unit.items()}
+            print(f"[kernels] {name}: {per}: {sum(unit.values())} calls, "
+                  f"{entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
+                  f"bound {entry['bound_ms']:.4f})", flush=True)
         entry["shapes"] = list(by_shape.values())
         out.append(entry)
     return out
@@ -392,19 +510,24 @@ def kernels_line(cases, tick_shapes):
 # ---------------------------------------------------------------------------
 
 def _counters():
+    from repro_torch.kernels.hgq_quantize import (hgq_quantize_bwd,
+                                                  hgq_quantize_fwd)
     from repro_torch.kernels.kv_dequant import (kv_attention_rows,
                                                 kv_quantize_rows)
     from repro_torch.kernels.qmatmul import qmatmul
     return {"qmatmul": qmatmul, "kv_quantize_rows": kv_quantize_rows,
-            "kv_attention_rows": kv_attention_rows}
+            "kv_attention_rows": kv_attention_rows,
+            "hgq_quantize_fwd": hgq_quantize_fwd,
+            "hgq_quantize_bwd": hgq_quantize_bwd}
 
 
-def _counts():
-    return {k: fn.launches for k, fn in _counters().items()}
+def _counts(names):
+    return {k: fn.launches for k, fn in _counters().items() if k in names}
 
 
-def _shapes():
-    return {k: collections.Counter(fn.shapes) for k, fn in _counters().items()}
+def _shapes(names):
+    return {k: collections.Counter(fn.shapes)
+            for k, fn in _counters().items() if k in names}
 
 
 def _reset_counts():
@@ -413,14 +536,14 @@ def _reset_counts():
         fn.shapes.clear()
 
 
-def _profiled_step(eng):
-    """One tick under ``torch.profiler``: (device operations, ms the
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler``: (device operations, ms the
     device was busy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.step()
+        fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
@@ -439,13 +562,13 @@ def _serve(eng, reqs):
         full = tick_shapes is None and all(r is not None
                                            for r in eng.slot_req)
         if full:
-            before = _shapes()
+            before = _shapes(SERVING)
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         tick_ms.append((time.perf_counter() - t0) * 1e3)
         if full:
-            after = _shapes()
+            after = _shapes(SERVING)
             tick_shapes = {k: after[k] - before[k] for k in after}
     return tick_ms, tick_shapes
 
@@ -464,7 +587,7 @@ def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
         check(eng.submit(Request(prompt=list(pr[:16]), max_new=4))
               is not None, "profile pass: no free slot")
     check(all(r is not None for r in eng.slot_req), "profile pass: idle slot")
-    return _profiled_step(eng)
+    return _profiled(eng.step)
 
 
 @contextlib.contextmanager
@@ -513,7 +636,7 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev):
     two controls -- the card path with one subtle fault each -- are read
     too: {witness: {"rel_l2", "argmax_agree", "controls"?}}."""
     from repro_torch.models import TransformerLM
-    from repro_torch.models.lm import _tree_map
+    from repro_torch.tree import tree_map
     g = np.random.default_rng(SEED)
     toks = torch.as_tensor(g.integers(0, cfg.vocab, (2, 16)))
     cpu = torch.device("cpu")
@@ -539,8 +662,8 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev):
 
     def compare(pp):
         a = run(dev, pp, q)
-        b = run(cpu, _tree_map(lambda t: t.to(cpu), pp),
-                _tree_map(lambda t: t.to(cpu), q))
+        b = run(cpu, tree_map(lambda t: t.to(cpu), pp),
+                tree_map(lambda t: t.to(cpu), q))
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
         return b, {"rel_l2": rel(a, b), "argmax_agree": agree}
 
@@ -585,7 +708,7 @@ def slice_phase(dev):
     configs = (("a", "packed plan_mixed_w4w8 (w4 MLP nibbles), kv_bits 8",
                 plan, 8),
                ("b", "packed uniform int8, kv_bits 4", None, 4))
-    total = {k: 0 for k in _counts()}
+    total = {k: 0 for k in SERVING}
     report, tick_shapes_a = {}, None
     for tag, desc, pl, kv_bits in configs:
         torch.cuda.reset_peak_memory_stats()
@@ -599,7 +722,7 @@ def slice_phase(dev):
         tick_ms, tick_shapes = _serve(eng, reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = _counts()                    # ... and ends here
+        counts = _counts(SERVING)             # ... and ends here
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for k in total:
             total[k] += counts[k]
@@ -674,10 +797,249 @@ def slice_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+QUICKSTART = dict(steps=300, lr=3e-3, beta0=1e-6, beta1=1e-3, gamma=2e-6)
+HGQ_PER_STEP = 12          # quantizers of one jet-tagger step, each way
+# The card's loss and ~EBOPs against the CPU's, at every one of 20 steps.
+# The forward lands on exact grids on both, so only the backward's
+# summation order differs.  The limit lies between that sound reading and
+# two faulty controls, which the check must catch (readings in PERF.md).
+# The loss alone misses a backward that drops a partial sum: the bitwidths
+# it misleads move ~EBOPs at once but cross no rounding point in 20 steps.
+TRAJ_REL_LIMIT = 1e-5
+
+
+def _jet():
+    from repro_torch.models import JetTagger
+    from repro_torch.nn import HGQConfig
+    from repro_torch.train import softmax_xent
+    cfg = HGQConfig(weight_gran="per_parameter", act_gran="per_parameter",
+                    init_weight_f=2.0, init_act_f=2.0)
+    fwd = lambda p, q, b, mode: JetTagger.forward(p, q, b, mode)
+    loss = lambda out, b: softmax_xent(out, b["y"])
+    return JetTagger, cfg, fwd, loss
+
+
+def _quickstart(dev):
+    """examples/quickstart.py's configuration through the port's
+    ``Trainer.run`` on the card, then a CALIB pass on a held-out batch
+    and the fixed-point proxy."""
+    from repro_torch.core import hgq
+    from repro_torch.core.calibrate import (assert_no_overflow,
+                                            fixed_spec_from_range)
+    from repro_torch.data import DataSpec, make_pipeline
+    from repro_torch.train import TrainConfig, Trainer, accuracy
+    JetTagger, cfg, fwd, loss = _jet()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params, qstate = JetTagger.init(gen, cfg, device=dev)
+    widths = [tuple(params[f"d{i}"]["kernel"]["w"].shape) for i in range(4)]
+    check(widths == [(16, 64), (64, 32), (32, 32), (32, 5)],
+          f"not the JetTagger 16-64-32-32-5: {widths}")
+    pipe = make_pipeline(DataSpec(kind="jet", batch=1024), device=dev)
+    starts = []
+
+    def timed_pipe(step):
+        # a step runs from one batch request to the next
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return pipe(step)
+
+    tcfg = TrainConfig(log_every=50, **QUICKSTART)
+    trainer = Trainer(fwd, loss, tcfg, params, qstate, pipeline=timed_pipe)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_counts()                           # the main path starts here
+    t0 = time.perf_counter()
+    trainer.run(log=lambda line: print(f"[train] {line}", flush=True))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = _counts(TRAINING)                # ... and ends here
+    shapes = _shapes(TRAINING)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = tcfg.steps
+    step_ms = np.diff(starts + [t1]) * 1e3
+    per_step = {}
+    for name, by_shape in shapes.items():
+        check(all(c % steps == 0 for c in by_shape.values()),
+              f"{name}: launches not a multiple of the steps: {by_shape}")
+        per_step[name] = collections.Counter(
+            {k: c // steps for k, c in by_shape.items()})
+        n = sum(per_step[name].values())
+        check(n == HGQ_PER_STEP, f"{name}: {n} launches a step, not "
+                                 f"{HGQ_PER_STEP}: {dict(per_step[name])}")
+        lays = {k[0] for k in per_step[name]}
+        check(lays == {"per_tensor", "per_channel", "per_parameter"},
+              f"{name}: layouts on the path {lays}")
+    with torch.no_grad():
+        batch = pipe(10 ** 6)                 # held out
+        logits, qcal, aux = JetTagger.forward(trainer.params, trainer.qstate,
+                                              batch, mode=hgq.CALIB)
+        acc = float(accuracy(logits, batch["y"]))
+        ebops = float(aux.ebops)
+        f0 = trainer.params["d0"]["kernel"]["f"]
+        spec = fixed_spec_from_range(qcal["inp"], trainer.params["inp_f"])
+        fits = bool(assert_no_overflow(batch["x"], spec,
+                                       trainer.params["inp_f"]))
+        o1, _, _ = JetTagger.forward(trainer.params, qcal, batch,
+                                     mode=hgq.EVAL)
+        o2, _, _ = JetTagger.forward(trainer.params, qcal, batch,
+                                     mode=hgq.EVAL)
+    ebops0 = trainer.history[0]["ebops"]
+    report = {
+        "config": "examples/quickstart.py: JetTagger 16-64-32-32-5, "
+                  "per-parameter weights and activations, init f 2, jet "
+                  "batch 1024, 300 steps, lr 3e-3, beta 1e-6 -> 1e-3, "
+                  "gamma 2e-6",
+        "accuracy": acc, "calib_ebops": ebops, "step0_ebops": ebops0,
+        "layer0_f": {"mean": float(f0.mean()), "min": float(f0.min()),
+                     "max": float(f0.max())},
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_p90": float(np.percentile(step_ms, 90)),
+        "samples_per_s": steps * 1024 / (t1 - t0), "wall_s": t1 - t0,
+        "peak_mem_gib": peak, "launches": counts,
+        "launches_per_step": {k: {" ".join(map(str, key)): n
+                                  for key, n in c.items()}
+                              for k, c in per_step.items()},
+        "proxy_input_fits": fits,
+        "eval_repeatable": torch.equal(o1, o2)}
+    print(f"[train] quickstart on the card: {json.dumps(report)}", flush=True)
+    check(acc >= 0.99, f"quickstart accuracy {acc} < 0.99")
+    check(ebops <= 1000.0, f"quickstart CALIB ~EBOPs {ebops} > 1000")
+    check(report["layer0_f"]["mean"] < 2.0,
+          f"layer-0 mean f {report['layer0_f']['mean']} >= 2")
+    check(fits, "calibration input overflows its calibrated type")
+    check(report["eval_repeatable"], "two EVAL forwards differ")
+    check(counts["hgq_quantize_fwd"] == counts["hgq_quantize_bwd"]
+          == HGQ_PER_STEP * steps, f"launches {counts}")
+    return trainer, report, per_step
+
+
+def _trajectory(dev, params, qstate, batches):
+    """20 steps of the quickstart's configuration on ``dev`` from the given
+    init and batches: ([(loss, ~EBOPs)] per step, final params)."""
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import tree_map
+    _, _, fwd, loss = _jet()
+    to = lambda t: t.to(dev)
+    tcfg = TrainConfig(log_every=1, **dict(QUICKSTART, steps=len(batches)))
+    tr = Trainer(fwd, loss, tcfg, tree_map(to, params), tree_map(to, qstate),
+                 pipeline=lambda s: tree_map(to, batches[s]))
+    tr.run(log=lambda *a: None)
+    return ([(h["loss"], h["ebops"]) for h in tr.history],
+            tree_map(lambda t: t.cpu(), tr.params))
+
+
+@contextlib.contextmanager
+def _df_without_last_tile():
+    """Control: the per-channel and per-tensor backward skips its last
+    tile of rows (a reduction that drops a partial sum)."""
+    import repro_torch.kernels.hgq_quantize.ops as ops
+    real = ops.hgq_quantize_bwd
+
+    def dropped(g, x, f):
+        if f.shape == x.shape:
+            return real(g, x, f)
+        cols = x.shape[-1]
+        rows = x.numel() // cols
+        tile = HGQ_TILE_ROWS if f.ndim else max(1, HGQ_TILE_ELEMS // cols)
+        keep = rows - ((rows - 1) % tile + 1)
+        return real(g.reshape(rows, cols)[:keep].contiguous(),
+                    x.reshape(rows, cols)[:keep].contiguous(), f)
+
+    # the wrapper counts its launches on the module's name: these land here
+    dropped.launches, dropped.shapes = 0, collections.Counter()
+    ops.hgq_quantize_bwd = dropped
+    try:
+        yield
+    finally:
+        ops.hgq_quantize_bwd = real
+
+
+@contextlib.contextmanager
+def _rounding_down():
+    """Control: the forward rounds f with floor(f), not floor(f + 1/2)."""
+    import repro_torch.core.hgq as hgq_mod
+    real = hgq_mod.quantize
+    hgq_mod.quantize = lambda x, f: real(x, f - 0.5)
+    try:
+        yield
+    finally:
+        hgq_mod.quantize = real
+
+
+def _card_vs_cpu(dev):
+    """The 20-step trajectory on the card (kernels) and on the CPU (plain
+    versions) from one init and one set of batches, twice on the card, and
+    with each faulty control: gaps in loss and ~EBOPs, largest |dparam|."""
+    from repro_torch.data import jet_batch
+    from repro_torch.tree import tree_leaves
+    JetTagger, cfg, _, _ = _jet()
+    cpu = torch.device("cpu")
+    params, qstate = JetTagger.init(torch.Generator().manual_seed(SEED + 1),
+                                    cfg, device=cpu)
+    batches = [jet_batch(SEED, s, 1024, device=cpu) for s in range(20)]
+    ref, ref_p = _trajectory(cpu, params, qstate, batches)
+
+    def gaps(run):
+        hist, p = run
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        out = {"loss_rel": max(rel(h[0], r[0]) for h, r in zip(hist, ref)),
+               "ebops_rel": max(rel(h[1], r[1]) for h, r in zip(hist, ref)),
+               "param_abs": max(float((a - b).abs().max()) for a, b in zip(
+                   tree_leaves(p), tree_leaves(ref_p)))}
+        out["gap"] = max(out["loss_rel"], out["ebops_rel"])
+        return out
+
+    card1 = _trajectory(dev, params, qstate, batches)
+    card2 = _trajectory(dev, params, qstate, batches)
+    same = card1[0] == card2[0] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(card1[1]),
+                                          tree_leaves(card2[1])))
+    with _df_without_last_tile():
+        drop = _trajectory(dev, params, qstate, batches)
+    with _rounding_down():
+        floor = _trajectory(dev, params, qstate, batches)
+    out = {"sound": gaps(card1), "repeat_bit_identical": same,
+           "controls": {"df_drops_last_row_tile": gaps(drop),
+                        "forward_fi_floor_f": gaps(floor)},
+           "cpu_final_loss": ref[-1][0]}
+    print(f"[train] card vs CPU, 20 steps: {json.dumps(out)} (limit on the "
+          f"larger relative gap of loss and ~EBOPs: {TRAJ_REL_LIMIT})",
+          flush=True)
+    check(same, "two card runs of the 20 steps differ")
+    check(out["sound"]["gap"] <= TRAJ_REL_LIMIT,
+          f"card vs CPU trajectory gap {out['sound']}")
+    check(all(c["gap"] > TRAJ_REL_LIMIT for c in out["controls"].values()),
+          f"the trajectory check misses a control: {out['controls']}")
+    return out
+
+
+def train_phase(dev):
+    trainer, report, per_step = _quickstart(dev)
+    report["card_vs_cpu"] = _card_vs_cpu(dev)
+    # profiled only now, after every timed run
+    step = QUICKSTART["steps"]
+    batch = trainer.pipeline(step)
+    ops, busy = _profiled(lambda: trainer.step_fn(
+        trainer.params, trainer.qstate, trainer.opt, batch, step))
+    med = report["step_ms_median"]
+    report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
+                               "idle_share_of_median_step": 1.0 - busy / med}
+    print(f"[train] profiled step: {ops} device operations, device busy "
+          f"{busy:.3f} ms, idle {1.0 - busy / med:.1%} of the median step "
+          f"({med:.3f} ms)", flush=True)
+    return report, per_step
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "train"),
+                    default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -687,6 +1049,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not beside this script ({src})",
               file=sys.stderr)
         return 1
+    # cuBLAS picks a deterministic workspace before its first handle, so a
+    # repeated training run is bit-identical
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(src))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -712,19 +1077,29 @@ def main(argv=None) -> int:
               flush=True)
 
     cases = kernel_phase(dev)
-    slice_report, tick_shapes, total = None, None, None
+    tallies, launches = {}, {}
+    slice_report = train_report = None
     if args.phase == "all":
         total, slice_report, tick_shapes = slice_phase(dev)
-    kernels = kernels_line(cases, tick_shapes)
-    if total is not None:
-        for k in kernels:
-            k["launches"] = total[k["name"]]
-    ported = {k["name"] for k in kernels}
+        launches.update(total)
+        per = ("one full decode tick of serving configuration (a), calls by "
+               "shape as counted on the main path")
+        tallies.update({k: (tick_shapes[k], per) for k in SERVING})
+    if args.phase in ("all", "train"):
+        train_report, per_step = train_phase(dev)
+        launches.update(train_report["launches"])
+        per = ("one training step of the quickstart jet tagger, calls by "
+               "shape as counted on the main path")
+        tallies.update({k: (per_step[k], per) for k in TRAINING})
+    kernels = kernels_line(cases, tallies)
+    for k in kernels:
+        k["launches"] = launches.get(k["name"], 0)
+    ported = {KERNELS[k["name"]][1] for k in kernels}
     print(json.dumps({
         "kernels": kernels,
         "still_to_port": [{"name": n, "replaces": r}
                           for n, r in TPU_KERNELS if n not in ported],
-        "slice": slice_report}), flush=True)
+        "slice": slice_report, "train": train_report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,31 @@
-"""HGQ core (forward half): quantizer grids, ~EBOPs terms, layer glue,
+"""HGQ core: the trainable-bitwidth quantizer, ~EBOPs terms, layer glue,
+calibration and the fixed-point proxy, Pareto fronts, schedules,
 precision plans."""
-from .quantizer import (f_shape_for, group_size, int_bits_from_range,
-                        quantize_inference, train_bits)
-from .hgq import (CALIB, EVAL, TRAIN, ActState, Aux, QTensor, matmul_ebops,
-                  observe, quant_act, quant_weight)
+from .quantizer import (LN2, QuantizerSpec, f_shape_for, grad_scale,
+                        group_occupied_bits, group_size, int_bits_from_range,
+                        occupied_bits, quantize, quantize_inference,
+                        ste_round, train_bits)
+from .ebops import (ebops_conv2d, ebops_dyn_matmul, ebops_matmul, l1_bits,
+                    loss_with_resource)
+from .hgq import (CALIB, EVAL, TRAIN, ActState, Aux, QTensor,
+                  dyn_matmul_ebops, init_act_state, matmul_ebops, observe,
+                  quant_act, quant_weight)
+from .calibrate import (FixedSpec, assert_no_overflow, fixed_spec_for_weights,
+                        fixed_spec_from_range, int_bits_exact)
+from .fixedpoint import representable, to_fixed
+from .pareto import ParetoFront, ParetoPoint
 from .plan import NIBBLE_BITS, LayerPlan, PrecisionPlan
+from .schedule import constant, linear_warmup_cosine, log_ramp
 
-__all__ = ["ActState", "Aux", "CALIB", "EVAL", "LayerPlan", "NIBBLE_BITS",
-           "PrecisionPlan", "QTensor", "TRAIN", "f_shape_for", "group_size",
-           "int_bits_from_range", "matmul_ebops", "observe", "quant_act",
-           "quant_weight", "quantize_inference", "train_bits"]
+__all__ = ["ActState", "Aux", "CALIB", "EVAL", "FixedSpec", "LN2",
+           "LayerPlan", "NIBBLE_BITS", "ParetoFront", "ParetoPoint",
+           "PrecisionPlan", "QTensor", "QuantizerSpec", "TRAIN",
+           "assert_no_overflow", "constant", "dyn_matmul_ebops",
+           "ebops_conv2d", "ebops_dyn_matmul", "ebops_matmul", "f_shape_for",
+           "fixed_spec_for_weights", "fixed_spec_from_range", "grad_scale",
+           "group_occupied_bits", "group_size", "init_act_state",
+           "int_bits_exact", "int_bits_from_range", "l1_bits",
+           "linear_warmup_cosine", "log_ramp", "loss_with_resource",
+           "matmul_ebops", "observe", "occupied_bits", "quant_act",
+           "quant_weight", "quantize", "quantize_inference", "representable",
+           "ste_round", "to_fixed", "train_bits"]

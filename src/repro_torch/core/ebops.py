@@ -1,6 +1,8 @@
-"""~EBOPs terms of the forward pass (counterpart of ``repro/core/ebops.py``).
+"""~EBOPs terms and the Eq.-16 loss (counterpart of ``repro/core/ebops.py``).
 
 EBOPs = sum over multiplications of b_i * b_j (paper SSec. III.C, Eq. 5).
+The terms here are the differentiable ~EBOPs of training: bits =
+relu(i' + f) from running extremes, which upper-bound the exact count.
 Reductions are separable, ``sum_ij b_x[i] b_w[ij] = <b_x, sum_j b_w>``, so
 no [in, out] bit tensor is ever materialized.
 """
@@ -52,6 +54,52 @@ def ebops_matmul(bx: torch.Tensor, bw: torch.Tensor,
     return torch.dot(bx, row)
 
 
+def ebops_conv2d(bx: torch.Tensor, bw: torch.Tensor,
+                 w_shape: Sequence[int]) -> torch.Tensor:
+    """~EBOPs of a conv2d with kernel [kh, kw, cin, cout], stream-IO
+    counting (paper SSec. V.A / V.C): each kernel weight is one physical
+    multiplier, counted once.  ``bx`` broadcastable to [cin], ``bw`` to
+    w_shape."""
+    kh, kw, cin, cout = w_shape
+    bw = torch.as_tensor(bw, dtype=torch.float32)
+    if bw.ndim == 0:
+        bw = bw.reshape(1, 1, 1, 1)
+    per_cin = _bsum(bw, (kh, kw, cin, cout), axes=(0, 1, 3)).reshape(-1)
+    bx = torch.as_tensor(bx, dtype=torch.float32).reshape(-1)
+    if bx.shape[0] == 1 and per_cin.shape[0] == 1:
+        return bx[0] * per_cin[0] * cin
+    if bx.shape[0] == 1:
+        return bx[0] * per_cin.sum()
+    if per_cin.shape[0] == 1:
+        return per_cin[0] * bx.sum()
+    return torch.dot(bx, per_cin)
+
+
+def ebops_dyn_matmul(ba: torch.Tensor, bb: torch.Tensor,
+                     a_shape: Sequence[int], b_shape: Sequence[int]
+                     ) -> torch.Tensor:
+    """~EBOPs of a variable x variable matmul A[m, k] @ B[k, n] (e.g.
+    Q.K^T): sum_k (sum_m ba)[k] * (sum_n bb)[k], ``ba``/``bb``
+    broadcastable to the trailing two axes of a_shape/b_shape."""
+    m, k = a_shape[-2], a_shape[-1]
+    k2, n = b_shape[-2], b_shape[-1]
+    if k != k2:
+        raise ValueError(f"inner dims differ: {a_shape} @ {b_shape}")
+    ba = torch.as_tensor(ba, dtype=torch.float32)
+    bb = torch.as_tensor(bb, dtype=torch.float32)
+    ba = ba.reshape((1, 1) if ba.ndim == 0 else ba.shape[-2:])
+    bb = bb.reshape((1, 1) if bb.ndim == 0 else bb.shape[-2:])
+    a_k = _bsum(ba, (m, k), axes=(0,)).reshape(-1)
+    b_k = _bsum(bb, (k, n), axes=(1,)).reshape(-1)
+    if a_k.shape[0] == 1 and b_k.shape[0] == 1:
+        return a_k[0] * b_k[0] * k
+    if a_k.shape[0] == 1:
+        return a_k[0] * b_k.sum()
+    if b_k.shape[0] == 1:
+        return b_k[0] * a_k.sum()
+    return torch.dot(a_k, b_k)
+
+
 def l1_bits(*bit_tensors: torch.Tensor) -> torch.Tensor:
     """L1 regularizer on bitwidths (Eq. 16, gamma term)."""
     tot = torch.zeros((), dtype=torch.float32)
@@ -59,3 +107,9 @@ def l1_bits(*bit_tensors: torch.Tensor) -> torch.Tensor:
         b = torch.as_tensor(b, dtype=torch.float32)
         tot = tot.to(b.device) + b.sum()
     return tot
+
+
+def loss_with_resource(base_loss: torch.Tensor, ebops: torch.Tensor,
+                       l1: torch.Tensor, beta, gamma) -> torch.Tensor:
+    """Eq. (16): L = L_base + beta * ~EBOPs + gamma * L1_norm."""
+    return base_loss + beta * ebops + gamma * l1

@@ -1,13 +1,17 @@
-"""HGQ glue, forward half (counterpart of ``repro/core/hgq.py``).
+"""HGQ glue: quantized tensors, activation-range state, aux accumulation
+(counterpart of ``repro/core/hgq.py``).
 
 Quantized layers speak one protocol: weights carry a fractional-bit
 tensor ``f`` beside the value; activations carry ``f`` plus a running
 range state ``ActState(vmin, vmax)``; each multiplicative op adds its
 ~EBOPs term and each activation quantizer its L1 term to an :class:`Aux`.
 
-Modes: CALIB accumulates exact ranges, EVAL freezes them.  TRAIN (the
-surrogate-gradient quantizer and decaying ranges) waits for the training
-slice and raises here.
+Modes:
+  TRAIN  -- quantize with surrogate gradients (``quantize``, the
+            ``hgq_quantize`` kernel on the card), update ranges with
+            slowly decaying running extremes.
+  CALIB  -- exact range accumulation (no decay) for Eq.-3 calibration.
+  EVAL   -- quantize, frozen ranges.
 """
 from __future__ import annotations
 
@@ -18,9 +22,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import ebops as ebops_lib
-from .quantizer import quantize_inference, train_bits
+from .quantizer import grad_scale, quantize, quantize_inference, train_bits
 
 TRAIN, CALIB, EVAL = "train", "calib", "eval"
+
+# decay of the running extremes in TRAIN mode: old extremes shrink toward
+# zero slowly so stale outliers fade (approximates per-epoch min/max)
+RANGE_DECAY = 0.999
 
 
 class QTensor(NamedTuple):
@@ -52,13 +60,6 @@ class Aux:
             self.l1 = self.l1 + l1
 
 
-def _forward_only(mode: str) -> None:
-    if mode == TRAIN:
-        raise NotImplementedError(
-            "TRAIN mode (surrogate-gradient quantizer) is not ported yet; "
-            "serving runs in EVAL")
-
-
 def init_act_state(f_sh, device=None) -> ActState:
     return ActState(torch.zeros(f_sh, dtype=torch.float32, device=device),
                     torch.zeros(f_sh, dtype=torch.float32, device=device))
@@ -80,13 +81,16 @@ def _feature_extremes(x: torch.Tensor, f_sh) -> Tuple[torch.Tensor,
 
 
 def observe(x: torch.Tensor, state: ActState, mode: str) -> ActState:
-    """Update the running activation extremes (exact in CALIB, frozen in
-    EVAL)."""
-    _forward_only(mode)
+    """Update the running activation extremes: exact in CALIB, decaying
+    by ``RANGE_DECAY`` in TRAIN, frozen in EVAL."""
     if mode == CALIB:
         vmin_b, vmax_b = _feature_extremes(x, state.vmin.shape)
         return ActState(torch.minimum(state.vmin, vmin_b),
                         torch.maximum(state.vmax, vmax_b))
+    if mode == TRAIN:
+        vmin_b, vmax_b = _feature_extremes(x, state.vmin.shape)
+        return ActState(torch.minimum(state.vmin * RANGE_DECAY, vmin_b),
+                        torch.maximum(state.vmax * RANGE_DECAY, vmax_b))
     return state
 
 
@@ -96,16 +100,25 @@ def _gsize(value_shape, f_sh) -> float:
     return max(float(n_val) / float(n_f), 1.0)
 
 
+def _bits_f(f: torch.Tensor, value_shape, mode: str) -> torch.Tensor:
+    """f as the bits estimate sees it: in TRAIN its gradient is scaled by
+    1/sqrt(||g||) (SSec. III.D.3), on the bits path only, so the loss
+    path's surrogate gradient through ``quantize`` is untouched."""
+    if mode != TRAIN:
+        return f
+    return grad_scale(f, 1.0 / math.sqrt(_gsize(value_shape, f.shape)))
+
+
 def quant_weight(w: torch.Tensor, f: Optional[torch.Tensor],
-                 mode: str = EVAL) -> QTensor:
+                 mode: str = TRAIN) -> QTensor:
     """Quantize a weight on its 2^-f grid; bits from Eq. 3 on the
     per-group weight extremes (no sign bit: constants)."""
-    _forward_only(mode)
     if f is None:
         return QTensor(w, None)
-    wq = quantize_inference(w, f)
+    wq = quantize(w, f) if mode == TRAIN else quantize_inference(w, f)
     vmin, vmax = _feature_extremes(w, f.shape)
-    return QTensor(wq, train_bits(f, vmin, vmax, signed_bit=False))
+    return QTensor(wq, train_bits(_bits_f(f, w.shape, mode), vmin, vmax,
+                                  signed_bit=False))
 
 
 def quant_act(x: torch.Tensor, f: Optional[torch.Tensor],
@@ -114,15 +127,15 @@ def quant_act(x: torch.Tensor, f: Optional[torch.Tensor],
     """Quantize an activation; update its range state.  With ``aux`` set,
     also compute the bits estimate and add the L1 term; ``aux=None``
     skips that bookkeeping (a decode step whose Aux nobody reads)."""
-    _forward_only(mode)
     if f is None:
         return QTensor(x, None), state
-    xq = quantize_inference(x, f)
+    xq = quantize(x, f) if mode == TRAIN else quantize_inference(x, f)
     new_state = observe(x, state, mode) if state is not None else None
     if aux is None:
         return QTensor(xq, None), new_state
     if new_state is not None:
-        bits = train_bits(f, new_state.vmin, new_state.vmax, signed_bit=True)
+        bits = train_bits(_bits_f(f, x.shape, mode), new_state.vmin,
+                          new_state.vmax, signed_bit=True)
     else:
         bits = torch.relu(f) + 1.0
     if gamma_l1:
@@ -136,3 +149,13 @@ def matmul_ebops(aux: Optional[Aux], x_bits, w_bits, in_dim: int,
     if aux is None or x_bits is None or w_bits is None:
         return
     aux.add(ebops=ebops_lib.ebops_matmul(x_bits, w_bits, in_dim, out_dim))
+
+
+def dyn_matmul_ebops(aux: Optional[Aux], a_bits, b_bits, a_shape,
+                     b_shape) -> None:
+    """Record ~EBOPs of a variable x variable matmul if both operands are
+    quantized."""
+    if aux is None or a_bits is None or b_bits is None:
+        return
+    aux.add(ebops=ebops_lib.ebops_dyn_matmul(a_bits, b_bits, a_shape,
+                                             b_shape))

@@ -7,7 +7,7 @@ A :class:`PrecisionPlan` maps ``/``-joined params-tree paths to
 byte), ``kv_bits`` (serving KV cache rows) and ``scale_exp`` (reported
 grid exponent).  ``PrecisionPlan()`` is uniform int8.  Deriving a plan
 from trained weights (``plan_from_params``) and its reporting helpers
-wait for the training slice.
+are not ported yet.
 """
 from __future__ import annotations
 

@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"qmatmul": "qmatmul.cu", "kv_dequant": "kv_dequant.cu"}
+SOURCES = {"qmatmul": "qmatmul.cu", "kv_dequant": "kv_dequant.cu",
+           "hgq_quantize": "hgq_quantize.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

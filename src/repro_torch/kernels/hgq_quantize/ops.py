@@ -1,0 +1,177 @@
+"""The differentiable HGQ quantizer and its kernel wrappers (counterpart
+of ``repro/kernels/hgq_quantize/ops.py``).
+
+``hgq_quantize(x, f)`` is Eq. 4 with the Algorithm-1 gradient:
+straight-through in x (``dx = g``) and ``df = sum g * ln2 * (x - xq)``
+over the axes f is broadcast along.  On CUDA tensors the forward and the
+backward launch the hand-written kernels of ``csrc/hgq_quantize.cu``
+(no fallback); on CPU tensors they take the plain versions in
+``ref.py``.  The backward saves x and f, not the quantization error, and
+recomputes ``xq``: one float32 tensor less per quantizer.
+
+Three layouts of f reach the kernels, x viewed as [rows, cols] over its
+last axis: per tensor (``f.ndim == 0``), per channel (``f`` of shape
+``(N,)`` or ``(1, ..., 1, N)``, N the last axis) and per parameter
+(``f.shape == x.shape``).  On CUDA any other broadcast raises.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .. import _build
+from . import ref
+
+LAYOUTS = ("per_tensor", "per_channel", "per_parameter")
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def layout_of(x_shape: Sequence[int], f_shape: Sequence[int]
+              ) -> Optional[str]:
+    """The kernel layout of f against x, or None if no kernel takes it."""
+    x_shape, f_shape = tuple(x_shape), tuple(f_shape)
+    if not f_shape:
+        return "per_tensor"
+    if f_shape == x_shape:
+        return "per_parameter"
+    if (x_shape and len(f_shape) <= len(x_shape)
+            and f_shape[-1] == x_shape[-1]
+            and all(d == 1 for d in f_shape[:-1])):
+        return "per_channel"
+    return None
+
+
+def _rows_cols(x: torch.Tensor) -> Tuple[int, int]:
+    cols = x.shape[-1] if x.ndim else 1
+    return (x.numel() // cols if cols else 0), cols
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library, its entry points typed on first use."""
+    lib = _build.load("hgq_quantize")
+    if not getattr(lib, "typed", False):
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.hgq_quantize_fwd_launch.argtypes = [vp, vp, vp, ll, ci, ci, ci,
+                                                vp]
+        lib.hgq_quantize_fwd_launch.restype = ci
+        lib.hgq_quantize_bwd_launch.argtypes = [vp, vp, vp, vp, vp, ll, ci,
+                                                ci, ci, vp]
+        lib.hgq_quantize_bwd_launch.restype = ci
+        lib.hgq_quantize_bwd_scratch.argtypes = [ll, ci, ci]
+        lib.hgq_quantize_bwd_scratch.restype = ll
+        lib.typed = True
+    return lib
+
+
+def _check(what: str, f: torch.Tensor, *xs: torch.Tensor) -> str:
+    x = xs[0]
+    if not all(t.is_cuda and t.device == x.device for t in (f,) + xs):
+        raise ValueError(f"{what} needs its tensors on one CUDA device")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in xs):
+        raise TypeError(f"{what} takes float32 or bfloat16 x (and g), got "
+                        f"{[t.dtype for t in xs]}")
+    if f.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 f, got {f.dtype}")
+    if not all(t.is_contiguous() for t in (f,) + xs):
+        raise ValueError(f"{what} needs contiguous tensors")
+    if any(t.shape != x.shape for t in xs):
+        raise ValueError(f"{what}: g {tuple(xs[-1].shape)} vs x "
+                         f"{tuple(x.shape)}")
+    lay = layout_of(x.shape, f.shape)
+    if lay is None:
+        raise ValueError(f"{what}: no kernel for f {tuple(f.shape)} against "
+                         f"x {tuple(x.shape)} (per tensor, per channel over "
+                         f"the last axis, or per parameter)")
+    return lay
+
+
+def _key(lay: str, x: torch.Tensor) -> Tuple[str, Tuple[int, ...], str]:
+    return lay, tuple(x.shape), str(x.dtype).replace("torch.", "")
+
+
+def hgq_quantize_fwd(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """The forward kernel: Eq. 4 of contiguous CUDA x (float32 or
+    bfloat16) at contiguous float32 f in one of the three layouts."""
+    lay = _check("hgq_quantize_fwd", f, x)
+    out = torch.empty_like(x)
+    rows, cols = _rows_cols(x)
+    if rows == 0:
+        return out
+    _build.check(_lib().hgq_quantize_fwd_launch(
+        x.data_ptr(), f.data_ptr(), out.data_ptr(), rows, cols,
+        LAYOUTS.index(lay), int(x.dtype == torch.bfloat16),
+        _build.stream_ptr(x.device)), "hgq_quantize_fwd")
+    hgq_quantize_fwd.launches += 1
+    hgq_quantize_fwd.shapes[_key(lay, x)] += 1
+    return out
+
+
+# launches of the kernel, in all and by (layout, x shape, dtype)
+hgq_quantize_fwd.launches = 0
+hgq_quantize_fwd.shapes = collections.Counter()
+
+
+def hgq_quantize_bwd(g: torch.Tensor, x: torch.Tensor,
+                     f: torch.Tensor) -> torch.Tensor:
+    """The backward kernel: ``df`` (float32, f's shape) from contiguous
+    CUDA g and x of one dtype and float32 f; a fixed-order reduction."""
+    lay = _check("hgq_quantize_bwd", f, x, g)
+    rows, cols = _rows_cols(x)
+    if rows == 0:
+        return torch.zeros_like(f)
+    df = torch.empty_like(f)
+    lib = _lib()
+    n_scratch = lib.hgq_quantize_bwd_scratch(rows, cols, LAYOUTS.index(lay))
+    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=x.device)
+               if n_scratch else None)
+    _build.check(lib.hgq_quantize_bwd_launch(
+        g.data_ptr(), x.data_ptr(), f.data_ptr(), df.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), rows, cols,
+        LAYOUTS.index(lay),
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device)),
+        "hgq_quantize_bwd")
+    hgq_quantize_bwd.launches += 1
+    hgq_quantize_bwd.shapes[_key(lay, x)] += 1
+    return df
+
+
+# launches of the kernel, in all and by (layout, x shape, dtype)
+hgq_quantize_bwd.launches = 0
+hgq_quantize_bwd.shapes = collections.Counter()
+
+
+class _HGQQuantize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, f):
+        if x.is_cuda:
+            x, f = x.contiguous(), f.contiguous()
+            out = hgq_quantize_fwd(x, f)
+        else:
+            out = ref.hgq_quantize_ref(x, f)
+        ctx.save_for_backward(x, f)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, f = ctx.saved_tensors
+        df = None
+        if ctx.needs_input_grad[1]:
+            if x.is_cuda:
+                df = hgq_quantize_bwd(g.contiguous(), x, f)
+            else:
+                df = ref.hgq_quantize_grad_ref(g, x, f)
+        return (g if ctx.needs_input_grad[0] else None), df
+
+
+def hgq_quantize(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Differentiable HGQ quantizer (Alg. 1): Eq. 4 forward in x's dtype;
+    ``dx = g``, ``df = sum g * ln2 * (x - xq)`` down to f's shape.
+
+    f: a scalar (per tensor), ``(N,)`` / ``(1, ..., 1, N)`` over x's last
+    axis (per channel) or ``x.shape`` (per parameter); on the CPU any
+    shape that broadcasts against x."""
+    return _HGQQuantize.apply(x, f)
+

@@ -1,6 +1,7 @@
-"""Models ported so far: the dense decoder-only LM."""
+"""Models ported so far: the dense decoder-only LM and the jet tagger."""
 from .config import ModelConfig
 from .lm import TransformerLM
+from .tasks import JetTagger
 
 
 def model_for(cfg: ModelConfig):
@@ -10,4 +11,4 @@ def model_for(cfg: ModelConfig):
     return TransformerLM
 
 
-__all__ = ["ModelConfig", "TransformerLM", "model_for"]
+__all__ = ["JetTagger", "ModelConfig", "TransformerLM", "model_for"]

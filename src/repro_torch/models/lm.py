@@ -1,6 +1,5 @@
 """Decoder-only transformer LM, dense family, decode path (counterpart of
-``repro/models/lm.py``; the training ``forward`` waits for the training
-slice).
+``repro/models/lm.py``; the training ``forward`` is not ported yet).
 
 Params keep the JAX tree: nested dicts with stacked ``[L, ...]`` layer
 leaves, so plan keys (``layers/mlp/gate/kernel``) and ``from_jax`` carry
@@ -16,7 +15,7 @@ import torch
 from torch import nn
 
 from ..core import hgq
-from ..core.hgq import ActState, QTensor
+from ..core.hgq import QTensor
 from ..device import resolve_device
 from ..dist.perf import is_packed, packed_mantissas
 from ..kernels.qmatmul.ops import qmatmul_any
@@ -25,6 +24,7 @@ from ..nn.attention import (AttnConfig, GQAAttention, KVCache, QKVCache,
 from ..nn.basic import HDense, HEmbedding, LayerNorm, RMSNorm
 from ..nn.common import get_qw
 from ..nn.mlp import GLUMLP
+from ..tree import tree_map
 from .config import ModelConfig
 
 Caches = Union[KVCache, QKVCache]
@@ -41,22 +41,9 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
                       causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
 
 
-def _tree_map(fn, *trees):
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, ActState):
-        return ActState(*(_tree_map(fn, *f) for f in zip(*trees)))
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(_tree_map(fn, *f) for f in zip(*trees))
-    if t0 is None:
-        return None
-    return fn(*trees)
-
-
 def layer_views(stacked: Any, n_layers: int) -> List[Any]:
     """Stacked ``[L, ...]`` layer tree -> one tree of views per layer."""
-    return [_tree_map(lambda a, i=i: a[i], stacked) for i in range(n_layers)]
+    return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n_layers)]
 
 
 def _check_positions(cache_pos, S: int, W: int) -> None:
@@ -118,8 +105,8 @@ class TransformerLM(nn.Module):
                                                cfg.hgq, dev)
             per_p.append(lp)
             per_q.append(lq)
-        p["layers"] = _tree_map(lambda *a: torch.stack(a), *per_p)
-        q["layers"] = _tree_map(lambda *a: torch.stack(a), *per_q)
+        p["layers"] = tree_map(lambda *a: torch.stack(a), *per_p)
+        q["layers"] = tree_map(lambda *a: torch.stack(a), *per_q)
         p["final_norm"], q["final_norm"] = Norm.init(gen, cfg.d_model,
                                                      cfg.hgq, device=dev)
         if not cfg.tie_embeddings:

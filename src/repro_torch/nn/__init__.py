@@ -1,4 +1,4 @@
-"""Quantized layer library (dense LM serving subset)."""
+"""Quantized layer library (the dense LM and the jet tagger's subset)."""
 from .attention import (AttnConfig, GQAAttention, KVCache, QKVCache,
                         decode_positions, rope)
 from .basic import HDense, HEmbedding, LayerNorm, RMSNorm, activation

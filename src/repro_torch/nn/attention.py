@@ -1,6 +1,6 @@
 """Quantized GQA attention with a KV-cache decode path (counterpart of
-``repro/nn/attention.py``; the chunked no-cache forward waits for the
-training slice).
+``repro/nn/attention.py``; the chunked no-cache forward waits for LM
+training, ``TransformerLM.forward``).
 
 Caches are updated IN PLACE: ``apply`` writes the new k/v rows into the
 layer's cache view and returns the same cache object.  JAX returns a new

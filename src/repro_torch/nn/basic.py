@@ -1,6 +1,6 @@
 """Basic quantized layers: dense, embedding, norms, activations
-(counterpart of ``repro/nn/basic.py``; ``HConv2D`` waits for the
-training slice)."""
+(counterpart of ``repro/nn/basic.py``; ``HConv2D`` waits for the port
+of the SVHN model)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple

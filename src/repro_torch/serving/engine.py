@@ -32,8 +32,9 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.lm import _tree_map, layer_views
+from ..models.lm import layer_views
 from ..nn.attention import NEG_INF
+from ..tree import tree_map
 
 
 @dataclasses.dataclass
@@ -91,7 +92,7 @@ def _sample(logits: torch.Tensor, gen: torch.Generator, temp: torch.Tensor,
 
 
 def _to(tree, device):
-    return _tree_map(lambda a: a.to(device), tree)
+    return tree_map(lambda a: a.to(device), tree)
 
 
 class Engine:

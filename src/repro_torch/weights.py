@@ -1,10 +1,11 @@
-"""Carry a JAX-package params / qstate tree into the port.
+"""Carry JAX-package trees (params, qstate, optimizer state) into the port.
 
-The caller hands the reference's trees over as nested dicts of numpy
-arrays (``jax.tree.map(np.asarray, tree)``); the keys stay as they are,
-so plan paths and the packing walker see the same tree.  Range-state
-pairs (any named tuple with fields ``vmin``, ``vmax``) become the port's
-``ActState``.
+The caller hands the reference's trees over as nested containers of
+numpy arrays (``jax.tree.map(np.asarray, tree)``); the keys stay as they
+are, so plan paths, checkpoint keys and the packing walker see the same
+tree.  Range-state pairs (any named tuple with fields ``vmin``, ``vmax``)
+become the port's ``ActState``, and AdamW states (fields ``step``,
+``mu``, ``nu``) its ``AdamWState``, so a JAX run can resume in the port.
 """
 from __future__ import annotations
 
@@ -15,14 +16,18 @@ import torch
 
 from .core.hgq import ActState
 from .device import resolve_device
+from .optim import AdamWState
+
+_NAMED = {("vmin", "vmax"): ActState, ("step", "mu", "nu"): AdamWState}
 
 
 def _convert(obj: Any, device: torch.device) -> Any:
     if isinstance(obj, dict):
         return {k: _convert(v, device) for k, v in obj.items()}
-    if isinstance(obj, tuple) and getattr(obj, "_fields", None) == \
-            ("vmin", "vmax"):
-        return ActState(*(_convert(v, device) for v in obj))
+    named = _NAMED.get(getattr(obj, "_fields", None)) \
+        if isinstance(obj, tuple) else None
+    if named is not None:
+        return named(*(_convert(v, device) for v in obj))
     if isinstance(obj, (list, tuple)):
         return type(obj)(_convert(v, device) for v in obj)
     if obj is None:
@@ -30,8 +35,8 @@ def _convert(obj: Any, device: torch.device) -> Any:
     return torch.from_numpy(np.array(obj, copy=True)).to(device)
 
 
-def from_jax(params: Any, qstate: Any, device=None) -> Tuple[Any, Any]:
-    """(params, qstate) as nested numpy trees -> the port's trees on
-    ``device`` (the card by default)."""
+def from_jax(*trees: Any, device=None) -> Tuple[Any, ...]:
+    """Trees of numpy arrays (e.g. params, qstate and an ``AdamWState``)
+    -> the port's trees on ``device`` (the card by default), in order."""
     dev = resolve_device(device)
-    return _convert(params, dev), _convert(qstate, dev)
+    return tuple(_convert(t, dev) for t in trees)

@@ -1,0 +1,165 @@
+"""Port parity: the HGQ quantizer op ``repro_torch.kernels.hgq_quantize``
+against the JAX package's kernel op (Pallas, interpret mode) and its
+plain reference, and the port's training quantizer against JAX's.
+
+The forward is compared bit for bit; ``df`` is a float32 sum, whose
+order differs between the two packages, so it is held at rtol 1e-5 /
+atol 1e-6 (the tolerance of ``tests/test_kernels.py`` for the kernel
+against Algorithm 1); ``dx`` is ``g`` itself.  Inputs are made with
+numpy from a seed and handed to both sides."""
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", DeprecationWarning)
+    import jax
+    import jax.numpy as jnp
+    import repro.dist  # noqa: F401  (repro.nn imports repro.dist lazily)
+    from repro.core import quantizer as jq
+    from repro.kernels import hgq_quantize as j_hgq_quantize
+    from repro.kernels.hgq_quantize.ref import hgq_quantize_ref as j_ref
+
+from repro_torch.core import quantizer as tq
+from repro_torch.kernels.hgq_quantize import (hgq_quantize,
+                                              hgq_quantize_bwd,
+                                              hgq_quantize_fwd,
+                                              hgq_quantize_grad_ref,
+                                              hgq_quantize_ref, layout_of)
+
+# tests/test_kernels.py's QUANT_SHAPES, plus the (1, ..., 1, N) per-channel
+# f that f_shape_for gives weights
+QUANT_SHAPES = [((64, 256), ()), ((64, 256), (256,)), ((64, 256), (64, 256)),
+                ((3, 5, 100), ()), ((3, 5, 100), (100,)), ((7,), (7,)),
+                ((33, 130), (130,)), ((1, 128), (1, 128)), ((2, 2, 2, 64), ()),
+                ((64, 256), (1, 256)), ((33, 130), (1, 130)),
+                ((3, 5, 100), (1, 1, 100))]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().to(torch.float32).numpy()
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+def _same(j, t) -> None:
+    jb, tb = _bits(j), _bits(t)
+    assert jb.shape == tb.shape
+    bad = np.flatnonzero(jb != tb)
+    assert bad.size == 0, f"{bad.size} of {jb.size} differ"
+
+
+def _inputs(shape, fshape, jdt, seed):
+    rng = np.random.default_rng(seed)
+    # x rounded to the working dtype once, so both sides read the same values
+    x = np.asarray(jnp.asarray(rng.normal(size=shape).astype(np.float32) * 4,
+                               jdt), np.float32)
+    f = rng.uniform(-1, 8, size=fshape).astype(np.float32)
+    g = np.asarray(jnp.asarray(rng.normal(size=shape).astype(np.float32),
+                               jdt), np.float32)
+    return x, f, g
+
+
+@pytest.mark.parametrize("shape,fshape", QUANT_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_forward_and_grads_match_jax(shape, fshape, dtype):
+    jdt, tdt = DTYPES[dtype]
+    x, f, g = _inputs(shape, fshape, jdt, seed=len(shape) * 1000 + sum(shape))
+    xj, fj, gj = jnp.asarray(x, jdt), jnp.asarray(f), jnp.asarray(g, jdt)
+    xt = torch.tensor(x).to(tdt).requires_grad_(True)
+    ft = torch.tensor(f).requires_grad_(True)
+    out = hgq_quantize(xt, ft)
+    assert out.dtype == tdt and out.shape == xt.shape
+    _same(j_ref(xj, jnp.broadcast_to(fj, xj.shape)), out)
+    _same(hgq_quantize_ref(xt.detach(), ft.detach()), out)
+    if len(fshape) < 2 or fshape == shape:
+        # the JAX op's own vjp; its backward cannot reduce to a (1, N) f
+        jout, vjp = jax.vjp(j_hgq_quantize, xj, fj)
+        _same(jout, out)
+        _, df_j = vjp(gj)
+    else:
+        # there, Algorithm 1 itself (test_kernels.py pins the op to it)
+        _same(j_hgq_quantize(xj, fj), out)
+        _, vjp = jax.vjp(jq.quantize, xj, fj)
+        _, df_j = vjp(gj)
+    gt = torch.tensor(g).to(tdt)
+    dx, df = torch.autograd.grad(out, (xt, ft), gt)
+    assert torch.equal(dx, gt)
+    assert df.dtype == torch.float32 and df.shape == ft.shape
+    np.testing.assert_allclose(df.numpy(), np.asarray(df_j, np.float32),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        hgq_quantize_grad_ref(gt, xt.detach(), ft.detach()), df,
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fkind", ["channel", "param"])
+def test_training_quantizer_lands_on_the_grid(fkind):
+    """The port's TRAIN quantizer equals Eq. 4 (JAX ``quantize_inference``)
+    bit for bit; JAX's ``quantize`` (x - (sg(d + a) - a)) differs from it
+    by a float32 residue on some elements, and the port differs from JAX's
+    ``quantize`` only there, by at most that residue."""
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(512, 96)) * 4).astype(np.float32)
+    if fkind == "channel":
+        f = np.tile(np.float32([2.0, 3.7, 6.0]), 32)
+    else:
+        f = rng.uniform(-1, 8, size=x.shape).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ft = torch.from_numpy(f).requires_grad_(True)
+    got = tq.quantize(xt, ft).detach().numpy()
+    exact = np.asarray(jq.quantize_inference(jnp.asarray(x), jnp.asarray(f)))
+    surrogate = np.asarray(jq.quantize(jnp.asarray(x), jnp.asarray(f)))
+    _same(exact, torch.from_numpy(got))
+    off = surrogate != exact
+    print(f"\nJAX quantize off the Eq.-4 grid ({fkind} f): {off.mean():.2%} "
+          f"of elements, by up to {np.abs(surrogate - exact).max():.3g}")
+    assert 0 < off.mean() < 0.05, off.mean()          # the residue is real
+    np.testing.assert_array_equal(got[~off], surrogate[~off])
+    assert np.all(np.abs(got - surrogate) <= np.abs(surrogate - exact))
+    # and its gradients are Algorithm 1's
+    _, vjp = jax.vjp(jq.quantize, jnp.asarray(x), jnp.asarray(f))
+    dx_j, df_j = vjp(jnp.ones_like(jnp.asarray(x)))
+    dx, df = torch.autograd.grad(tq.quantize(xt, ft).sum(), (xt, ft))
+    np.testing.assert_array_equal(dx.numpy(), np.asarray(dx_j))
+    np.testing.assert_allclose(df.numpy(), np.asarray(df_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_layouts():
+    assert layout_of((1024, 16), ()) == "per_tensor"
+    assert layout_of((), ()) == "per_tensor"
+    assert layout_of((1024, 16), (16,)) == "per_channel"
+    assert layout_of((896, 4864), (1, 4864)) == "per_channel"
+    assert layout_of((3, 5, 100), (1, 1, 100)) == "per_channel"
+    assert layout_of((16, 64), (16, 64)) == "per_parameter"
+    assert layout_of((64,), (64,)) == "per_parameter"
+    for x_shape, f_shape in (((16, 64), (16, 1)), ((3, 5, 100), (3, 1, 1)),
+                             ((3, 5, 100), (5, 100)), ((16, 64), (1,)),
+                             ((64,), (1, 64))):
+        assert layout_of(x_shape, f_shape) is None, (x_shape, f_shape)
+
+
+def test_cpu_takes_the_plain_version_and_any_broadcast():
+    """On the CPU the op takes the plain version (the kernels' counters
+    stay put), also for f shapes no kernel takes; the kernel wrappers
+    themselves refuse CPU tensors."""
+    before = (hgq_quantize_fwd.launches, hgq_quantize_bwd.launches)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.normal(size=(12, 10)) * 3).astype(np.float32))
+    f = torch.from_numpy(rng.uniform(0, 6, size=(12, 1)).astype(np.float32))
+    f.requires_grad_(True)
+    out = hgq_quantize(x, f)
+    torch.testing.assert_close(out, tq.quantize_inference(x, f.detach()),
+                               rtol=0, atol=0)
+    (df,) = torch.autograd.grad(out.sum(), (f,))
+    assert df.shape == (12, 1)
+    assert (hgq_quantize_fwd.launches, hgq_quantize_bwd.launches) == before
+    with pytest.raises(ValueError):
+        hgq_quantize_fwd(x, f.detach())
+    with pytest.raises(ValueError):
+        hgq_quantize_bwd(x, x, f.detach())

@@ -16,6 +16,10 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.hgq_quantize import (hgq_quantize, hgq_quantize_bwd,
+                                              hgq_quantize_fwd,
+                                              hgq_quantize_grad_ref,
+                                              hgq_quantize_ref)
 from repro_torch.kernels.kv_dequant import (kv_attention_decode,
                                             kv_attention_rows, kv_quantize,
                                             kv_quantize_rows)
@@ -158,3 +162,43 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda_device):
     ref = kv_attention_ref(qh.reshape(2, 3, 2, 2, 64), *args[1:],
                            window=None).reshape(qh.shape)
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_hgq_quantize_launches_the_kernels_on_cuda(cuda_device):
+    """On CUDA tensors the quantizer launches its forward kernel (bit-exact
+    against the plain version) and its backward kernel (per parameter
+    exact; the per-channel and per-tensor sums within 1e-5 of the sum of
+    |terms|, the bound of a reordered float32 sum), one launch each; an
+    f shape no kernel takes raises instead of falling back."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cases = [((64, 16), (16,), torch.float32),
+             ((300, 16), (1, 16), torch.float32),      # 10 row tiles
+             ((16, 64), (16, 64), torch.float32), ((64,), (64,), torch.float32),
+             ((300, 32), (), torch.float32),           # 5 element tiles
+             ((300, 32), (), torch.bfloat16), ((200, 5), (5,), torch.bfloat16)]
+    for shape, fshape, dtype in cases:
+        x = (torch.randn(shape, generator=g, device=cuda_device) * 4).to(dtype)
+        f = (torch.rand(fshape, generator=g, device=cuda_device) * 8 - 1)
+        f.requires_grad_(True)
+        gy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+        before = (hgq_quantize_fwd.launches, hgq_quantize_bwd.launches)
+        out = hgq_quantize(x, f)
+        (df,) = torch.autograd.grad(out, (f,), gy)
+        torch.cuda.synchronize()
+        assert (hgq_quantize_fwd.launches, hgq_quantize_bwd.launches) == \
+            (before[0] + 1, before[1] + 1), (shape, fshape)
+        assert torch.equal(out, hgq_quantize_ref(x, f.detach()))
+        ref = hgq_quantize_grad_ref(gy, x, f.detach())
+        if fshape == shape:
+            assert torch.equal(df, ref)
+        else:
+            xq = hgq_quantize_ref(x, f.detach()).float()
+            scale = (gy.float() * 0.6931471805599453
+                     * (x.float() - xq)).abs().sum_to_size(fshape)
+            assert bool(((df - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    x = torch.randn((16, 64), device=cuda_device)
+    before = hgq_quantize_fwd.launches
+    with pytest.raises(ValueError):
+        hgq_quantize(x, torch.ones((16, 1), device=cuda_device))
+    assert hgq_quantize_fwd.launches == before

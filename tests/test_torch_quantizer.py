@@ -15,9 +15,13 @@ with warnings.catch_warnings():
     warnings.simplefilter("ignore", DeprecationWarning)
     import jax.numpy as jnp
     import repro.dist  # noqa: F401  (repro.nn imports repro.dist lazily)
+    from repro.core import ebops as jeb
+    from repro.core import hgq as jhgq
     from repro.core import quantizer as jq
     from repro.kernels.qmatmul import ops as jops
 
+from repro_torch.core import ebops as teb
+from repro_torch.core import hgq as thgq
 from repro_torch.core import quantizer as tq
 from repro_torch.kernels.qmatmul import ops as tops
 
@@ -130,3 +134,144 @@ def test_train_bits():
                             jnp.asarray(vmax), signed_bit=signed),
               tq.train_bits(torch.from_numpy(f), torch.from_numpy(vmin),
                             torch.from_numpy(vmax), signed_bit=signed))
+
+
+# --------------------------- the training half ----------------------------
+
+def test_ste_round_and_grad_scale():
+    x = np.float32([-2.5, -1.5, -0.5, 0.49, 0.5, 1.5, 2.4999, 3.7])
+    xt = torch.from_numpy(x.copy()).requires_grad_(True)
+    _same(jq.ste_round(jnp.asarray(x)), tq.ste_round(xt).detach())
+    (g,) = torch.autograd.grad(tq.ste_round(xt).sum(), (xt,))
+    assert torch.equal(g, torch.ones_like(xt))        # straight through
+    y = tq.grad_scale(xt, 0.25)
+    assert torch.equal(y.detach(), xt.detach())       # identity forward
+    (g,) = torch.autograd.grad((y * 3.0).sum(), (xt,))
+    assert torch.equal(g, torch.full_like(xt, 0.75))
+
+
+def test_quantizer_spec_init_f():
+    for gran, shape in (("per_parameter", (6, 4)), ("per_channel", (6, 4)),
+                        ("per_tensor", (6, 4))):
+        js = jq.QuantizerSpec(granularity=gran, init_frac_bits=3.0)
+        ts = tq.QuantizerSpec(granularity=gran, init_frac_bits=3.0)
+        _same(js.init_f(shape), ts.init_f(shape, device="cpu"))
+
+
+def _weights():
+    w = np.concatenate([
+        [0.0, 0.5, -0.75, 0.140625, 1.0, 1.5, 2.0, 96.0, -3.0, 1e-30, 3e38],
+        RNG.normal(size=180) * 10.0 ** RNG.integers(-6, 4, 180)])
+    return w.astype(np.float32)
+
+
+@pytest.mark.parametrize("f", [0.0, 3.0, 6.0, 8.0, 13.0, 30.0, 40.0, 125.0,
+                               128.0, -2.0])
+def test_occupied_bits_and_mantissa(f):
+    w = _weights()
+    fa = np.float32(f)
+    _same(jq.occupied_bits(jnp.asarray(w), jnp.asarray(fa)),
+          tq.occupied_bits(torch.from_numpy(w), torch.tensor(fa)))
+    mf = np.abs(w)
+    jm, je = jq._mantissa24(jnp.asarray(mf))
+    tm, te = tq._mantissa24(torch.from_numpy(mf))
+    np.testing.assert_array_equal(np.asarray(jm), tm.numpy())
+    _same(je, te)
+    _same(jq._trailing_zeros(jm), tq._trailing_zeros(tm))
+
+
+@pytest.mark.parametrize("f_sh", [(), (1, 6), (5, 1), (5, 6)])
+def test_group_occupied_bits(f_sh):
+    w = (RNG.normal(size=(5, 6)) * 3).astype(np.float32)
+    w[0, 0] = 0.0
+    w[:, 2] = 0.0
+    f = RNG.uniform(0, 9, size=f_sh).astype(np.float32)
+    _same(jq.group_occupied_bits(jnp.asarray(w), jnp.asarray(f), f_sh),
+          tq.group_occupied_bits(torch.from_numpy(w), torch.from_numpy(f),
+                                 f_sh))
+    assert tq._reduce_axes((5, 6), f_sh) == jq._reduce_axes((5, 6), f_sh)
+
+
+@pytest.mark.parametrize("bx_shape,bw_shape", [((4,), (3, 3, 4, 8)),
+                                               ((), ()), ((4,), ()),
+                                               ((), (1, 1, 4, 1)),
+                                               ((1,), (3, 3, 4, 8))])
+def test_ebops_conv2d(bx_shape, bw_shape):
+    bx = RNG.uniform(0, 8, size=bx_shape).astype(np.float32)
+    bw = RNG.uniform(0, 8, size=bw_shape).astype(np.float32)
+    w_shape = (3, 3, 4, 8)
+    j = float(jeb.ebops_conv2d(jnp.asarray(bx), jnp.asarray(bw), w_shape))
+    t = float(teb.ebops_conv2d(torch.from_numpy(bx), torch.from_numpy(bw),
+                               w_shape))
+    assert t == pytest.approx(j, rel=1e-6)
+
+
+@pytest.mark.parametrize("ba_shape,bb_shape", [((4, 6), (6, 5)), ((), ()),
+                                               ((4, 1), ()),
+                                               ((), (1, 5)), ((1, 6), (6, 1))])
+def test_ebops_dyn_matmul(ba_shape, bb_shape):
+    ba = RNG.uniform(0, 8, size=ba_shape).astype(np.float32)
+    bb = RNG.uniform(0, 8, size=bb_shape).astype(np.float32)
+    a_shape, b_shape = (2, 4, 6), (2, 6, 5)
+    j = float(jeb.ebops_dyn_matmul(jnp.asarray(ba), jnp.asarray(bb), a_shape,
+                                   b_shape))
+    t = float(teb.ebops_dyn_matmul(torch.from_numpy(ba), torch.from_numpy(bb),
+                                   a_shape, b_shape))
+    assert t == pytest.approx(j, rel=1e-6)
+    aux = thgq.Aux.zero()
+    thgq.dyn_matmul_ebops(aux, torch.from_numpy(ba), torch.from_numpy(bb),
+                          a_shape, b_shape)
+    assert float(aux.ebops) == t
+    with pytest.raises(ValueError):
+        teb.ebops_dyn_matmul(torch.from_numpy(ba), torch.from_numpy(bb),
+                             (4, 6), (5, 5))
+
+
+def test_loss_with_resource():
+    args = [np.float32(v) for v in (0.7, 3500.0, 120.0, 1e-4, 2e-6)]
+    j = float(jeb.loss_with_resource(*map(jnp.asarray, args)))
+    t = float(teb.loss_with_resource(*map(torch.tensor, args)))
+    assert t == pytest.approx(j, rel=1e-7)
+
+
+def test_train_mode_quantizers_and_ranges():
+    """TRAIN mode: the weight and activation quantizers land on Eq. 4's grid
+    (JAX ``quantize_inference``); ranges decay by RANGE_DECAY; bits and the
+    L1 term agree with JAX's TRAIN mode (its grad_scale forward is
+    x * s + (x * (1 - s)), an ulp from x); the regularizer gradient on f
+    is scaled by 1/sqrt(group size) on the bits path only."""
+    assert thgq.RANGE_DECAY == jhgq.RANGE_DECAY
+    x = (RNG.normal(size=(64, 16)) * 3).astype(np.float32)
+    f = RNG.uniform(0, 6, size=(16,)).astype(np.float32)
+    st = (np.float32(-1.0) * RNG.uniform(0, 4, 16).astype(np.float32),
+          RNG.uniform(0, 4, 16).astype(np.float32))
+    jaux = jhgq.Aux.zero()
+    jq_, jst = jhgq.quant_act(jnp.asarray(x), jnp.asarray(f),
+                              jhgq.ActState(*map(jnp.asarray, st)),
+                              jhgq.TRAIN, jaux)
+    taux = thgq.Aux.zero()
+    ft = torch.from_numpy(f).requires_grad_(True)
+    tq_, tst = thgq.quant_act(torch.from_numpy(x), ft,
+                              thgq.ActState(*map(torch.from_numpy, st)),
+                              thgq.TRAIN, taux)
+    _same(jq.quantize_inference(jnp.asarray(x), jnp.asarray(f)),
+          tq_.q.detach())
+    _same(jst.vmin, tst.vmin)
+    _same(jst.vmax, tst.vmax)
+    np.testing.assert_allclose(tq_.bits.detach().numpy(),
+                               np.asarray(jq_.bits), rtol=1e-6)
+    assert float(taux.l1.detach()) == pytest.approx(float(jaux.l1), rel=1e-6)
+    # the bits path carries d/df scaled by 1/sqrt(64 rows)
+    (gb,) = torch.autograd.grad(tq_.bits.sum(), (ft,))
+    live = tq_.bits.detach() > 0
+    np.testing.assert_allclose(gb[live].numpy(), 1.0 / 8.0, rtol=1e-7)
+
+    w = (RNG.normal(size=(16, 8)) * 0.5).astype(np.float32)
+    fw = RNG.uniform(0, 6, size=(1, 8)).astype(np.float32)
+    jw = jhgq.quant_weight(jnp.asarray(w), jnp.asarray(fw), jhgq.TRAIN)
+    tw = thgq.quant_weight(torch.from_numpy(w), torch.from_numpy(fw),
+                           thgq.TRAIN)
+    _same(jq.quantize_inference(jnp.asarray(w), jnp.asarray(fw)),
+          tw.q.detach())
+    np.testing.assert_allclose(tw.bits.detach().numpy(), np.asarray(jw.bits),
+                               rtol=1e-6)
