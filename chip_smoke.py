@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of HGQ (serving and training) on one CUDA card.
+"""Drive the PyTorch port of HGQ (serving, training, data-parallel
+training over the compressed gradient wire) on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -32,14 +33,36 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    steps on the card and on the CPU from one init (a limit that two faulty
    controls must exceed) and twice on the card (bit-identical); then
    traces one step with ``torch.profiler``;
-6. prints one JSON line with every kernel's numbers, its times per unit
-   of its main path (a full decode tick, a training step) weighted by
-   those tallies, then, last, ``{"ok": true, "device": {...}}``.
+6. wire phase: (a) trains the same jet tagger data-parallel over
+   ``dist.LocalMesh(4)`` (four ranks as threads on the one card: NCCL
+   refuses two ranks on one GPU) with ``reduce="compressed"`` (1D, fused,
+   ``mixed_low_plan(params, 4)``: a nibble bucket and an int8 bucket),
+   300 steps at batch 1024, calibrates it and holds accuracy, ~EBOPs and
+   layer-0 bits against the same code's uncompressed run from one init;
+   runs 20 compressed steps on the card and on the CPU from one init (a
+   limit that two faulty wires must exceed) and twice on the card
+   (bit-identical); (b) reduces qwen2-0.5b's full-width gradient tree
+   (4 shards of seeded values) over the wire, uniform int8 and
+   ``plan_mixed_w4w8``, and holds the fused path, the per-leaf path and
+   ``simulate_wire_pmean`` equal bit for bit, the card equal to the CPU
+   on two leaves, the recorded bytes equal to the byte model; then holds
+   every ``wire_pack`` kernel shape those paths launched against its
+   plain version and times it;
+7. prints one JSON line with every kernel's numbers, its times per unit
+   of its main path (a full decode tick, a training step, a compressed
+   data-parallel step, a qwen2 gradient reduce) weighted by those
+   tallies, the TPU kernels still to port, then, last, ``{"ok": true,
+   "device": {...}}``.
+
+Kernel groups: ``SERVING`` (``qmatmul``, ``kv_quantize_rows``,
+``kv_attention_rows``), ``TRAINING`` (``hgq_quantize`` forward and
+backward), ``WIRE`` (``wire_quantize_rows``, ``wire_quantize_sflat``,
+``wire_pack_rows``, ``wire_dequant_rows``).
 
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
-kernel) and leaves the per-unit fields null; ``--phase train`` skips
-step 4.
+kernel) and leaves the per-unit fields null; ``--phase train`` runs steps
+1-3 and 5; ``--phase wire`` steps 1-3 and 6.
 """
 from __future__ import annotations
 
@@ -86,9 +109,17 @@ KERNELS = {
     "kv_attention_rows": (_CSRC + "kv_dequant.cu", "kv_attention_rows"),
     "hgq_quantize_fwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
     "hgq_quantize_bwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
+    "wire_quantize_rows": (_CSRC + "wire_pack.cu", "wire_quantize_rows"),
+    "wire_quantize_sflat": (_CSRC + "wire_pack.cu", "wire_quantize_sflat"),
+    "wire_pack_rows": (_CSRC + "wire_pack.cu", "wire_pack_rows"),
+    "wire_dequant_rows": (_CSRC + "wire_pack.cu", "wire_dequant_rows"),
 }
 SERVING = ("qmatmul", "kv_quantize_rows", "kv_attention_rows")
 TRAINING = ("hgq_quantize_fwd", "hgq_quantize_bwd")
+# the compressed gradient reduce: the fused path launches the last three,
+# the per-leaf path and the simulator the first
+WIRE = ("wire_quantize_rows", "wire_quantize_sflat", "wire_pack_rows",
+        "wire_dequant_rows")
 
 
 class SmokeFailure(RuntimeError):
@@ -421,14 +452,147 @@ def hgq_quantize_case(shape, fshape, dtype, dev, g):
     return key, fwd, bwd
 
 
+def _wbits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _wire_spec(name, key, dev, g):
+    """(make, kernel, plain, bytes, float32 operations, shape text) of one
+    wire kernel at one tally key (the wrappers' keys)."""
+    from repro_torch.kernels import wire_pack as wp
+    if name == "wire_quantize_rows":
+        L, P, bits = key
+        qmax = 2 ** (bits - 1) - 1
+
+        def make():
+            # rows of different scales, a zero row, and the last row on
+            # rounding ties (k + 1/2) * 2^-3 (its grid is 2^-3 from 3 bits)
+            rows = torch.randn((L, P), generator=g, device=dev)
+            rows *= torch.logspace(-4, 1, L, device=dev)[:, None]
+            if L > 1:
+                rows[0] = 0.0
+            k = torch.arange(P, device=dev) % (2 * qmax) - qmax
+            rows[-1] = (k + 0.5) * 0.125
+            return rows, rows.abs().amax(dim=1), bits
+
+        return (make, wp.wire_quantize_rows, wp.quantize_leaf_ref,
+                L * P * 9 + L * 8, 6.0 * L * P, f"L{L} P{P} bits{bits}")
+    if name == "wire_quantize_sflat":
+        (R, C), bits = key
+
+        def make():
+            e = torch.randn((R, C), generator=g, device=dev)
+            s = wp.grid_scale(torch.rand((R * C,), generator=g, device=dev)
+                              * 4 + 1e-3, bits).reshape(R, C)
+            return e, s, bits
+
+        return (make, wp.wire_quantize_sflat, wp.quantize_chunks_ref,
+                R * C * 13, 6.0 * R * C, f"R{R} C{C} bits{bits}")
+    if name == "wire_pack_rows":
+        R, C = key
+
+        def make():
+            return (torch.randint(-7, 8, (R, C), generator=g, device=dev,
+                                  dtype=torch.int8),)
+
+        # integer operations only: bound by bytes
+        return (make, wp.wire_pack_rows, wp.pack_chunks_ref,
+                R * C + R * ((C + 1) // 2), 0.0, f"R{R} C{C}")
+    R, C, shift, n = key
+
+    def make():
+        q = torch.randint(-127, 128, (R, C), generator=g, device=dev,
+                          dtype=torch.int8)
+        s = wp.grid_scale(torch.rand((R * C,), generator=g, device=dev)
+                          + 0.1).reshape(R, C)
+        return q, s, shift, n
+
+    return (make, wp.wire_dequant_rows, wp.dequant_sum_ref, R * C * 9,
+            3.0 * R * C, f"R{R} C{C} shift{shift} n{n}")
+
+
+def wire_case(name, key, dev, g):
+    """One wire kernel at one shape against its plain version, bit for bit
+    (every output, signed zeros included), twice identical, and timed."""
+    make, kern, plain, nbytes, flops, shape = _wire_spec(name, key, dev, g)
+    sets = [make() for _ in range(n_copies(nbytes))]
+    tup = lambda x: x if isinstance(x, tuple) else (x,)
+    out, ref = tup(kern(*sets[0])), tup(plain(*sets[0]))
+    check(all(torch.equal(_wbits(a), _wbits(b)) for a, b in zip(out, ref)),
+          f"{name} {shape}: not bit-exact against the plain version")
+    again = tup(kern(*sets[0]))
+    check(all(torch.equal(_wbits(a), _wbits(b)) for a, b in zip(out, again)),
+          f"{name} {shape}: not repeatable")
+    b_ms, b_by = bound(nbytes, flops)
+    case = {"shape": shape, "max_abs_err": 0.0,
+            "ms": time_ms(kern, sets), "plain_ms": time_ms(plain, sets, 16),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops}
+    del sets
+    return case
+
+
+# edge shapes of the wire kernels, beside the shapes the wire phase takes
+# from its main paths: stacked rows at every width, odd tails, a qwen2 MLP
+# leaf (24 layers) and the embedding, n = 3 (a true division) and 4
+WIRE_EDGE = {
+    "wire_quantize_rows": [(1, 1, 8), (3, 40, 2), (4, 129, 5), (7, 257, 7),
+                           (24, 1000, 3), (24, 896 * 4864, 4),
+                           (1, 151936 * 896, 8)],
+    "wire_quantize_sflat": [((4, 33), 8), ((4, 1001), 4), ((4, 2 ** 20), 8)],
+    "wire_pack_rows": [(1, 1), (3, 7), (4, 1001), (1, 2 ** 20)],
+    "wire_dequant_rows": [(3, 1001, 2, 3), (4, 1001, 2, 4),
+                          (4, 2 ** 20, 2, 4)],
+}
+
+
+def _subnormal_check(dev):
+    """``[1e-38]`` at 2 bits: the residual is the subnormal input itself
+    (no flush to zero), as the plain version computes."""
+    from repro_torch.kernels import wire_pack as wp
+    x = torch.tensor([[1e-38]], device=dev)
+    q, s, r = wp.wire_quantize_rows(x, x[:, 0], 2)
+    check(int(q[0, 0]) == 0 and torch.equal(_wbits(r), _wbits(x)),
+          f"wire_quantize_rows flushed a subnormal residual: {float(r)}")
+
+
+def _division_check(dev):
+    """The plain versions divide by a tensor (``wire_pack.ref.true_div``):
+    on the card that must be IEEE division, the CPU's, where PyTorch
+    divides a float32 tensor by a Python number as a multiply by its
+    reciprocal.  Prints how many values that multiply moves."""
+    from repro_torch.kernels.wire_pack import true_div
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    x = torch.randn(1 << 20, generator=g, device=dev)
+    check(torch.equal(true_div(x, 3).cpu(), x.cpu() / 3.0),
+          "true_div on the card is not IEEE division")
+    moved = int((x / 3.0 != true_div(x, 3)).sum())
+    print(f"[kernels] on the card x / 3 differs from IEEE division "
+          f"(true_div) in {moved} of {x.numel()} values", flush=True)
+
+
+def print_cases(cases, names=None):
+    for name, by_shape in cases.items():
+        if names is not None and name not in names:
+            continue
+        print(f"[kernels] {name}: max err "
+              f"{max(c['max_abs_err'] for c in by_shape.values()):.3g}",
+              flush=True)
+        for c in by_shape.values():
+            lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+            print(f"    {c['shape']:<44} {c['ms']:.4f} ms  plain "
+                  f"{c['plain_ms']:.4f}  library {lib}  bound "
+                  f"{c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+
+
 def kernel_phase(dev):
     """Every kernel at its main path's shapes: {kernel: {shape key:
     case}}, keyed as the wrappers key their launch tallies."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     H, KV, hd, W = 14, 2, 64, 1024
-    cases = {"qmatmul": {}, "kv_quantize_rows": {}, "kv_attention_rows": {},
-             "hgq_quantize_fwd": {}, "hgq_quantize_bwd": {}}
+    cases = {name: {} for name in KERNELS}
     for M in (8, 16):
         # q, o; k, v; gate, up; down; the tied head
         for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896),
@@ -447,26 +611,50 @@ def kernel_phase(dev):
         key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
         cases["hgq_quantize_fwd"][key] = fwd
         cases["hgq_quantize_bwd"][key] = bwd
-    for name, by_shape in cases.items():
-        print(f"[kernels] {name}: max err "
-              f"{max(c['max_abs_err'] for c in by_shape.values()):.3g}",
-              flush=True)
-        for c in by_shape.values():
-            lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
-            print(f"    {c['shape']:<44} {c['ms']:.4f} ms  plain "
-                  f"{c['plain_ms']:.4f}  library {lib}  bound "
-                  f"{c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+    _subnormal_check(dev)
+    _division_check(dev)
+    for name, keys in WIRE_EDGE.items():
+        for key in keys:
+            cases[name][key] = wire_case(name, key, dev, g)
+    print_cases(cases)
     return cases
 
 
+def _per_unit(name, by_shape, unit, per):
+    """One unit's numbers for a kernel: per-call times weighted by the
+    calls of each shape the main path launched in that unit."""
+    missing = [k for k in unit if k not in by_shape]
+    check(not missing, f"{name}: the main path launched shapes the "
+                       f"kernel phase did not time: {missing}")
+    check(sum(unit.values()) > 0, f"{name}: not in the unit")
+    out = {key: sum(n * by_shape[k][key] for k, n in unit.items())
+           for key in ("ms", "plain_ms")}
+    out["library_ms"] = (sum(n * by_shape[k]["library_ms"]
+                             for k, n in unit.items())
+                         if all(by_shape[k]["library_ms"] is not None
+                                for k in unit) else None)
+    out["bound_ms"], out["bound_by"] = bound(
+        sum(n * by_shape[k]["bytes"] for k, n in unit.items()),
+        sum(n * by_shape[k]["flops"] for k, n in unit.items()))
+    out["per"] = per
+    out["calls_per_unit"] = {by_shape[k]["shape"]: n
+                             for k, n in unit.items()}
+    print(f"[kernels] {name}: {per}: {sum(unit.values())} calls, "
+          f"{out['ms']:.4f} ms (plain {out['plain_ms']:.4f}, bound "
+          f"{out['bound_ms']:.4f})", flush=True)
+    return out
+
+
 def kernels_line(cases, tallies):
-    """The ``kernels`` entries.  ``tallies`` maps a kernel to (its
-    launches by shape in one unit of its main path -- a full decode tick
-    of serving configuration (a), or a training step -- as the wrappers
-    counted them, a description of that unit).  Each time is the unit's:
-    per-call times weighted by those counts; every counted shape must have
-    been timed.  A kernel without a tally (the kernel phase alone) has
-    null per-unit fields."""
+    """The ``kernels`` entries.  ``tallies`` maps a kernel to a list of
+    (its launches by shape in one unit of a main path -- a full decode
+    tick of serving configuration (a), a training step, a compressed
+    data-parallel step, a qwen2 gradient reduce -- as the wrappers counted
+    them, a description of that unit).  The entry's times are the first
+    unit's, per-call times weighted by those counts (every counted shape
+    must have been timed); further units go under ``other_units``.  A
+    kernel without a tally (the kernel phase alone) has null per-unit
+    fields."""
     out = []
     for name, by_shape in cases.items():
         source, tpu = KERNELS[name]
@@ -480,26 +668,15 @@ def kernels_line(cases, tallies):
         if name == "hgq_quantize_bwd":
             entry["note"] = ("the backward of the kernel's op, the custom_vjp "
                              "at src/repro/kernels/hgq_quantize/ops.py:164")
-        if name in tallies:
-            unit, per = tallies[name]
-            missing = [k for k in unit if k not in by_shape]
-            check(not missing, f"{name}: the main path launched shapes the "
-                               f"kernel phase did not time: {missing}")
-            check(sum(unit.values()) > 0, f"{name}: not in the unit")
-            for key in ("ms", "plain_ms"):
-                entry[key] = sum(n * by_shape[k][key] for k, n in unit.items())
-            if all(by_shape[k]["library_ms"] is not None for k in unit):
-                entry["library_ms"] = sum(n * by_shape[k]["library_ms"]
-                                          for k, n in unit.items())
-            entry["bound_ms"], entry["bound_by"] = bound(
-                sum(n * by_shape[k]["bytes"] for k, n in unit.items()),
-                sum(n * by_shape[k]["flops"] for k, n in unit.items()))
-            entry["per"] = per
-            entry["calls_per_unit"] = {by_shape[k]["shape"]: n
-                                       for k, n in unit.items()}
-            print(f"[kernels] {name}: {per}: {sum(unit.values())} calls, "
-                  f"{entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
-                  f"bound {entry['bound_ms']:.4f})", flush=True)
+        if name in WIRE:
+            entry["note"] = ("library_ms null: no single PyTorch call "
+                             "computes this function")
+        units = [_per_unit(name, by_shape, u, per)
+                 for u, per in tallies.get(name, [])]
+        if units:
+            entry.update(units[0])
+        if units[1:]:
+            entry["other_units"] = units[1:]
         entry["shapes"] = list(by_shape.values())
         out.append(entry)
     return out
@@ -515,10 +692,12 @@ def _counters():
     from repro_torch.kernels.kv_dequant import (kv_attention_rows,
                                                 kv_quantize_rows)
     from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels import wire_pack as wp
     return {"qmatmul": qmatmul, "kv_quantize_rows": kv_quantize_rows,
             "kv_attention_rows": kv_attention_rows,
             "hgq_quantize_fwd": hgq_quantize_fwd,
-            "hgq_quantize_bwd": hgq_quantize_bwd}
+            "hgq_quantize_bwd": hgq_quantize_bwd,
+            **{name: getattr(wp, name) for name in WIRE}}
 
 
 def _counts(names):
@@ -1035,10 +1214,511 @@ def train_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# wire phase: data-parallel training over the compressed gradient wire
+# ---------------------------------------------------------------------------
+
+WIRE_N = 4                 # data shards of the LocalMesh on the one card
+# The compressed quickstart (batch 1024 over 4 shards, mixed 4/8 plan)
+# against the same code's uncompressed run from one init, after 300 steps
+# and CALIB.  Limits from the CPU rehearsal (examples/torch_dp_quickstart.py
+# --device cpu; readings in PERF.md).
+DP_ACC_GAP = 0.005
+DP_EBOPS_REL = 1.0
+DP_F0_GAP = 0.15
+# The card's 20 compressed steps against the CPU's plain path from one
+# init, the larger relative gap of loss and ~EBOPs at any step.  The wire
+# turns an ulp of a gradient sum that crosses a rounding point into a
+# whole grid step of one element, so the gap is larger than the
+# uncompressed step's; the limit lies between the sound reading and two
+# faulty controls, which the check must catch (readings in PERF.md).
+DP_TRAJ_REL_LIMIT = 1e-4
+QWEN_PLAN = "examples/specs/plan_mixed_w4w8.json"
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_run(dev, params, qstate, batches, *, compressed=True, plan=None,
+            steps=None, on_step=None):
+    """The quickstart's configuration from the given init, over
+    LocalMesh(WIRE_N) with reduce="compressed" (1D, fused) or the full
+    reduce: ([(loss, ~EBOPs)] per step, params, qstate).  ``batches`` is a
+    list or a step -> batch function."""
+    from repro_torch.dist import EFState, LocalMesh, ef_wire_init
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+    _, _, fwd, loss = _jet()
+    get = batches if callable(batches) else (lambda s: batches[s])
+    steps = steps or len(batches)
+    to = lambda t: t.to(dev)
+    p, q = tree_map(to, params), tree_map(to, qstate)
+    tcfg = TrainConfig(**dict(QUICKSTART, steps=steps))
+    opt = adamw_init(p)
+    if compressed:
+        step_fn = make_train_step(fwd, loss, tcfg, reduce="compressed",
+                                  mesh=LocalMesh(WIRE_N, dev),
+                                  wire_widths=plan)
+        ef = EFState(residual=ef_wire_init(p, WIRE_N))
+    else:
+        step_fn = make_train_step(fwd, loss, tcfg)
+    hist = []
+    for s in range(steps):
+        b = tree_map(to, get(s))
+        if on_step is not None:
+            on_step(s)
+        if compressed:
+            p, q, opt, m, ef = step_fn(p, q, opt, b, s, ef)
+        else:
+            p, q, opt, m = step_fn(p, q, opt, b, s)
+        hist.append((float(m["loss"]), float(m["ebops"])))
+    _sync(dev)
+    return hist, p, q
+
+
+def _calib_report(dev, params, qstate, pipe):
+    """CALIB on a held-out batch: accuracy, ~EBOPs, layer-0 f."""
+    from repro_torch.core import hgq
+    from repro_torch.train import accuracy
+    JetTagger, _, _, _ = _jet()
+    with torch.no_grad():
+        batch = pipe(10 ** 6)
+        logits, _, aux = JetTagger.forward(params, qstate, batch,
+                                           mode=hgq.CALIB)
+    f0 = params["d0"]["kernel"]["f"]
+    return {"accuracy": float(accuracy(logits, batch["y"])),
+            "calib_ebops": float(aux.ebops),
+            "layer0_f": {"mean": float(f0.mean()), "min": float(f0.min()),
+                         "max": float(f0.max())}}
+
+
+@contextlib.contextmanager
+def _no_phase2_feedback():
+    """Control: the chunk owner drops the phase-2 shift remainder instead
+    of keeping it in its residual."""
+    import repro_torch.dist.collectives as coll
+    real = coll._own_chunk
+    coll._own_chunk = lambda vals, idx, n, C, T: torch.zeros(
+        (T,), dtype=torch.float32, device=vals.device)
+    try:
+        yield
+    finally:
+        coll._own_chunk = real
+
+
+@contextlib.contextmanager
+def _finer_wire_grid():
+    """Control: the wire quantizes on a grid one step finer than
+    ``grid_scale`` (the largest values saturate)."""
+    import repro_torch.kernels.wire_pack as wp
+    real = wp.grid_scale
+    wp.grid_scale = lambda amax, bits=8: real(amax, bits) * 0.5
+    try:
+        yield
+    finally:
+        wp.grid_scale = real
+
+
+def _dp_jet(dev):
+    """(a): the quickstart over LocalMesh(4) with the compressed wire and
+    the mixed plan, against the same code uncompressed from one init;
+    then 20 steps on the card against the CPU, twice on the card, and
+    with two faulty controls."""
+    from repro_torch.core.plan import mixed_low_plan
+    from repro_torch.data import DataSpec, jet_batch, make_pipeline
+    from repro_torch.tree import tree_leaves, tree_map
+    JetTagger, cfg, _, _ = _jet()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params, qstate = JetTagger.init(gen, cfg, device=dev)
+    plan = mixed_low_plan(params, 4)
+    widths = sorted({(k, e.wire_bits) for k, e in plan.layers.items()})
+    check([w for _, w in widths] == [4] * 4, f"mixed plan {widths}")
+    pipe = make_pipeline(DataSpec(kind="jet", batch=1024), device=dev)
+    steps = QUICKSTART["steps"]
+    starts = []
+
+    def on_step(s):
+        # a step runs from one batch request to the next
+        _sync(dev)
+        starts.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    _reset_counts()                           # the main path starts here
+    hist_c, p_c, q_c = _dp_run(dev, params, qstate, pipe, plan=plan,
+                               steps=steps, on_step=on_step)
+    t1 = time.perf_counter()
+    counts = _counts(TRAINING + WIRE)         # ... and ends here
+    shapes = _shapes(TRAINING + WIRE)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {}
+    for name, by_shape in shapes.items():
+        check(all(c % steps == 0 for c in by_shape.values()),
+              f"{name}: launches not a multiple of the steps: {by_shape}")
+        per_step[name] = collections.Counter(
+            {k: c // steps for k, c in by_shape.items()})
+    for name in TRAINING:
+        n = sum(per_step[name].values())
+        check(n == HGQ_PER_STEP * WIRE_N,
+              f"{name}: {n} launches a step, not {HGQ_PER_STEP * WIRE_N}")
+    for name in WIRE[1:]:
+        check(counts[name] > 0, f"{name} was never launched: {counts}")
+    check(counts["wire_quantize_rows"] == 0,
+          f"the fused path launched wire_quantize_rows: {counts}")
+    step_ms = np.diff(starts + [t1]) * 1e3
+    rep_c = _calib_report(dev, p_c, q_c, pipe)
+    hist_u, p_u, q_u = _dp_run(dev, params, qstate, pipe, compressed=False,
+                               steps=steps)
+    rep_u = _calib_report(dev, p_u, q_u, pipe)
+    gaps = {"accuracy": abs(rep_c["accuracy"] - rep_u["accuracy"]),
+            "calib_ebops_rel": abs(rep_c["calib_ebops"] - rep_u["calib_ebops"])
+            / rep_u["calib_ebops"],
+            "layer0_f_mean": abs(rep_c["layer0_f"]["mean"]
+                                 - rep_u["layer0_f"]["mean"])}
+    report = {
+        "config": f"examples/quickstart.py's jet tagger and schedule, batch "
+                  f"1024 over LocalMesh({WIRE_N}) (256 a shard), "
+                  f"reduce='compressed', 1D, fused, int8 wire with "
+                  f"mixed_low_plan(params, 4) (the four kernels' w and f at "
+                  f"4 bits, the rest at 8)",
+        "compressed": {**rep_c, "final_loss": hist_c[-1][0]},
+        "uncompressed": {**rep_u, "final_loss": hist_u[-1][0]},
+        "gaps": gaps, "limits": {"accuracy": DP_ACC_GAP,
+                                 "calib_ebops_rel": DP_EBOPS_REL,
+                                 "layer0_f_mean": DP_F0_GAP},
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_p90": float(np.percentile(step_ms, 90)),
+        "samples_per_s": steps * 1024 / (t1 - starts[0]),
+        "peak_mem_gib": peak, "launches": counts,
+        "launches_per_step": {k: {" ".join(map(str, key)): n
+                                  for key, n in c.items()}
+                              for k, c in per_step.items()}}
+    print(f"[wire] (a) jet tagger over the compressed wire: "
+          f"{json.dumps(report)}", flush=True)
+    check(rep_c["accuracy"] >= 0.99, f"compressed accuracy {rep_c}")
+    check(rep_c["calib_ebops"] <= 1000.0, f"compressed ~EBOPs {rep_c}")
+    check(rep_c["layer0_f"]["mean"] < 2.0, f"compressed layer-0 f {rep_c}")
+    check(gaps["accuracy"] <= DP_ACC_GAP
+          and gaps["calib_ebops_rel"] <= DP_EBOPS_REL
+          and gaps["layer0_f_mean"] <= DP_F0_GAP,
+          f"compressed vs uncompressed beyond the limits: {gaps}")
+
+    # 20 steps: card against the CPU's plain path, twice on the card, and
+    # the controls on the card
+    cpu = torch.device("cpu")
+    p0, q0 = JetTagger.init(torch.Generator().manual_seed(SEED + 1), cfg,
+                            device=cpu)
+    plan0 = mixed_low_plan(p0, 4)
+    batches = [jet_batch(SEED, s, 1024, device=cpu) for s in range(20)]
+    ref, ref_p, _ = _dp_run(cpu, p0, q0, batches, plan=plan0)
+
+    def gap(run):
+        hist, p, _ = run
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        out = {"loss_rel": max(rel(h[0], r[0]) for h, r in zip(hist, ref)),
+               "ebops_rel": max(rel(h[1], r[1]) for h, r in zip(hist, ref)),
+               "param_abs": max(float((a.cpu() - b).abs().max()) for a, b in
+                                zip(tree_leaves(p), tree_leaves(ref_p)))}
+        out["gap"] = max(out["loss_rel"], out["ebops_rel"])
+        return out
+
+    card1 = _dp_run(dev, p0, q0, batches, plan=plan0)
+    card2 = _dp_run(dev, p0, q0, batches, plan=plan0)
+    same = card1[0] == card2[0] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(card1[1]),
+                                          tree_leaves(card2[1])))
+    with _no_phase2_feedback():
+        no_ef = _dp_run(dev, p0, q0, batches, plan=plan0)
+    with _finer_wire_grid():
+        finer = _dp_run(dev, p0, q0, batches, plan=plan0)
+    traj = {"sound": gap(card1), "repeat_bit_identical": same,
+            "controls": {"no_phase2_error_feedback": gap(no_ef),
+                         "wire_grid_one_step_finer": gap(finer)},
+            "cpu_final_loss": ref[-1][0]}
+    print(f"[wire] (a) card vs CPU, 20 compressed steps: {json.dumps(traj)} "
+          f"(limit on the larger relative gap of loss and ~EBOPs: "
+          f"{DP_TRAJ_REL_LIMIT})", flush=True)
+    check(same, "two card runs of the 20 compressed steps differ")
+    check(traj["sound"]["gap"] <= DP_TRAJ_REL_LIMIT,
+          f"card vs CPU compressed trajectory gap {traj['sound']}")
+    check(all(c["gap"] > DP_TRAJ_REL_LIMIT
+              for c in traj["controls"].values()),
+          f"the trajectory check misses a control: {traj['controls']}")
+    report["card_vs_cpu"] = traj
+    report["step_breakdown"] = _step_breakdown(dev, p_c, q_c, plan,
+                                               pipe(steps))
+    print(f"[wire] (a) step breakdown: "
+          f"{json.dumps(report['step_breakdown'])}", flush=True)
+    # profiled only now, after every timed run
+    b = pipe(steps)
+    step_fn = _profile_step_fn(dev, p_c, q_c, plan)
+    ops, busy = _profiled(lambda: step_fn(b))
+    med = report["step_ms_median"]
+    report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
+                               "idle_share_of_median_step": 1.0 - busy / med}
+    print(f"[wire] (a) profiled compressed step: {ops} device operations, "
+          f"device busy {busy:.3f} ms, idle {1.0 - busy / med:.1%} of the "
+          f"median step ({med:.3f} ms)", flush=True)
+    return report, counts, per_step
+
+
+def _host_ms(fn, dev, k=10):
+    """Median host milliseconds of ``fn()``, synchronized, after one
+    warm-up call."""
+    fn()
+    out = []
+    for _ in range(k):
+        _sync(dev)
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        out.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(out))
+
+
+def _step_breakdown(dev, params, qstate, plan, batch):
+    """Where a compressed step's time goes: the four slices' forward and
+    backward, the wire reduce of their gradients on LocalMesh(4), and the
+    same reduce by the collective-free simulator (the same arithmetic in
+    one thread)."""
+    from repro_torch.dist import LocalMesh, ef_wire_pmean, simulate_wire_pmean
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.loop import _value_and_grad
+    from repro_torch.tree import tree_map
+    _, _, fwd, loss = _jet()
+    tcfg = TrainConfig(**QUICKSTART)
+    mesh = LocalMesh(WIRE_N, dev)
+    slices = [tree_map(lambda b, i=i: b.reshape(
+        (WIRE_N, -1) + tuple(b.shape[1:]))[i], batch) for i in range(WIRE_N)]
+    beta = torch.tensor(1e-4)
+
+    def grads():
+        return [_value_and_grad(fwd, loss, tcfg, params, qstate, sl,
+                                beta)[4] for sl in slices]
+
+    e = tree_map(lambda *xs: torch.stack(xs), *grads())
+    widths = plan.wire_bits_tree(params)
+    wire = lambda: ef_wire_pmean(e, mesh, "int8", widths=widths)
+    return {"slices_fwd_bwd_ms": _host_ms(grads, dev),
+            "wire_reduce_ms": _host_ms(wire, dev),
+            "simulate_ms": _host_ms(lambda: simulate_wire_pmean(
+                e, "int8", widths=widths), dev)}
+
+
+def _profile_step_fn(dev, params, qstate, plan):
+    """One compressed step from the trained state (a fresh residual)."""
+    from repro_torch.dist import EFState, LocalMesh, ef_wire_init
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    _, _, fwd, loss = _jet()
+    step_fn = make_train_step(fwd, loss, TrainConfig(**QUICKSTART),
+                              reduce="compressed",
+                              mesh=LocalMesh(WIRE_N, dev), wire_widths=plan)
+    opt = adamw_init(params)
+    ef = EFState(residual=ef_wire_init(params, WIRE_N))
+    return lambda b: step_fn(params, qstate, opt, b, QUICKSTART["steps"], ef)
+
+
+def _qwen2_grads(dev):
+    """Per-shard gradients of qwen2-0.5b's full-width tree: the leaves of
+    ``TransformerLM.init`` with a leading [4] shard axis, seeded normal
+    values, a scale per leaf (1e-4 .. 1e-1) and, for stacked leaves, per
+    layer (x 1/8 .. 8)."""
+    from repro_torch.configs import get
+    from repro_torch.dist import stacked_tree
+    from repro_torch.models import TransformerLM
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    cfg = get("qwen2-0.5b")
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab)
+          == (24, 896, 4864, 151936), "not qwen2-0.5b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params, _ = TransformerLM.init(gen, cfg, device=dev)
+    flags = tree_leaves(stacked_tree(params))
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    leaves = []
+    for i, (leaf, st) in enumerate(zip(tree_leaves(params), flags)):
+        x = torch.randn((WIRE_N,) + tuple(leaf.shape), generator=g,
+                        device=dev)
+        x *= 10.0 ** (-4 + (i * 7) % 4)
+        if st and leaf.ndim >= 3:
+            x *= torch.logspace(-3, 3, leaf.shape[0], base=2.0, device=dev
+                                ).reshape((1, -1) + (1,) * (leaf.ndim - 1))
+        leaves.append(x)
+    tree = tree_unflatten(params, leaves)
+    del params
+    return tree
+
+
+def _equal_trees(a, b):
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(_wbits(x), _wbits(y))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _dp_qwen2(dev):
+    """(b): the compressed reduce of qwen2-0.5b's gradient tree over
+    LocalMesh(4), uniform int8 and plan_mixed_w4w8: fused == per-leaf ==
+    simulate on the card, the card == the CPU on the embedding and a
+    stacked MLP leaf, recorded bytes == the byte model, times, memory."""
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.dist import (LocalMesh, ef_wire_pmean,
+                                  record_wire_bytes, simulate_wire_pmean)
+    from repro_torch.dist import collectives as coll
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+    t0 = time.perf_counter()
+    tree = _qwen2_grads(dev)
+    _sync(dev)
+    n_elem = sum(x[0].numel() for x in tree_leaves(tree))
+    print(f"[wire] (b) qwen2-0.5b gradient tree: {len(tree_leaves(tree))} "
+          f"leaves, {n_elem} elements a shard, x{WIRE_N} shards, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mesh = LocalMesh(WIRE_N, dev)
+    plan = PrecisionPlan.from_file(str(ROOT / QWEN_PLAN))
+    configs = (("int8", None), ("mixed_w4w8", plan.wire_bits_tree(tree)))
+    report, units = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    _reset_counts()                           # the main path starts here
+    for tag, widths in configs:
+        flags = coll._stacked_flags(tree, None)
+        wflags = coll._width_flags(tree, widths)
+        want = sum(coll.wire_bytes_model(
+            x[0].numel(), WIRE_N, "int8",
+            n_scale_rows=x.shape[1] if (st and x.ndim >= 4) else 1, bits=w)
+            for x, st, w in zip(tree_leaves(tree), flags, wflags))
+        times = []
+        for i in range(3):
+            before = _shapes(WIRE)
+            _sync(dev)
+            t = time.perf_counter()
+            with record_wire_bytes() as rec:
+                d_f, r_f = ef_wire_pmean(tree, mesh, "int8", widths=widths)
+            _sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            after = _shapes(WIRE)
+            if i == 0:
+                fused_unit = {k: after[k] - before[k] for k in after}
+            check(abs(rec.total() - want) <= 1e-9 * want,
+                  f"({tag}) recorded {rec.total()} B, model {want} B")
+        before = _shapes(WIRE)
+        d_l, r_l = ef_wire_pmean(tree, mesh, "int8", widths=widths,
+                                 fused=False)
+        _sync(dev)
+        after = _shapes(WIRE)
+        leaf_unit = {k: after[k] - before[k] for k in after}
+        same_leaf = _equal_trees(d_f, d_l) and _equal_trees(r_f, r_l)
+        del d_l, r_l
+        d_s, r_s = simulate_wire_pmean(tree, "int8", widths=widths)
+        same_sim = _equal_trees(d_f, d_s) and _equal_trees(r_f, r_s)
+        del d_s, r_s
+        # the CPU's plain path on the embedding and a stacked MLP leaf
+        keep = ("embed/table/w", "layers/mlp/down/kernel/w")
+        sub = {"embed": {"table": {"w": tree["embed"]["table"]["w"].cpu()}},
+               "layers": {"mlp": {"down": {"kernel": {
+                   "w": tree["layers"]["mlp"]["down"]["kernel"]["w"].cpu()}}}}}
+        sw = None if widths is None else plan.wire_bits_tree(sub)
+        d_c, r_c = simulate_wire_pmean(sub, "int8", widths=sw)
+        card = {"/".join(p): (d, r) for (p, d), (_, r) in zip(
+            tree_flatten_with_path(d_f), tree_flatten_with_path(r_f))}
+        cpu_same = all(
+            torch.equal(_wbits(card[k][0].cpu()), _wbits(d))
+            and torch.equal(_wbits(card[k][1].cpu()), _wbits(r))
+            for k, (d, r) in zip(keep, zip(tree_leaves(d_c),
+                                           tree_leaves(r_c))))
+        del d_c, r_c, sub, d_f, r_f
+        report[tag] = {
+            "reduce_ms_median": float(np.median(times)), "reduce_ms": times,
+            "bytes_per_element": want / n_elem,
+            "fp32_ring_bytes_per_element":
+                coll.fp32_allreduce_bytes(n_elem, WIRE_N) / n_elem,
+            "fused_eq_per_leaf": same_leaf, "fused_eq_simulate": same_sim,
+            "card_eq_cpu_on": list(keep) if cpu_same else [],
+            "launches_fused": {k: sum(v.values())
+                               for k, v in fused_unit.items()},
+            "launches_per_leaf": {k: sum(v.values())
+                                  for k, v in leaf_unit.items()}}
+        units[tag] = (fused_unit, leaf_unit)
+        print(f"[wire] (b) qwen2-0.5b reduce ({tag}): "
+              f"{json.dumps(report[tag])}", flush=True)
+        check(same_leaf, f"({tag}) fused != per-leaf on the card")
+        check(same_sim, f"({tag}) fused != simulate on the card")
+        check(cpu_same, f"({tag}) card != CPU on {keep}")
+    counts = _counts(WIRE)                    # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(c > 0 for c in counts.values()),
+          f"(b) a wire kernel was never launched: {counts}")
+    report["launches"] = counts
+    report["peak_mem_gib"] = peak
+    report["elements_per_shard"] = n_elem
+    # profiled only now, after every timed run
+    widths = configs[1][1]
+    ops, busy = _profiled(lambda: ef_wire_pmean(tree, mesh, "int8",
+                                                widths=widths))
+    med = report["mixed_w4w8"]["reduce_ms_median"]
+    report["profiled_mixed_reduce"] = {
+        "device_ops": ops, "device_busy_ms": busy,
+        "idle_share_of_median_reduce": 1.0 - busy / med}
+    print(f"[wire] (b) peak memory {peak:.2f} GiB; profiled mixed reduce: "
+          f"{ops} device operations, device busy {busy:.2f} ms, idle "
+          f"{1.0 - busy / med:.1%} of the median reduce ({med:.2f} ms)",
+          flush=True)
+    del tree
+    return report, counts, units["mixed_w4w8"]
+
+
+def wire_phase(dev, cases):
+    """(a) and (b), then every wire-kernel shape their main paths launched
+    held against its plain version and timed.  Returns the report, the
+    launches of both main paths and the per-unit tallies."""
+    jet, counts_a, per_step = _dp_jet(dev)
+    qwen, counts_b, (fused_unit, leaf_unit) = _dp_qwen2(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    for name in WIRE:
+        for key in set(per_step[name]) | set(fused_unit[name]) \
+                | set(leaf_unit[name]):
+            if key not in cases[name]:
+                cases[name][key] = wire_case(name, key, dev, g)
+    # the slices' quantizer shapes (batch 256), where the train phase's
+    # batch of 1024 did not time them
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for lay, shape, dt in set(per_step["hgq_quantize_fwd"]) \
+            | set(per_step["hgq_quantize_bwd"]):
+        key = (lay, shape, dt)
+        if key in cases["hgq_quantize_fwd"] \
+                and key in cases["hgq_quantize_bwd"]:
+            continue
+        fshape = {"per_tensor": (), "per_channel": shape[-1:],
+                  "per_parameter": shape}[lay]
+        _, fwd, bwd = hgq_quantize_case(shape, fshape, dtypes[dt], dev, g)
+        cases["hgq_quantize_fwd"][key] = fwd
+        cases["hgq_quantize_bwd"][key] = bwd
+    print_cases(cases, WIRE + TRAINING)
+    launches = collections.Counter(counts_a) + collections.Counter(counts_b)
+    per_a = ("one compressed data-parallel step of the jet tagger (batch "
+             "1024 over 4 shards, mixed plan), calls by shape as counted on "
+             "the main path")
+    per_b = ("one qwen2-0.5b gradient reduce over 4 shards (plan_mixed_w4w8)"
+             ", {} path, calls by shape as counted on the main path")
+    tallies = {k: [(per_step[k], per_a + " (4 slices)")] for k in TRAINING}
+    for k in WIRE[1:]:
+        tallies[k] = [(per_step[k], per_a), (fused_unit[k],
+                                             per_b.format("fused"))]
+    tallies["wire_quantize_rows"] = [(leaf_unit["wire_quantize_rows"],
+                                      per_b.format("per-leaf"))]
+    return {"jet": jet, "qwen2": qwen}, dict(launches), tallies
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "train"),
+    ap.add_argument("--phase", choices=("all", "kernels", "train", "wire"),
                     default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1077,20 +1757,28 @@ def main(argv=None) -> int:
               flush=True)
 
     cases = kernel_phase(dev)
-    tallies, launches = {}, {}
-    slice_report = train_report = None
+    tallies = collections.defaultdict(list)
+    launches = collections.Counter()
+    slice_report = train_report = wire_report = None
     if args.phase == "all":
         total, slice_report, tick_shapes = slice_phase(dev)
         launches.update(total)
         per = ("one full decode tick of serving configuration (a), calls by "
                "shape as counted on the main path")
-        tallies.update({k: (tick_shapes[k], per) for k in SERVING})
+        for k in SERVING:
+            tallies[k].append((tick_shapes[k], per))
     if args.phase in ("all", "train"):
         train_report, per_step = train_phase(dev)
         launches.update(train_report["launches"])
         per = ("one training step of the quickstart jet tagger, calls by "
                "shape as counted on the main path")
-        tallies.update({k: (per_step[k], per) for k in TRAINING})
+        for k in TRAINING:
+            tallies[k].append((per_step[k], per))
+    if args.phase in ("all", "wire"):
+        wire_report, wire_launches, wire_tallies = wire_phase(dev, cases)
+        launches.update(wire_launches)
+        for k, units in wire_tallies.items():
+            tallies[k].extend(units)
     kernels = kernels_line(cases, tallies)
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
@@ -1099,7 +1787,8 @@ def main(argv=None) -> int:
         "kernels": kernels,
         "still_to_port": [{"name": n, "replaces": r}
                           for n, r in TPU_KERNELS if n not in ported],
-        "slice": slice_report, "train": train_report}), flush=True)
+        "slice": slice_report, "train": train_report,
+        "wire": wire_report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

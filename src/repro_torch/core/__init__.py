@@ -14,7 +14,8 @@ from .calibrate import (FixedSpec, assert_no_overflow, fixed_spec_for_weights,
                         fixed_spec_from_range, int_bits_exact)
 from .fixedpoint import representable, to_fixed
 from .pareto import ParetoFront, ParetoPoint
-from .plan import NIBBLE_BITS, LayerPlan, PrecisionPlan
+from .plan import (NIBBLE_BITS, LayerPlan, PrecisionPlan, iter_packable,
+                   layer_occupied_bits, mixed_low_plan, plan_from_params)
 from .schedule import constant, linear_warmup_cosine, log_ramp
 
 __all__ = ["ActState", "Aux", "CALIB", "EVAL", "FixedSpec", "LN2",
@@ -24,8 +25,10 @@ __all__ = ["ActState", "Aux", "CALIB", "EVAL", "FixedSpec", "LN2",
            "ebops_conv2d", "ebops_dyn_matmul", "ebops_matmul", "f_shape_for",
            "fixed_spec_for_weights", "fixed_spec_from_range", "grad_scale",
            "group_occupied_bits", "group_size", "init_act_state",
-           "int_bits_exact", "int_bits_from_range", "l1_bits",
+           "int_bits_exact", "int_bits_from_range", "iter_packable", "l1_bits",
+           "layer_occupied_bits",
            "linear_warmup_cosine", "log_ramp", "loss_with_resource",
-           "matmul_ebops", "observe", "occupied_bits", "quant_act",
+           "matmul_ebops", "mixed_low_plan", "observe", "occupied_bits",
+           "plan_from_params", "quant_act",
            "quant_weight", "quantize", "quantize_inference", "representable",
            "ste_round", "to_fixed", "train_bits"]

@@ -17,13 +17,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmatmul": "qmatmul.cu", "kv_dequant": "kv_dequant.cu",
-           "hgq_quantize": "hgq_quantize.cu"}
+           "hgq_quantize": "hgq_quantize.cu", "wire_pack": "wire_pack.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library cannot be unloaded safely while the caching allocator may
 # still hold work launched from it)
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# the ranks of a LocalMesh are threads: one of them builds and loads
+_LOAD_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -98,14 +101,15 @@ def ptxas_report(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, building it first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        out = _target(name)
-        if not out.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(out))
-        _LOADED[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            out = _target(name)
+            if not out.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(out))
+            _LOADED[name] = lib
+        return lib
 
 
 def check(status: int, what: str) -> None:

@@ -30,10 +30,14 @@ def mantissa_max(bits: int = 8) -> int:
 
 def grid_exponent(amax: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """Largest exponent ``f`` whose ``bits``-wide grid 2^-f fits
-    magnitudes up to ``amax``; one lower where rounding still saturates."""
+    magnitudes up to ``amax``; one lower where rounding still saturates.
+    ``qmax / amax`` is a true division: PyTorch computes ``number /
+    tensor`` as ``reciprocal(tensor) * number``, which can land an ulp
+    below a power of two and drop ``f`` by one."""
     qmax = float(mantissa_max(bits))
     amax = torch.as_tensor(amax, dtype=torch.float32)
-    fcap = floor_log2(qmax / torch.clamp(amax, min=1e-12))
+    fcap = floor_log2(torch.full_like(amax, qmax)
+                      / torch.clamp(amax, min=1e-12))
     return torch.where(torch.floor(amax * _exp2i(fcap) + 0.5) > qmax,
                        fcap - 1.0, fcap)
 

@@ -4,8 +4,11 @@ The caller hands the reference's trees over as nested containers of
 numpy arrays (``jax.tree.map(np.asarray, tree)``); the keys stay as they
 are, so plan paths, checkpoint keys and the packing walker see the same
 tree.  Range-state pairs (any named tuple with fields ``vmin``, ``vmax``)
-become the port's ``ActState``, and AdamW states (fields ``step``,
-``mu``, ``nu``) its ``AdamWState``, so a JAX run can resume in the port.
+become the port's ``ActState``, AdamW states (fields ``step``, ``mu``,
+``nu``) its ``AdamWState`` and error-feedback states (field
+``residual``, the per-shard ``[n_data, ...]`` residual of the compressed
+reduce or the post-reduce one) its ``EFState``, so a JAX run, its
+gradient compression included, can resume in the port.
 """
 from __future__ import annotations
 
@@ -16,9 +19,11 @@ import torch
 
 from .core.hgq import ActState
 from .device import resolve_device
+from .dist import EFState
 from .optim import AdamWState
 
-_NAMED = {("vmin", "vmax"): ActState, ("step", "mu", "nu"): AdamWState}
+_NAMED = {("vmin", "vmax"): ActState, ("step", "mu", "nu"): AdamWState,
+          ("residual",): EFState}
 
 
 def _convert(obj: Any, device: torch.device) -> Any:
@@ -36,7 +41,8 @@ def _convert(obj: Any, device: torch.device) -> Any:
 
 
 def from_jax(*trees: Any, device=None) -> Tuple[Any, ...]:
-    """Trees of numpy arrays (e.g. params, qstate and an ``AdamWState``)
+    """Trees of numpy arrays (e.g. params, qstate, an ``AdamWState`` and
+    an ``EFState``)
     -> the port's trees on ``device`` (the card by default), in order."""
     dev = resolve_device(device)
     return tuple(_convert(t, dev) for t in trees)

@@ -26,6 +26,7 @@ from repro_torch.kernels.kv_dequant import (kv_attention_decode,
 from repro_torch.kernels.kv_dequant.ref import (kv_attention_ref,
                                                 kv_quantize_ref)
 from repro_torch.kernels.qmatmul import qmatmul, qmatmul_any, qmatmul_ref
+from repro_torch.kernels import wire_pack as wp
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -43,7 +44,7 @@ def test_imports_no_jax_and_no_reference_package():
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 55, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300,
@@ -202,3 +203,65 @@ def test_hgq_quantize_launches_the_kernels_on_cuda(cuda_device):
     with pytest.raises(ValueError):
         hgq_quantize(x, torch.ones((16, 1), device=cuda_device))
     assert hgq_quantize_fwd.launches == before
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+def test_wire_pack_launches_the_kernels_on_cuda(cuda_device):
+    """On CUDA tensors each wire entry point launches its kernel once and
+    returns the plain version's bits: stacked rows and odd tails at every
+    width, zero rows, rounding ties, the subnormal ``[1e-38]`` at 2 bits
+    (kept, not flushed), nibble packs of odd length, and the phase-2
+    decode for n of 3 and 4 (a true division)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    kernels = (wp.wire_quantize_rows, wp.wire_quantize_sflat,
+               wp.wire_pack_rows, wp.wire_dequant_rows)
+
+    def launched(fn, *args):
+        before = [k.launches for k in kernels]
+        out = fn(*args)
+        torch.cuda.synchronize()
+        moved = [k.launches - b for k, b in zip(kernels, before)]
+        assert sum(moved) == 1, moved
+        return out
+
+    cases = [((24, 1000), 8), ((1, 4097), 4), ((3, 40), 2), ((4, 129), 5),
+             ((7, 257), 7), ((1, 1), 3), ((2, 6), 6)]
+    for shape, bits in cases:
+        rows = torch.randn(shape, generator=g, device=cuda_device) * 3
+        rows[0] = 0.0                                 # a zero row
+        # the last row on rounding ties: (k + 1/2) * 2^-3 with |k + 1/2| up
+        # to qmax - 1/2 puts the row's grid at 2^-3 (3 bits and up)
+        qmax = 2 ** (bits - 1) - 1
+        k = torch.arange(shape[1], device=cuda_device) % (2 * qmax) - qmax
+        rows[-1] = (k + 0.5) * 0.125
+        amax = rows.abs().amax(dim=1)
+        got = launched(wp.quantize_leaf, rows, amax, bits)
+        for a, b in zip(got, wp.quantize_leaf_ref(rows, amax, bits)):
+            assert torch.equal(_bits(a), _bits(b)), (shape, bits)
+        sp = wp.grid_scale(rows.abs().reshape(-1) + 1e-3, bits) \
+            .reshape(shape)
+        got = launched(wp.quantize_chunks, rows, sp, bits)
+        for a, b in zip(got, wp.quantize_chunks_ref(rows, sp, bits)):
+            assert torch.equal(_bits(a), _bits(b)), (shape, bits)
+    sub = torch.tensor([[1e-38]], device=cuda_device)
+    q, s, r = launched(wp.quantize_leaf, sub, sub[:, 0], 2)
+    assert torch.equal(_bits(r), _bits(sub)) and int(q[0, 0]) == 0
+    for shape in ((1, 1), (3, 7), (4, 1000), (2, 3, 33)):
+        q = torch.randint(-7, 8, shape, generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        assert torch.equal(launched(wp.pack_chunks, q),
+                           wp.pack_chunks_ref(q))
+    for n in (3, 4):
+        shift = (n - 1).bit_length()
+        q = torch.randint(-127, 128, (n, 1001), generator=g,
+                          device=cuda_device, dtype=torch.int8)
+        s = wp.grid_scale(torch.rand((n * 1001,), generator=g,
+                                     device=cuda_device) + 0.1).reshape(n, -1)
+        for ss in (s, s[0]):
+            got = launched(wp.dequant_sum, q, ss, shift, n)
+            assert torch.equal(_bits(got),
+                               _bits(wp.dequant_sum_ref(q, ss, shift, n)))
