@@ -15,16 +15,22 @@ only the port under ``src/repro_torch``, never JAX.  In order it
 3. kernel phase: holds every kernel against its plain PyTorch version at
    the shapes its main path gives it, under the stated tolerances, checks
    that two launches give the same bits where the kernel promises it, and
-   times the kernel, the plain version and a one-call library yardstick
-   (where one exists) with CUDA events, beside the least time the card
-   could take;
+   that a row's result does not depend on the batch it rides in
+   (``qmatmul`` at M = 1, 8 and 16, ``kv_attention_rows`` alone and in a
+   batch of 8), and times the kernel, the plain version and a one-call
+   library yardstick (where one exists) with CUDA events, beside the least
+   time the card could take; holds ``qmatmul``'s exact products against
+   a control that drops the lowest bf16 term, and ``kv_attention_rows``
+   on rings longer than serving's (up to 32768 slots);
 4. slice phase: serves qwen2-0.5b at full width (random weights from a
    seed) through the port's ``Engine`` in two configurations, holds the
    tokens against ``generate()`` and the logits against the CPU's plain
    path (a limit that two faulty controls must exceed), checks that every
-   serving kernel's launch counter moved, and tallies one full tick's
+   serving kernel's launch counter moved and that configuration (a), whose
+   MLP is stored in nibbles, unpacks none, and tallies one full tick's
    launches by shape; only after every timed run is one full tick per
-   configuration traced with ``torch.profiler``;
+   configuration traced with ``torch.profiler``, whose trace also gives
+   the blocks each ``kv_attention_rows`` launch ran (at least 128);
 5. train phase: trains the paper's jet tagger at its full width with
    ``examples/quickstart.py``'s configuration through the port's
    ``Trainer.run`` (300 steps, batch 1024), calibrates it on a held-out
@@ -57,7 +63,9 @@ only the port under ``src/repro_torch``, never JAX.  In order it
 Kernel groups: ``SERVING`` (``qmatmul``, ``kv_quantize_rows``,
 ``kv_attention_rows``), ``TRAINING`` (``hgq_quantize`` forward and
 backward), ``WIRE`` (``wire_quantize_rows``, ``wire_quantize_sflat``,
-``wire_pack_rows``, ``wire_dequant_rows``).
+``wire_pack_rows``, ``wire_dequant_rows``); ``kv_dequant_rows`` is on no
+main path of either package (the op ``kv_dequant``'s entry point) and is
+held and timed in the kernel phase only.
 
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
@@ -83,10 +91,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 20241016
 
-# NVIDIA H100 SXM data sheet: device memory rate and the float32 rate
-# outside the tensor cores (every kernel here multiplies in float32)
+# NVIDIA H100 SXM data sheet: device memory rate, the float32 rate
+# outside the tensor cores, and the dense bf16 tensor-core rate (qmatmul)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_TC_PER_S = 989e12
 L2_BYTES = 50 * 2 ** 20
 
 # every pallas_call of the JAX package: (name, file:line of the function)
@@ -106,6 +115,7 @@ _CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "qmatmul": (_CSRC + "qmatmul.cu", "qmatmul"),
     "kv_quantize_rows": (_CSRC + "kv_dequant.cu", "kv_quantize_rows"),
+    "kv_dequant_rows": (_CSRC + "kv_dequant.cu", "kv_dequant_rows"),
     "kv_attention_rows": (_CSRC + "kv_dequant.cu", "kv_attention_rows"),
     "hgq_quantize_fwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
     "hgq_quantize_bwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
@@ -135,10 +145,10 @@ def check(cond: bool, msg: str) -> None:
 # timing
 # ---------------------------------------------------------------------------
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
     """(least ms on the card, what bounds it) for moving ``nbytes`` and
-    doing ``flops`` float32 operations."""
-    tb, to = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    doing ``flops`` operations of a type whose peak rate is ``peak``."""
+    tb, to = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -149,72 +159,184 @@ def n_copies(nbytes: int) -> int:
     return max(1, min(1024, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
 
 
+# calls timed behind one sleep kernel: a stream holds about a thousand
+# pending launches, and a host that blocks on a full queue while the device
+# sleeps would be timed again
+TIME_BATCH = 64
+
+
 def time_ms(fn, arg_sets, min_calls: int = 64) -> float:
     """Device milliseconds per call of ``fn`` over ``arg_sets``, from CUDA
     events.  A sleep kernel queued first holds the device until every call
-    is enqueued, so the events time the calls back to back and not the
-    host's launch rate."""
+    of a batch of ``TIME_BATCH`` is enqueued, so the events time the calls
+    back to back and not the host's launch rate."""
     calls = max(min_calls, len(arg_sets))
     for args in arg_sets[:3]:
         fn(*args)                                   # warm up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(calls):
+    for i in range(min(calls, TIME_BATCH)):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(host_s * 1.5 + 1e-3, 2.0) * 2e9))
-    start.record()
-    for i in range(calls):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
+    total = 0.0
+    for b0 in range(0, calls, TIME_BATCH):
+        torch.cuda._sleep(int(min(host_s * 1.5 + 1e-3, 2.0) * 2e9))
+        start.record()
+        for i in range(b0, min(calls, b0 + TIME_BATCH)):
+            fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / calls
 
 
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def qmatmul_case(M, K, N, dev, g):
+def qmatmul_case(M, K, N, bits, dev, g):
     """Kernel vs plain vs ``torch.matmul(x, w.float()) * scale`` for one
-    shape, the weight stored N-major as the serving packer stores it."""
-    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_ref
+    shape, the weight stored N-major as the serving packer stores it: int8
+    (bits 8) or nibbles two to a byte along K (bits 4), read as they lie.
+    At M = 16 also: rows 0-7 alone (M = 8) and row 3 alone (M = 1) give
+    the same bits as inside the 16."""
+    from repro_torch.kernels.qmatmul import (pack_nibbles, qmatmul,
+                                             qmatmul_ref)
+    nib = bits == 4
+    qmax = 7 if nib else 127
 
     def make():
         x = torch.randn((M, K), generator=g, device=dev)
-        w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+        m = torch.randint(-qmax, qmax + 1, (N, K), generator=g, device=dev,
                           dtype=torch.int8)
         f = torch.randint(4, 9, (N,), generator=g, device=dev)
         s = torch.pow(2.0, -f.to(torch.float32))
-        return x, w.T, s
+        w = pack_nibbles(m, axis=-1).T if nib else m.T    # N-major storage
+        return x, w, s, m.T
 
-    wbytes = K * N
+    wbytes = K * N // 2 if nib else K * N
     sets = [make() for _ in range(n_copies(wbytes))]
-    x, w, s = sets[0]
-    y = qmatmul(x, w, s)
-    ref = qmatmul_ref(x, w, s)
-    tol = 1e-5 * qmatmul_ref(x.abs(), w.abs(), s) + 1e-30
+    x, w, s, m = sets[0]
+    y = qmatmul(x, w, s, nib=nib)
+    check(torch.equal(y, qmatmul(x, w, s, nib=nib)),
+          f"qmatmul {M}x{K}x{N} bits{bits}: two launches differ")
+    ref = qmatmul_ref(x, w, s, nib=nib)
+    check(torch.equal(ref, qmatmul_ref(x, m, s)),
+          f"qmatmul_ref {M}x{K}x{N}: nibble storage != its mantissas")
+    tol = 1e-5 * qmatmul_ref(x.abs(), m.abs(), s) + 1e-30
     err = (y - ref).abs()
     check(bool(torch.isfinite(y).all()), f"qmatmul {M}x{K}x{N}: not finite")
     check(bool((err <= tol).all()),
-          f"qmatmul {M}x{K}x{N}: max err {float(err.max())} over "
+          f"qmatmul {M}x{K}x{N} bits{bits}: max err {float(err.max())} over "
           f"1e-5 * (|x| @ |w|) * scale")
+    if M == 16:
+        check(torch.equal(qmatmul(x[:8].contiguous(), w, s, nib=nib), y[:8])
+              and torch.equal(qmatmul(x[3:4].contiguous(), w, s, nib=nib),
+                              y[3:4]),
+              f"qmatmul K{K} N{N} bits{bits}: rows differ at M = 1, 8, 16")
+    precision = _qmatmul_precision(x, w, s, m, nib, g, f"qmatmul {M}x{K}x{N} "
+                                   f"bits{bits}")
     nbytes = M * K * 4 + wbytes + N * 4 + M * N * 4
-    b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+    # three bf16 terms of x through the tensor cores
+    flops = 3 * 2.0 * M * K * N
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_TC_PER_S)
 
-    def library(x, w, s):
-        return torch.matmul(x, w.float()) * s
+    def kern(x, w, s, m):
+        return qmatmul(x, w, s, nib=nib)
 
-    return {"shape": f"M{M} K{K} N{N}",
-            "max_abs_err": float(err.max()),
-            "ms": time_ms(qmatmul, sets),
-            "plain_ms": time_ms(qmatmul_ref, sets, 16),
+    def plain(x, w, s, m):
+        return qmatmul_ref(x, w, s, nib=nib)
+
+    def library(x, w, s, m):
+        return torch.matmul(x, m.float()) * s
+
+    return {"shape": f"M{M} K{K} N{N} {'nibble' if nib else 'int8'}",
+            "max_abs_err": float(err.max()), **precision,
+            "ms": time_ms(kern, sets),
+            "plain_ms": time_ms(plain, sets, 16),
             "library_ms": time_ms(library, sets, 16),
             "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": 2.0 * M * K * N}
+            "bytes": nbytes, "flops": flops, "peak": PEAK_BF16_TC_PER_S}
+
+
+# The kernel splits x into three bf16 terms, so that every product is
+# exact.  Two controls tell that split from one that drops the lowest term
+# (x rounded to hi + mid before the launch): on a weight with one nonzero
+# mantissa a channel, where y must be the one rounding of x * m * scale,
+# the share of outputs off it (the kernel at most EXACT_OFF_LIMIT at every
+# shape, the two-term control above it); and the largest error against the
+# float64 product over (|x| @ |w|) * scale (the kernel at most
+# REL_ERR_LIMIT at every shape, the two-term control above it at one shape
+# at least).  Readings in PERF.md.
+EXACT_OFF_LIMIT = 0.01
+REL_ERR_LIMIT = 3e-7
+
+
+def _qmatmul_precision(x, w, s, m, nib, g, what):
+    from repro_torch.kernels.qmatmul import (bf16_split3, pack_nibbles,
+                                             qmatmul)
+    hi, mid, _ = bf16_split3(x)
+    x2 = hi.float() + mid.float()                   # exact: 16 bits
+    y64 = x.double() @ m.double() * s.double()
+    den = x.abs().double() @ m.abs().double() * s.double() + 1e-300
+
+    def rel(y):
+        return float(((y.double() - y64).abs() / den).max())
+
+    rel1, rel2 = rel(qmatmul(x, w, s, nib=nib)), rel(qmatmul(x2, w, s,
+                                                             nib=nib))
+    # one nonzero mantissa a channel, at a random k
+    K, N = m.shape
+    qmax = 7 if nib else 127
+    k = torch.randint(0, K, (N,), generator=g, device=x.device)
+    v = torch.randint(1, qmax + 1, (N,), generator=g, device=x.device) * \
+        (2 * torch.randint(0, 2, (N,), generator=g, device=x.device) - 1)
+    ms = torch.zeros((N, K), dtype=torch.int8, device=x.device)
+    ms[torch.arange(N, device=x.device), k] = v.to(torch.int8)
+    ws = pack_nibbles(ms, axis=-1).T if nib else ms.T
+    want = x[:, k] * (v.float() * s)                # one rounding
+    off1 = float((qmatmul(x, ws, s, nib=nib) != want).float().mean())
+    off2 = float((qmatmul(x2, ws, s, nib=nib) != want).float().mean())
+    check(off1 <= EXACT_OFF_LIMIT < off2,
+          f"{what}: exact-product control: kernel {off1:.4f} of outputs off "
+          f"the one rounding of x * m * scale, two-term split {off2:.4f} "
+          f"(limit {EXACT_OFF_LIMIT})")
+    return {"rel_err": rel1, "rel_err_two_term": rel2,
+            "exact_off": off1, "exact_off_two_term": off2}
+
+
+def kv_dequant_case(R, hd, dev, g):
+    """Kernel vs plain, bit-exact, two launches identical, vs
+    ``torch.ldexp(q, -f)`` (the negated exponents made outside the timed
+    call) as yardstick."""
+    from repro_torch.kernels.kv_dequant import kv_dequant_rows
+    from repro_torch.kernels.kv_dequant.ref import kv_dequant_ref
+
+    def make():
+        q = torch.randint(-128, 128, (R, hd), generator=g, device=dev,
+                          dtype=torch.int8)
+        f = torch.randint(-3, 12, (R,), generator=g, device=dev,
+                          dtype=torch.int8)
+        return q, f
+
+    sets = [make() for _ in range(n_copies(5 * R * hd))]
+    q, f = sets[0]
+    out = kv_dequant_rows(q, f)
+    ref = kv_dequant_ref(q, f)
+    check(torch.equal(out, ref) and torch.equal(kv_dequant_rows(q, f), out),
+          f"kv_dequant_rows R{R} hd{hd}: not bit-exact or not repeatable")
+    lib_sets = [(q, (-f)[:, None]) for q, f in sets]
+    nbytes = 5 * R * hd + R
+    b_ms, b_by = bound(nbytes, 0.0)
+    return {"shape": f"R{R} hd{hd}", "max_abs_err": 0.0,
+            "ms": time_ms(kv_dequant_rows, sets),
+            "plain_ms": time_ms(kv_dequant_ref, sets, 16),
+            "library_ms": time_ms(torch.ldexp, lib_sets, 16),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": 0.0}
 
 
 def kv_quantize_case(R, hd, bits, dev, g):
@@ -297,16 +419,19 @@ def _attention_check(out, ref, vmax, pf, what):
     return float(err.max())
 
 
-def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64):
+def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64,
+                      yardsticks=True):
     """Kernel vs plain (and a ragged, windowed, partly empty ring for
-    correctness only) vs SDPA over the dequantized cache as yardstick."""
+    correctness only) vs SDPA over the dequantized cache as yardstick.
+    Without ``yardsticks`` only the kernel is timed."""
     from repro_torch.kernels.kv_dequant import kv_attention_rows, kv_unpack
     from repro_torch.kernels.kv_dequant.ref import (attention_mask,
                                                     kv_attention_ref,
                                                     kv_dequant_ref)
     pft = torch.tensor([pf], dtype=torch.float32, device=dev)
     hdm = hd // 2 if nibble else hd
-    what = f"kv_attention_rows B{B} S{S} W{W} {'nibble' if nibble else 'int8'}"
+    what = (f"kv_attention_rows B{B} S{S} W{W} hd{hd} "
+            f"{'nibble' if nibble else 'int8'}")
 
     def kern(qh, km, kf, vm, vf, qpos, tpos, window=None):
         return kv_attention_rows(qh, km, kf, vm, vf, qpos, tpos,
@@ -332,8 +457,20 @@ def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64):
     sets = [_attention_inputs(B, S, H, KV, hd, W, nibble, dev, g)
             for _ in range(n_copies(cache_bytes))]
     args = sets[0]
-    err = _attention_check(kern(*args), plain(*args),
-                           vmax_of(args[3], args[4]), pf, what)
+    out = kern(*args)
+    err = _attention_check(out, plain(*args), vmax_of(args[3], args[4]), pf,
+                           what)
+    check(torch.equal(kern(*args), out), f"{what}: two launches differ")
+    # a request's rows have the same bits alone as in the batch
+    for b in sorted({0, B - 1}):
+        one = [a[b:b + 1] for a in args]
+        one[0], one[5] = one[0].contiguous(), one[5].contiguous()
+        check(torch.equal(kern(*one), out[b:b + 1]),
+              f"{what}: batch row {b} differs alone")
+    shape = (f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} "
+             f"{'nibble' if nibble else 'int8'} probs_f{pf}")
+    if not yardsticks:
+        return {"shape": shape, "max_abs_err": err, "ms": time_ms(kern, sets)}
 
     # yardstick: SDPA over the dequantized cache (dequantized outside the
     # timed call), heads grouped as the port groups them
@@ -350,9 +487,7 @@ def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64):
     nbytes = (2 * B * S * H * hd * 4 + cache_bytes + B * S * 4 + B * W * 4)
     flops = 4.0 * B * S * H * W * hd
     b_ms, b_by = bound(nbytes, flops)
-    return {"shape": f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} "
-                     f"{'nibble' if nibble else 'int8'} probs_f{pf}",
-            "max_abs_err": err,
+    return {"shape": shape, "max_abs_err": err,
             "ms": time_ms(kern, sets),
             "plain_ms": time_ms(plain, sets, 16),
             "library_ms": time_ms(
@@ -361,6 +496,28 @@ def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64):
                 lib_sets, 16),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
+
+
+# Rings longer than the serving slice's 1024 slots, held to the plain
+# version in the kernel phase (not on the main path, not in the kernels
+# line): (B, S, W, hd).  B = 8, S = 1 runs RT = 8 query rows a block, B =
+# 2, S = 16 RT = 16; W = 1500 leaves the last block of a cluster ragged;
+# W = 2048 gives a block two staging rounds; W = 16384 at RT = 16 and W =
+# 32768 at RT = 8 (qwen2-0.5b's published context) do not fit a block's
+# scores in shared memory, so pass 2 recomputes them; hd = 40 stages rows
+# without 16-byte loads.
+LONG_RINGS = ((8, 1, 1500, 64), (2, 16, 1500, 64), (8, 1, 2048, 64),
+              (2, 16, 2048, 64), (8, 1, 16384, 64), (2, 16, 16384, 64),
+              (8, 1, 32768, 64), (8, 1, 1500, 40), (2, 16, 1500, 40))
+
+
+def long_ring_checks(dev, g):
+    for B, S, W, hd in LONG_RINGS:
+        for nibble in (False, True):
+            c = kv_attention_case(B, S, W, nibble, 6.0, dev, g, hd=hd,
+                                  yardsticks=False)
+            print(f"[kernels] kv_attention_rows {c['shape']}: max err "
+                  f"{c['max_abs_err']:.3g}, {c['ms']:.4f} ms", flush=True)
 
 
 # the quantizer's shapes: the training slice's own (the jet tagger's input
@@ -584,6 +741,11 @@ def print_cases(cases, names=None):
             print(f"    {c['shape']:<44} {c['ms']:.4f} ms  plain "
                   f"{c['plain_ms']:.4f}  library {lib}  bound "
                   f"{c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+            if "rel_err" in c:
+                print(f"    {'':<44} err / (|x|@|w|*s) {c['rel_err']:.3g} "
+                      f"(two-term {c['rel_err_two_term']:.3g}); off the one "
+                      f"rounding {c['exact_off']:.4f} (two-term "
+                      f"{c['exact_off_two_term']:.4f})", flush=True)
 
 
 def kernel_phase(dev):
@@ -594,19 +756,32 @@ def kernel_phase(dev):
     H, KV, hd, W = 14, 2, 64, 1024
     cases = {name: {} for name in KERNELS}
     for M in (8, 16):
-        # q, o; k, v; gate, up; down; the tied head
-        for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896),
-                     (896, 151936)):
-            cases["qmatmul"][M, K, N] = qmatmul_case(M, K, N, dev, g)
+        # int8: q, o; k, v; gate, up; down; the tied head.  nibbles: gate,
+        # up; down (configuration (a)'s MLP)
+        for K, N, bits in ((896, 896, 8), (896, 128, 8), (896, 4864, 8),
+                           (4864, 896, 8), (896, 151936, 8),
+                           (896, 4864, 4), (4864, 896, 4)):
+            cases["qmatmul"][M, K, N, bits] = qmatmul_case(M, K, N, bits,
+                                                           dev, g)
+    rel = [c["rel_err"] for c in cases["qmatmul"].values()]
+    rel2 = [c["rel_err_two_term"] for c in cases["qmatmul"].values()]
+    check(max(rel) <= REL_ERR_LIMIT < max(rel2),
+          f"qmatmul: largest error over (|x|@|w|)*scale {max(rel):.3g}, "
+          f"two-term control {max(rel2):.3g}, limit {REL_ERR_LIMIT}")
     for R in (16, 32, 64):
         for bits in (8, 4):
             cases["kv_quantize_rows"][R, hd, bits] = kv_quantize_case(
                 R, hd, bits, dev, g)
+    # one qwen2-0.5b layer's full ring (8 slots x 1024 x 2 kv heads) and
+    # one slot's
+    for R in (8 * W * KV, W * KV):
+        cases["kv_dequant_rows"][R, hd] = kv_dequant_case(R, hd, dev, g)
     for B, S in ((8, 1), (1, 16)):
         for nibble in (False, True):
             key = (B, S, H, KV, hd, W, hd // 2 if nibble else hd)
             cases["kv_attention_rows"][key] = kv_attention_case(
                 B, S, W, nibble, 6.0, dev, g, H=H, KV=KV, hd=hd)
+    long_ring_checks(dev, g)
     for shape, fshape, dtype in HGQ_SHAPES:
         key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
         cases["hgq_quantize_fwd"][key] = fwd
@@ -635,7 +810,8 @@ def _per_unit(name, by_shape, unit, per):
                                 for k in unit) else None)
     out["bound_ms"], out["bound_by"] = bound(
         sum(n * by_shape[k]["bytes"] for k, n in unit.items()),
-        sum(n * by_shape[k]["flops"] for k, n in unit.items()))
+        sum(n * by_shape[k]["flops"] for k, n in unit.items()),
+        next(iter(by_shape.values())).get("peak", PEAK_FP32_PER_S))
     out["per"] = per
     out["calls_per_unit"] = {by_shape[k]["shape"]: n
                              for k, n in unit.items()}
@@ -671,6 +847,16 @@ def kernels_line(cases, tallies):
         if name in WIRE:
             entry["note"] = ("library_ms null: no single PyTorch call "
                              "computes this function")
+        if name == "qmatmul":
+            entry["note"] = ("tensor cores (mma.sync bf16, x in three exact "
+                             "terms); bound: bytes, or 3 x 2MKN operations "
+                             "at the bf16 tensor rate; library_ms on nibble "
+                             "shapes multiplies the unpacked int8 mantissas")
+        if name == "kv_dequant_rows":
+            entry["note"] = ("no main path of either package launches it "
+                             "(the entry point of the op kv_dequant), so its "
+                             "launches are 0 and its per-unit fields null; "
+                             "per-call numbers under shapes")
         units = [_per_unit(name, by_shape, u, per)
                  for u, per in tallies.get(name, [])]
         if units:
@@ -690,10 +876,12 @@ def _counters():
     from repro_torch.kernels.hgq_quantize import (hgq_quantize_bwd,
                                                   hgq_quantize_fwd)
     from repro_torch.kernels.kv_dequant import (kv_attention_rows,
+                                                kv_dequant_rows,
                                                 kv_quantize_rows)
     from repro_torch.kernels.qmatmul import qmatmul
     from repro_torch.kernels import wire_pack as wp
     return {"qmatmul": qmatmul, "kv_quantize_rows": kv_quantize_rows,
+            "kv_dequant_rows": kv_dequant_rows,
             "kv_attention_rows": kv_attention_rows,
             "hgq_quantize_fwd": hgq_quantize_fwd,
             "hgq_quantize_bwd": hgq_quantize_bwd,
@@ -715,9 +903,11 @@ def _reset_counts():
         fn.shapes.clear()
 
 
-def _profiled(fn):
+def _profiled(fn, grids_of=None):
     """``fn()`` under ``torch.profiler``: (device operations, ms the
-    device was busy)."""
+    device was busy, the launch grids of the device kernels whose name
+    holds ``grids_of``, as CUPTI recorded them)."""
+    import tempfile
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -725,7 +915,17 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    grids = []
+    if grids_of is not None:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        grids = [tuple(e["args"]["grid"]) for e in events
+                 if e.get("cat") == "kernel"
+                 and grids_of in e.get("name", "")]
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, grids
 
 
 def _serve(eng, reqs):
@@ -754,8 +954,9 @@ def _serve(eng, reqs):
 
 def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
                        kv_bits, prompts, dev):
-    """Device operations and busy ms of one decode tick with all 8 slots
-    busy, on an engine of its own, after every timed run: the profiler
+    """Device operations, busy ms and the attention kernel's launch grids
+    of one decode tick with all 8 slots busy (B = 8, KV = 2, W = 1024), on
+    an engine of its own, after every timed run: the profiler
     slows the host, and may go on doing so once it is stopped.  The
     attention kernel reads the whole ring whatever its fill, so short
     prompts give the same device work as the timed run's."""
@@ -766,7 +967,30 @@ def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
         check(eng.submit(Request(prompt=list(pr[:16]), max_new=4))
               is not None, "profile pass: no free slot")
     check(all(r is not None for r in eng.slot_req), "profile pass: idle slot")
-    return _profiled(eng.step)
+    return _profiled(eng.step, "kv_attention_kernel")
+
+
+@contextlib.contextmanager
+def _counting_unpacks(calls):
+    """Count in ``calls[0]`` every ``unpack_nibbles`` call of the port
+    (each module that bound the function by name)."""
+    from repro_torch.kernels.qmatmul import ref
+    real = ref.unpack_nibbles
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch")
+            and getattr(m, "unpack_nibbles", None) is real]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    for m in mods:
+        m.unpack_nibbles = counted
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.unpack_nibbles = real
 
 
 @contextlib.contextmanager
@@ -777,8 +1001,8 @@ def _bf16_activations_into_qmatmul():
     import repro_torch.nn.basic as basic
     real = basic.qmatmul_any
 
-    def rounded(x, w, s):
-        return real(x.to(torch.bfloat16).to(x.dtype), w, s)
+    def rounded(x, w, s, **kw):
+        return real(x.to(torch.bfloat16).to(x.dtype), w, s, **kw)
 
     basic.qmatmul_any = lm.qmatmul_any = rounded
     try:
@@ -896,12 +1120,18 @@ def slice_phase(dev):
                      kv_bits=kv_bits, seed=SEED, device=dev)
         reqs = [Request(prompt=list(pr), max_new=max_new) for pr in prompts]
         torch.cuda.synchronize()
+        unpacks = [0]
         _reset_counts()                       # the main path starts here
         t0 = time.perf_counter()
-        tick_ms, tick_shapes = _serve(eng, reqs)
+        with _counting_unpacks(unpacks):
+            tick_ms, tick_shapes = _serve(eng, reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts(SERVING)             # ... and ends here
+        if tag == "a":
+            # the MLP's nibbles stream into qmatmul as they are stored
+            check(unpacks[0] == 0, f"(a) {unpacks[0]} unpack_nibbles calls "
+                                   f"while serving")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for k in total:
             total[k] += counts[k]
@@ -950,6 +1180,7 @@ def slice_phase(dev):
             "kv_bytes_per_token": kv_bytes_per_token(cfg.n_kv, cfg.hd,
                                                      cfg.n_layers, kv_bits),
             "launches": counts, "launches_per_full_tick": per_tick,
+            "unpack_nibbles_calls": unpacks[0],
             "logits_vs_cpu": logits}
         print(f"[slice] ({tag}) {desc}: {len(reqs)} requests, prompts "
               f"{min(lens)}-{max(lens)} tokens, {toks} new tokens in "
@@ -963,15 +1194,23 @@ def slice_phase(dev):
         del eng
     # profiled only now, after every timed run
     for tag, desc, pl, kv_bits in configs:
-        ops, busy = _profile_full_tick(Engine, Request, TransformerLM, params,
-                                       qstate, cfg, pl, kv_bits, prompts, dev)
+        ops, busy, grids = _profile_full_tick(
+            Engine, Request, TransformerLM, params, qstate, cfg, pl, kv_bits,
+            prompts, dev)
         med = report[tag]["decode_tick_ms_median"]
+        blocks = sorted({math.prod(gr) for gr in grids})
+        check(len(grids) == cfg.n_layers and min(blocks) >= 128,
+              f"({tag}) the profiled tick's kv_attention_rows launches: "
+              f"{len(grids)} of {cfg.n_layers}, blocks {blocks}, fewer than "
+              f"128")
         report[tag]["profiled_full_tick"] = {
             "device_ops": ops, "device_busy_ms": busy,
-            "idle_share_of_median_tick": 1.0 - busy / med}
+            "idle_share_of_median_tick": 1.0 - busy / med,
+            "attention_grids": sorted(set(grids))}
         print(f"[slice] ({tag}) profiled full tick: {ops} device operations, "
               f"device busy {busy:.2f} ms, idle {1.0 - busy / med:.1%} of the "
-              f"median tick", flush=True)
+              f"median tick; kv_attention_rows grids {sorted(set(grids))}",
+              flush=True)
     return total, report, tick_shapes_a
 
 
@@ -1202,7 +1441,7 @@ def train_phase(dev):
     # profiled only now, after every timed run
     step = QUICKSTART["steps"]
     batch = trainer.pipeline(step)
-    ops, busy = _profiled(lambda: trainer.step_fn(
+    ops, busy, _ = _profiled(lambda: trainer.step_fn(
         trainer.params, trainer.qstate, trainer.opt, batch, step))
     med = report["step_ms_median"]
     report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
@@ -1455,7 +1694,7 @@ def _dp_jet(dev):
     # profiled only now, after every timed run
     b = pipe(steps)
     step_fn = _profile_step_fn(dev, p_c, q_c, plan)
-    ops, busy = _profiled(lambda: step_fn(b))
+    ops, busy, _ = _profiled(lambda: step_fn(b))
     med = report["step_ms_median"]
     report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
                                "idle_share_of_median_step": 1.0 - busy / med}
@@ -1657,7 +1896,7 @@ def _dp_qwen2(dev):
     report["elements_per_shard"] = n_elem
     # profiled only now, after every timed run
     widths = configs[1][1]
-    ops, busy = _profiled(lambda: ef_wire_pmean(tree, mesh, "int8",
+    ops, busy, _ = _profiled(lambda: ef_wire_pmean(tree, mesh, "int8",
                                                 widths=widths))
     med = report["mixed_w4w8"]["reduce_ms_median"]
     report["profiled_mixed_reduce"] = {
@@ -1783,10 +2022,12 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
     ported = {KERNELS[k["name"]][1] for k in kernels}
+    still = [{"name": n, "replaces": r} for n, r in TPU_KERNELS
+             if n not in ported]
+    check(not still, f"TPU kernels without a counterpart: {still}")
     print(json.dumps({
         "kernels": kernels,
-        "still_to_port": [{"name": n, "replaces": r}
-                          for n, r in TPU_KERNELS if n not in ported],
+        "still_to_port": still,
         "slice": slice_report, "train": train_report,
         "wire": wire_report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ from .collectives import (WIRE_KINDS, ef_wire_init, ef_wire_pmean,
                           wire_bytes_model)
 from .mesh import LocalMesh, ProcessGroupMesh
 from .perf import (is_packed, pack_params_for_serving, packed_mantissas,
-                   unpack_weight)
+                   packed_storage, unpack_weight)
 from .sharding import is_stacked_path, stacked_tree
 
 EF_KINDS = ("none", "bf16", "int8")
@@ -35,7 +35,7 @@ EF_KINDS = ("none", "bf16", "int8")
 __all__ = ["EFState", "EF_KINDS", "LocalMesh", "ProcessGroupMesh",
            "WIRE_KINDS", "ef_compress", "ef_init", "ef_wire_init",
            "ef_wire_pmean", "is_packed", "is_stacked_path",
-           "pack_params_for_serving", "packed_mantissas",
+           "pack_params_for_serving", "packed_mantissas", "packed_storage",
            "record_wire_bytes", "simulate_wire_pmean", "stacked_tree",
            "unpack_weight", "wire_bytes_model"]
 

@@ -10,7 +10,7 @@ always goes through ``qmatmul``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -62,6 +62,15 @@ def pack_params_for_serving(params: Any, plan=None) -> Any:
                     for i, v in enumerate(obj)]
         return obj
     return walk(params)
+
+
+def packed_storage(p: Dict[str, Any]) -> Tuple[torch.Tensor, bool]:
+    """(stored mantissas as they lie, whether they are nibbles): ``w_int8``
+    ``[..., K, N]`` or ``w_nib`` ``[..., K / 2, N]``, the form the
+    ``qmatmul`` kernel reads without unpacking."""
+    if "w_nib" in p:
+        return p["w_nib"], True
+    return p["w_int8"], False
 
 
 def packed_mantissas(p: Dict[str, Any]) -> torch.Tensor:

@@ -2,6 +2,8 @@
 //
 // kv_quantize_rows replaces src/repro/kernels/kv_dequant/kernel.py:104
 // (`kv_quantize_rows`, body `_kv_quantize_kernel` :58).
+// kv_dequant_rows replaces src/repro/kernels/kv_dequant/kernel.py:132
+// (`kv_dequant_rows`, body `_kv_dequant_kernel`).
 // kv_attention_rows replaces src/repro/kernels/kv_dequant/kernel.py:154
 // (`kv_attention_rows`, body `_kv_attention_kernel` :72).
 //
@@ -15,6 +17,12 @@
 // to -126..127 and floor(log2) is read from the exponent bits, so the grid is
 // bit-exact against the reference.
 //
+// kv_dequant_rows.  fp32 q * 2^-f per row, 2^-f built in the exponent field, so
+// the product is exact and bit-equal to the reference.  Bound: bytes, 5 R hd + R
+// (int8 in, fp32 out).  A grid-stride loop over 16-mantissa pieces of the rows
+// (16-byte loads, four 16-byte stores) where hd % 16 == 0 and the rows are
+// aligned, else over single values: any hd, no padding.
+//
 // kv_attention_rows.  The fused decode read: scores of the query rows against the
 // int8 (or nibble) key mantissas with 2^-kf * scale folded in per slot, the mask
 // built from qpos / tpos / window, exp(s - max), probabilities on the 2^-pf grid,
@@ -22,25 +30,45 @@
 // probability sum.  Bound: bytes -- the whole ring of the layer is read every
 // tick (W x KV x (hd or hd/2) bytes per batch row for K and for V).  The cache is
 // read in its native [B, W, KV, hdm] layout through strides: no transpose, no
-// padding, no dequantized copy in device memory.  One block per (kv head, batch
-// row, tile of RT query rows): RT = 8 covers a decode tick's S * G = 7 rows of a
-// qwen2 kv head, RT = 16 a prefill chunk.  The probability grid needs the true row max
-// before any probability is rounded, so the block makes two passes over W: pass 1
-// finds the max of the scaled scores, pass 2 recomputes each score, rounds the
-// probability and accumulates the sum and p * 2^-vf * v.  An online softmax would
-// round against a moving max, a different function.  Each pass stages 256 slots
-// at a time in shared memory with 16-byte loads where the cache is aligned
-// (nibbles sign-extended there with arithmetic shifts).
-// Later work: split the ring across blocks (flash-decoding) to fill the 132 SMs.
+// padding, no dequantized copy in device memory.
+// Design.  A thread block cluster of C blocks (C from W alone: min(8, W / 128
+// rounded up), launched with cudaLaunchKernelEx) serves one (kv head, batch row,
+// tile of RT query rows); RT = 8 covers a decode tick's S * G = 7 rows of a qwen2
+// kv head, RT = 16 a prefill chunk.  At B = 8, KV = 2, W = 1024 that is 16
+// clusters of 8 = 128 blocks.  Each block owns a contiguous range of ring slots:
+// pass 1 stages its keys (16-byte loads, nibbles sign-extended with arithmetic
+// shifts), two threads per slot compute the RT scaled scores and keep them in
+// shared memory, so the ring is read once.  Where a block's share of the scores
+// does not fit in shared memory (W / C above about 1400 slots at RT = 16, hd = 64),
+// pass 1 keeps only the row maxima and pass 2 restages the keys and recomputes the
+// scores ATT_SLOTS slots at a time, by the same instructions, so the result has
+// the same bits either way and any W is served.  The probability grid needs the true
+// row max before any probability is rounded: the blocks' partial maxima are
+// exchanged through distributed shared memory (cluster.map_shared_rank), and a max
+// is exact in any order, so every probability is rounded against the same max as
+// in the plain version.  (An online softmax would round against a moving max, a
+// different function.)  Pass 2 turns the stored scores into probabilities, and the
+// block's four warps each take a quarter of its slots for p * 2^-vf @ v, lanes
+// across the head dim; the warps' partials are summed in warp order.  The cluster
+// then sums the blocks' partials and probability sums through distributed shared
+// memory in rank order (each block combines every C-th output), divides, and
+// writes each output once.  No atomics; every sum's order is set by W and hd, never
+// by B or S, so a request's rows are bit-identical in a batch of 8 and alone.
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
+#include <algorithm>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int ATT_NT = 256;    // threads per block = ring slots per chunk
+constexpr int ATT_NT = 256;     // threads per block
 constexpr int ATT_WARPS = ATT_NT / 32;
+constexpr int ATT_SLOTS = 128;  // ring slots staged at a time: two threads a slot
 constexpr int ATT_HDMAX = 128;
+constexpr size_t SMEM_MAX = 232448;      // a block's shared memory on the H100
 
 __device__ __forceinline__ float exact_exp2(float fi) {
   fi = fminf(fmaxf(fi, -126.f), 127.f);
@@ -92,50 +120,134 @@ __device__ __forceinline__ uint32_t nibble_pair_bytes(uint32_t b2) {
   return out;
 }
 
-// Copy tn ring rows starting at slot t0 into dst [tn][ldk] as int8 mantissas,
-// sign-extending nibble pairs (even column in the low nibble).  vec: rows and
-// their stride are 16-byte aligned and hdm % 16 == 0, so each thread moves 16
-// stored bytes at a time (ldk % 4 == 0 keeps the shared-memory words aligned).
-__device__ __forceinline__ void stage_rows(int8_t* dst, int ldk, const int8_t* src,
-                                           long long st, int t0, int tn, int hdm,
-                                           int packed, int vec) {
+// One 16-byte piece of a staged row: 16 int8 mantissas, or 16 bytes of nibble
+// pairs sign-extended to 32 mantissas (even column in the low nibble).
+__device__ __forceinline__ void store_piece(int8_t* dst, int ldk, int t, int j, uint4 v,
+                                            int packed) {
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  uint32_t* row = reinterpret_cast<uint32_t*>(dst + t * ldk);
+  if (packed) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      row[8 * j + 2 * e] = nibble_pair_bytes(words[e] & 0xFFFFu);
+      row[8 * j + 2 * e + 1] = nibble_pair_bytes(words[e] >> 16);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) row[4 * j + e] = words[e];
+  }
+}
+
+// Copy tn (<= blockDim.x) ring rows starting at slot t0 of the keys, and of the
+// values when vsrc is not null, into kdst / vdst [tn][ldk] as int8 mantissas,
+// sign-extending nibble pairs.  vec: rows and their stride are 16-byte aligned and
+// hdm % 16 == 0, so each thread moves 16 stored bytes at a time (ldk % 4 == 0
+// keeps the shared-memory words aligned).  Every thread issues all its loads
+// before its first shared-memory store: the block waits for one memory latency,
+// not one per piece.
+__device__ __forceinline__ void stage_rows(int8_t* kdst, int8_t* vdst, int ldk,
+                                           const int8_t* __restrict__ ksrc,
+                                           const int8_t* __restrict__ vsrc, long long st,
+                                           int t0, int tn, int hdm, int packed, int vec) {
   if (vec) {
-    const int pieces = hdm / 16;
-    for (int i = threadIdx.x; i < tn * pieces; i += blockDim.x) {
-      const int t = i / pieces, j = i - t * pieces;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(t0 + t) * st + 16 * j);
-      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-      uint32_t* row = reinterpret_cast<uint32_t*>(dst + t * ldk);
-      if (packed) {
+    constexpr int PMAX = ATT_HDMAX / 16;  // pieces of a thread at most
+    const int pieces = hdm / 16, n = tn * pieces;
+    uint4 kv[PMAX], vv[PMAX];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          row[8 * j + 2 * e] = nibble_pair_bytes(words[e] & 0xFFFFu);
-          row[8 * j + 2 * e + 1] = nibble_pair_bytes(words[e] >> 16);
-        }
-      } else {
+    for (int k = 0; k < PMAX; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < n) {
+        const int t = i / pieces, j = i - t * pieces;
+        const long long off = static_cast<long long>(t0 + t) * st + 16 * j;
+        kv[k] = __ldg(reinterpret_cast<const uint4*>(ksrc + off));
+        if (vsrc) vv[k] = __ldg(reinterpret_cast<const uint4*>(vsrc + off));
+      }
+    }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) row[4 * j + e] = words[e];
+    for (int k = 0; k < PMAX; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < n) {
+        const int t = i / pieces, j = i - t * pieces;
+        store_piece(kdst, ldk, t, j, kv[k], packed);
+        if (vsrc) store_piece(vdst, ldk, t, j, vv[k], packed);
       }
     }
     return;
   }
   for (int i = threadIdx.x; i < tn * hdm; i += blockDim.x) {
     const int t = i / hdm, j = i - t * hdm;
-    const int v = src[static_cast<long long>(t0 + t) * st + j];
-    if (packed) {
-      // low nibble: move it to the top of a byte, then shift back arithmetically
-      const int lo = static_cast<int8_t>(static_cast<uint8_t>((v & 0x0F) << 4)) >> 4;
-      dst[t * ldk + 2 * j] = static_cast<int8_t>(lo);
-      dst[t * ldk + 2 * j + 1] = static_cast<int8_t>(v >> 4);
-    } else {
-      dst[t * ldk + j] = static_cast<int8_t>(v);
+    const long long off = static_cast<long long>(t0 + t) * st + j;
+    for (int u = 0; u < (vsrc ? 2 : 1); ++u) {
+      const int v = (u ? vsrc : ksrc)[off];
+      int8_t* dst = u ? vdst : kdst;
+      if (packed) {
+        // low nibble: move it to the top of a byte, then shift back arithmetically
+        const int lo = static_cast<int8_t>(static_cast<uint8_t>((v & 0x0F) << 4)) >> 4;
+        dst[t * ldk + 2 * j] = static_cast<int8_t>(lo);
+        dst[t * ldk + 2 * j + 1] = static_cast<int8_t>(v >> 4);
+      } else {
+        dst[t * ldk + j] = static_cast<int8_t>(v);
+      }
     }
   }
 }
 
-template <int RT>
-__global__ void __launch_bounds__(ATT_NT)
+__global__ void kv_dequant_kernel(const int8_t* __restrict__ q,
+                                  const int8_t* __restrict__ f, float* __restrict__ out,
+                                  int R, int hd, int vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    const int per = hd / 16;  // 16-mantissa pieces of a row
+    const long long n = static_cast<long long>(R) * per;
+    for (long long i = first; i < n; i += stride) {
+      const float s = exact_exp2(-static_cast<float>(f[i / per]));
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(q) + i);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+      float4* o = reinterpret_cast<float4*>(out) + 4 * i;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t w = words[e];
+        o[e] = make_float4(
+            __fmul_rn(static_cast<float>(static_cast<int8_t>(w & 0xFFu)), s),
+            __fmul_rn(static_cast<float>(static_cast<int8_t>((w >> 8) & 0xFFu)), s),
+            __fmul_rn(static_cast<float>(static_cast<int8_t>((w >> 16) & 0xFFu)), s),
+            __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 24)), s));
+      }
+    }
+    return;
+  }
+  const long long n = static_cast<long long>(R) * hd;
+  for (long long i = first; i < n; i += stride)
+    out[i] = __fmul_rn(static_cast<float>(q[i]), exact_exp2(-static_cast<float>(f[i / hd])));
+}
+
+__device__ __forceinline__ bool visible(int tp, int qp, int window) {
+  return tp >= 0 && tp <= qp && (window < 0 || qp - tp < window);
+}
+
+// The region that holds P and PV for cap slots, and later the warps' partials.
+__host__ __device__ inline size_t attention_union_words(int hd, int rt, int cap) {
+  const size_t pp = 2 * static_cast<size_t>(rt) * cap;
+  const size_t wp = static_cast<size_t>(ATT_WARPS) * rt * hd + ATT_WARPS * rt;
+  return pp > wp ? pp : wp;
+}
+
+// Shared memory of one block, in 4-byte words then bytes (see the kernel).
+__host__ __device__ inline size_t attention_smem_bytes(int hd, int rt, int cap) {
+  return sizeof(float) * (2 * static_cast<size_t>(rt) * hd +
+                          attention_union_words(hd, rt, cap) +
+                          2 * static_cast<size_t>(cap) + ATT_WARPS * rt + 4 * rt) +
+         2 * static_cast<size_t>(ATT_SLOTS) * (hd + 4);
+}
+
+// RT query rows a block; DPL head-dim columns a lane in p.v (hd <= 32 * DPL);
+// RECOMPUTE: pass 2 recomputes the scores (a separate instance, so the common case
+// carries none of its registers).  At most 128 registers a thread, so two blocks
+// fit an SM and a cluster of 8 finds room in every GPC: all 16 clusters of a
+// decode tick run in one wave.
+template <int RT, int DPL, bool RECOMPUTE>
+__global__ void __launch_bounds__(ATT_NT, 2)
 kv_attention_kernel(const float* __restrict__ qh,
                     const int8_t* __restrict__ km, const int8_t* __restrict__ vm,
                     long long m_sb, long long m_st, long long m_skv,
@@ -145,26 +257,45 @@ kv_attention_kernel(const float* __restrict__ qh,
                     const int* __restrict__ tpos, long long tp_sb, long long tp_st,
                     const float* __restrict__ pf, float* __restrict__ out,
                     int S, int H, int KV, int W, int hd, int packed, int vec,
-                    int window, float scale) {
-  constexpr int OPT = RT * ATT_HDMAX / ATT_NT;  // outputs per thread
+                    int window, float scale, int ntiles, int chunk) {
+  constexpr int CMAX = 8;       // the portable cluster size
+  constexpr int RH = RT / 2;    // query rows a thread scores: two threads a slot
+  constexpr int QPT = RT * ATT_HDMAX / ATT_NT;  // query values a thread loads at most
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int kvh = blockIdx.y, b = blockIdx.z / ntiles;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int js = tid % ATT_SLOTS, half = tid / ATT_SLOTS;  // pass 1: slot, row half
   const int G = H / KV, SG = S * G;
-  const int r0 = blockIdx.z * RT;
+  const int r0 = (blockIdx.z - b * ntiles) * RT;
   const int rows = min(RT, SG - r0);
   const int hdm = packed ? hd / 2 : hd;
   const int ldk = hd + 4;  // padded staging row: conflict-free per-slot reads
+  const int t_lo = rank * chunk;
+  const int n_own = max(0, min(W - t_lo, chunk));  // this block's ring slots
+  const int nsub = (n_own + ATT_SLOTS - 1) / ATT_SLOTS;
+  // slots whose scores shared memory holds: all the block's, or one staging's
+  const int cap = RECOMPUTE ? ATT_SLOTS : chunk;
+  constexpr bool keep = !RECOMPUTE;
 
-  float* qs = reinterpret_cast<float*>(smem);       // [RT][hd]
-  float* P = qs + RT * hd;                          // [RT][NT]
-  float* ks = P + RT * ATT_NT;                      // [NT] 2^-kf * scale
-  float* vs = ks + ATT_NT;                          // [NT] 2^-vf
-  float* red = vs + ATT_NT;                         // [WARPS][RT]
-  float* rowm = red + ATT_WARPS * RT;               // [RT]
-  int* qp = reinterpret_cast<int*>(rowm + RT);      // [RT]
-  int8_t* Ks = reinterpret_cast<int8_t*>(qp + RT);  // [NT][ldk]
-  int8_t* Vs = Ks + ATT_NT * ldk;                   // [NT][ldk]
+  // 16-byte aligned first: qs rows (hd % 4 == 0) and the slot-major P / PV rows
+  float* qs = reinterpret_cast<float*>(smem);       // [RT][hd] query rows
+  float* P = qs + RT * hd;                          // [cap][RT] scores, then probs
+  float* PV = P + RT * cap;                         // [cap][RT] p * 2^-vf
+  float* wpart = P;                                 // after p.v: [WARPS][RT][hd]
+  float* wl = wpart + ATT_WARPS * RT * hd;          //   and [WARPS][RT] prob sums
+  float* part = P + attention_union_words(hd, RT, cap);  // [RT][hd] block's p.v
+  float* vss = part + RT * hd;                      // [cap] 2^-vf per slot
+  int* tps = reinterpret_cast<int*>(vss + cap);     // [cap] tpos per slot
+  float* lpart = reinterpret_cast<float*>(tps + cap);  // [RT] block's prob sum
+  float* lmax = lpart + RT;                         // [RT] this block's row max
+  float* rowm = lmax + RT;                          // [RT] the cluster's row max
+  float* red = rowm + RT;                           // [WARPS][RT]
+  int* qp = reinterpret_cast<int*>(red + ATT_WARPS * RT);  // [RT]
+  int8_t* Ks = reinterpret_cast<int8_t*>(qp + RT);  // [SLOTS][ldk]
+  int8_t* Vs = Ks + ATT_SLOTS * ldk;                // [SLOTS][ldk]
 
   const int8_t* kbase = km + b * m_sb + kvh * m_skv;
   const int8_t* vbase = vm + b * m_sb + kvh * m_skv;
@@ -172,51 +303,106 @@ kv_attention_kernel(const float* __restrict__ qh,
   const int8_t* vfb = vf + b * f_sb + kvh * f_skv;
   const int* tpb = tpos + b * tp_sb;
 
-  // query rows of this tile (row r = s * G + g reads head kvh * G + g)
-  for (int i = tid; i < RT * hd; i += ATT_NT) {
-    const int r = i / hd, d = i - r * hd;
-    float v = 0.f;
-    if (r < rows) {
+  // The query rows of this tile (row r = s * G + g reads head kvh * G + g), their
+  // positions and the probs exponent: loaded now, stored once the first staging's
+  // loads are in flight, so the block waits for one memory latency.
+  float qv[QPT];
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    const int i = tid + k * ATT_NT, r = i / hd, d = i - r * hd;
+    qv[k] = 0.f;
+    if (i < RT * hd && r < rows) {
       const int rg = r0 + r, s = rg / G, h = kvh * G + rg % G;
-      v = qh[(static_cast<size_t>(b * S + s) * H + h) * hd + d];
+      qv[k] = __ldg(qh + (static_cast<size_t>(b * S + s) * H + h) * hd + d);
     }
-    qs[i] = v;
   }
-  if (tid < RT) qp[tid] = tid < rows ? qpos[b * S + (r0 + tid) / G] : 0;
+  const int qpv = tid < rows ? qpos[b * S + (r0 + tid) / G] : 0;
   const float pfs = pf ? exact_exp2(floorf(*pf + 0.5f)) : 1.f;
 
-  // ---- pass 1: row max of the scaled, masked scores ----
-  float mx[RT];
+  // ---- scores of the slots [s0, s0 + tn) of this block into P rows pb ..., their
+  // tpos and 2^-vf into tps / vss; the values ride along when with_v.  Thread
+  // (half, js) scores slot js against rows half * RH ...; with track, the scores
+  // of visible slots raise the thread's row maxima mx.  Starts with the staging
+  // and ends after the score stores, with no barrier after them.
+  float mx[RH];
 #pragma unroll
-  for (int r = 0; r < RT; ++r) mx[r] = NEG_INF;
-  for (int t0 = 0; t0 < W; t0 += ATT_NT) {
-    const int tn = min(ATT_NT, W - t0);
+  for (int r = 0; r < RH; ++r) mx[r] = NEG_INF;
+  auto score = [&](int s0, int tn, int pb, bool with_v, bool first, bool track) {
+    int tp = -1;
+    float ks = 0.f, vs = 0.f;
+    if (js < tn) {  // the thread's slot: its position and grids
+      const int t = t_lo + s0 + js;
+      tp = tpb[t * tp_st];
+      ks = exact_exp2(-static_cast<float>(kfb[t * f_st])) * scale;
+      vs = exact_exp2(-static_cast<float>(vfb[t * f_st]));
+    }
+    stage_rows(Ks, Vs, ldk, kbase, with_v ? vbase : nullptr, m_st, t_lo + s0, tn, hdm,
+               packed, vec);
+    if (first) {
+#pragma unroll
+      for (int k = 0; k < QPT; ++k)
+        if (tid + k * ATT_NT < RT * hd) qs[tid + k * ATT_NT] = qv[k];
+      if (tid < RT) qp[tid] = qpv;
+    }
+    if (js < tn && half == 0) {
+      tps[pb + js] = tp;
+      vss[pb + js] = vs;
+    }
     __syncthreads();
-    stage_rows(Ks, ldk, kbase, m_st, t0, tn, hdm, packed, vec);
-    if (tid < tn) ks[tid] = exact_exp2(-static_cast<float>(kfb[(t0 + tid) * f_st])) * scale;
-    __syncthreads();
-    if (tid < tn) {
-      const int tp = tpb[(t0 + tid) * tp_st];
-      float dot[RT];
+    if (js < tn) {
+      float dot[RH];
 #pragma unroll
-      for (int r = 0; r < RT; ++r) dot[r] = 0.f;
-      const int8_t* kr = Ks + tid * ldk;
-      for (int d = 0; d < hd; ++d) {
-        const float kv = static_cast<float>(kr[d]);
+      for (int r = 0; r < RH; ++r) dot[r] = 0.f;
+      const int8_t* kr = Ks + js * ldk;
+      const float* qh0 = qs + half * RH * hd;
+      if ((hd & 3) == 0) {  // four mantissas and a float4 of each row at a time
+        for (int d = 0; d < hd; d += 4) {
+          const uint32_t kw = *reinterpret_cast<const uint32_t*>(kr + d);
+          const float k0 = static_cast<float>(static_cast<int8_t>(kw & 0xFFu));
+          const float k1 = static_cast<float>(static_cast<int8_t>((kw >> 8) & 0xFFu));
+          const float k2 = static_cast<float>(static_cast<int8_t>((kw >> 16) & 0xFFu));
+          const float k3 = static_cast<float>(static_cast<int8_t>(kw >> 24));
 #pragma unroll
-        for (int r = 0; r < RT; ++r) dot[r] = fmaf(qs[r * hd + d], kv, dot[r]);
+          for (int r = 0; r < RH; ++r) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qh0 + r * hd + d);
+            dot[r] = fmaf(q4.x, k0, dot[r]);
+            dot[r] = fmaf(q4.y, k1, dot[r]);
+            dot[r] = fmaf(q4.z, k2, dot[r]);
+            dot[r] = fmaf(q4.w, k3, dot[r]);
+          }
+        }
+      } else {
+        for (int d = 0; d < hd; ++d) {
+          const float kv = static_cast<float>(kr[d]);
+#pragma unroll
+          for (int r = 0; r < RH; ++r) dot[r] = fmaf(qh0[r * hd + d], kv, dot[r]);
+        }
       }
+      const int i = pb + js;
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const bool vis = r < rows && tp >= 0 && tp <= qp[r] &&
-                         (window < 0 || qp[r] - tp < window);
-        if (vis) mx[r] = fmaxf(mx[r], __fmul_rn(dot[r], ks[tid]));
+      for (int r = 0; r < RH; ++r) {
+        const int rr = half * RH + r;
+        // __fmul_rn: never fused into the later subtraction, so the row's max
+        // gives exp(0) = 1 exactly
+        const float sc = __fmul_rn(dot[r], ks);
+        P[i * RT + rr] = sc;
+        if (track && rr < rows && visible(tp, qp[rr], window)) mx[r] = fmaxf(mx[r], sc);
       }
     }
+  };
+
+  // ---- pass 1: this block's row maxima, and its scores kept in P when they fit
+  for (int s0 = 0; s0 < n_own; s0 += ATT_SLOTS) {
+    if (s0) __syncthreads();
+    score(s0, min(ATT_SLOTS, n_own - s0), keep ? s0 : 0, keep && nsub == 1, s0 == 0, true);
   }
+  // a warp holds one half's rows (ATT_SLOTS is a multiple of 32)
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
-    float v = mx[r];
+    float v = NEG_INF;
+#pragma unroll
+    for (int u = 0; u < RH; ++u)
+      if (half * RH + u == r) v = mx[u];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -226,103 +412,164 @@ kv_attention_kernel(const float* __restrict__ qh,
   if (tid < RT) {
     float m = NEG_INF;
     for (int w = 0; w < ATT_WARPS; ++w) m = fmaxf(m, red[w * RT + tid]);
-    rowm[tid] = m;
+    lmax[tid] = m;
   }
+  cluster.sync();  // every block's lmax is written
+  if (tid < RT) {
+    float m[CMAX];
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      m[c] = c < C ? *cluster.map_shared_rank(lmax + tid, c) : NEG_INF;
+    float v = m[0];
+#pragma unroll
+    for (int c = 1; c < CMAX; ++c) v = fmaxf(v, m[c]);
+    rowm[tid] = v;
+  }
+  __syncthreads();
 
   // ---- pass 2: probabilities on the grid, their sum, and p * 2^-vf @ v ----
-  float acc[OPT], lsum[OPT];
+  float acc[RT][DPL], lsum[RT];
 #pragma unroll
-  for (int k = 0; k < OPT; ++k) { acc[k] = 0.f; lsum[k] = 0.f; }
-  for (int t0 = 0; t0 < W; t0 += ATT_NT) {
-    const int tn = min(ATT_NT, W - t0);
-    __syncthreads();
-    stage_rows(Ks, ldk, kbase, m_st, t0, tn, hdm, packed, vec);
-    stage_rows(Vs, ldk, vbase, m_st, t0, tn, hdm, packed, vec);
-    if (tid < tn) {
-      ks[tid] = exact_exp2(-static_cast<float>(kfb[(t0 + tid) * f_st])) * scale;
-      vs[tid] = exact_exp2(-static_cast<float>(vfb[(t0 + tid) * f_st]));
+  for (int r = 0; r < RT; ++r) {
+    lsum[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
+  }
+  for (int s0 = 0; s0 < n_own; s0 += ATT_SLOTS) {
+    const int tn = min(ATT_SLOTS, n_own - s0);
+    const int pb = keep ? s0 : 0;
+    if (!keep) {  // keys and values restaged, the scores recomputed bit for bit
+      __syncthreads();
+      score(s0, tn, 0, true, false, false);
+    } else if (nsub > 1) {
+      __syncthreads();
+      stage_rows(Vs, nullptr, ldk, vbase, nullptr, m_st, t_lo + s0, tn, hdm, packed, vec);
     }
     __syncthreads();
-    if (tid < tn) {
-      const int tp = tpb[(t0 + tid) * tp_st];
-      float dot[RT];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) dot[r] = 0.f;
-      const int8_t* kr = Ks + tid * ldk;
-      for (int d = 0; d < hd; ++d) {
-        const float kv = static_cast<float>(kr[d]);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) dot[r] = fmaf(qs[r * hd + d], kv, dot[r]);
+    for (int e = tid; e < tn * RT; e += ATT_NT) {
+      const int i = pb + e / RT, r = e % RT;
+      float p = 0.f;
+      if (r < rows && visible(tps[i], qp[r], window)) {
+        p = expf(P[i * RT + r] - rowm[r]);
+        if (pf) p = floorf(p * pfs + 0.5f) / pfs;
       }
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const bool vis = r < rows && tp >= 0 && tp <= qp[r] &&
-                         (window < 0 || qp[r] - tp < window);
-        float p = 0.f;
-        if (vis) {
-          // __fmul_rn: the same rounded score as pass 1, never fused into the
-          // subtraction, so the row's max gives exp(0) = 1 exactly
-          p = expf(__fmul_rn(dot[r], ks[tid]) - rowm[r]);
-          if (pf) p = floorf(p * pfs + 0.5f) / pfs;
-        }
-        P[r * ATT_NT + tid] = p;
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < RT; ++r) P[r * ATT_NT + tid] = 0.f;
+      P[i * RT + r] = p;
+      PV[i * RT + r] = p * vss[i];
     }
     __syncthreads();
+    // warp w takes the contiguous share [lo, hi) of the staged slots
+    const int per = (tn + ATT_WARPS - 1) / ATT_WARPS;
+    const int lo = warp * per, hi = min(tn, lo + per);
+#pragma unroll 2
+    for (int i = lo; i < hi; ++i) {
+      const int8_t* vr = Vs + i * ldk;
+      float v[DPL];
 #pragma unroll
-    for (int k = 0; k < OPT; ++k) {
-      const int idx = tid + k * ATT_NT;
-      if (idx < rows * hd) {
-        const int r = idx / hd, d = idx - r * hd;
-        float a = acc[k], l = lsum[k];
-        for (int tc = 0; tc < tn; ++tc) {
-          const float p = P[r * ATT_NT + tc];
-          a = fmaf(p * vs[tc], static_cast<float>(Vs[tc * ldk + d]), a);
-          l += p;
+      for (int e = 0; e < DPL; ++e) {
+        const int d = lane + 32 * e;
+        v[e] = d < hd ? static_cast<float>(vr[d]) : 0.f;
+      }
+      const float4* p4 = reinterpret_cast<const float4*>(P + (pb + i) * RT);
+      const float4* pv4 = reinterpret_cast<const float4*>(PV + (pb + i) * RT);
+#pragma unroll
+      for (int r4 = 0; r4 < RT / 4; ++r4) {
+        const float4 p = p4[r4], pv = pv4[r4];
+        const float ps[4] = {p.x, p.y, p.z, p.w}, pvs[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int r = 4 * r4 + u;
+          lsum[r] += ps[u];
+#pragma unroll
+          for (int e = 0; e < DPL; ++e)
+            if (32 * e < hd) acc[r][e] = fmaf(pvs[u], v[e], acc[r][e]);
         }
-        acc[k] = a;
-        lsum[k] = l;
       }
     }
   }
+  // the warps' partials, summed in warp order (they reuse P and PV's space)
+  __syncthreads();
 #pragma unroll
-  for (int k = 0; k < OPT; ++k) {
-    const int idx = tid + k * ATT_NT;
-    if (idx < rows * hd) {
-      const int r = idx / hd, d = idx - r * hd;
-      const int rg = r0 + r, s = rg / G, h = kvh * G + rg % G;
-      out[(static_cast<size_t>(b * S + s) * H + h) * hd + d] =
-          acc[k] / fmaxf(lsum[k], 1e-20f);
+  for (int r = 0; r < RT; ++r) {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      if (d < hd) wpart[(warp * RT + r) * hd + d] = acc[r][e];
     }
+    if (lane == 0) wl[warp * RT + r] = lsum[r];
   }
+  __syncthreads();
+  for (int idx = tid; idx < RT * hd; idx += ATT_NT) {
+    float a = wpart[idx];
+#pragma unroll
+    for (int w = 1; w < ATT_WARPS; ++w) a += wpart[w * RT * hd + idx];
+    part[idx] = a;
+  }
+  if (tid < RT) {
+    float l = wl[tid];
+#pragma unroll
+    for (int w = 1; w < ATT_WARPS; ++w) l += wl[w * RT + tid];
+    lpart[tid] = l;
+  }
+  cluster.sync();  // every block's partials are written
+  // the blocks' partials in rank order; block c combines every C-th output, every
+  // remote load before the first add
+  for (int idx = rank * ATT_NT + tid; idx < rows * hd; idx += C * ATT_NT) {
+    const int r = idx / hd, d = idx - r * hd;
+    float pa[CMAX], pl[CMAX];
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      pa[c] = c < C ? *cluster.map_shared_rank(part + idx, c) : 0.f;
+      pl[c] = c < C ? *cluster.map_shared_rank(lpart + r, c) : 0.f;
+    }
+    float a = pa[0], l = pl[0];
+#pragma unroll
+    for (int c = 1; c < CMAX; ++c)
+      if (c < C) {
+        a += pa[c];
+        l += pl[c];
+      }
+    const int rg = r0 + r, s = rg / G, h = kvh * G + rg % G;
+    out[(static_cast<size_t>(b * S + s) * H + h) * hd + d] = a / fmaxf(l, 1e-20f);
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
-size_t attention_smem_bytes(int hd, int rt) {
-  return sizeof(float) * (rt * hd + rt * ATT_NT + 2 * ATT_NT + ATT_WARPS * rt + rt) +
-         sizeof(int) * rt + 2 * static_cast<size_t>(ATT_NT) * (hd + 4);
-}
-
-template <int RT>
+template <int RT, int DPL>
 int launch_attention(const float* qh, const int8_t* km, const int8_t* vm, long long m_sb,
                      long long m_st, long long m_skv, const int8_t* kf,
                      const int8_t* vf, long long f_sb, long long f_st, long long f_skv,
                      const int* qpos, const int* tpos, long long tp_sb,
                      long long tp_st, const float* pf, float* out, int B, int S,
                      int H, int KV, int W, int hd, int packed, int vec, int window,
-                     float scale, cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes(hd, RT);
-  cudaError_t e = cudaFuncSetAttribute(kv_attention_kernel<RT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     float scale, int cluster, cudaStream_t stream) {
+  const int chunk = (W + cluster - 1) / cluster;
+  // keep the block's scores where they fit, else recompute them in pass 2
+  size_t smem = attention_smem_bytes(hd, RT, chunk);
+  auto kernel = kv_attention_kernel<RT, DPL, false>;
+  if (smem > SMEM_MAX) {
+    smem = attention_smem_bytes(hd, RT, ATT_SLOTS);
+    kernel = kv_attention_kernel<RT, DPL, true>;
+  }
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int SG = S * (H / KV);
-  dim3 grid(KV, B, (SG + RT - 1) / RT);
-  kv_attention_kernel<RT><<<grid, ATT_NT, smem, stream>>>(
-      qh, km, vm, m_sb, m_st, m_skv, kf, vf, f_sb, f_st, f_skv, qpos, tpos, tp_sb,
-      tp_st, pf, out, S, H, KV, W, hd, packed, vec, window, scale);
+  const int ntiles = (S * (H / KV) + RT - 1) / RT;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, KV, B * ntiles);
+  cfg.blockDim = dim3(ATT_NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, qh, km, vm, m_sb, m_st, m_skv,
+                         kf, vf, f_sb, f_st, f_skv, qpos, tpos, tp_sb, tp_st, pf, out,
+                         S, H, KV, W, hd, packed, vec, window, scale, ntiles, chunk);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,13 +587,29 @@ extern "C" int kv_quantize_launch(const float* x, int8_t* q, int8_t* f, int R,
   return static_cast<int>(cudaGetLastError());
 }
 
+// q [R, hd] int8 contiguous, f [R] int8 -> out [R, hd] fp32 contiguous.  vec = 1
+// when hd % 16 == 0 and q and out are 16-byte aligned.
+extern "C" int kv_dequant_launch(const int8_t* q, const int8_t* f, float* out, int R,
+                                 int hd, int vec, void* stream) {
+  if (R <= 0 || hd <= 0) return cudaErrorInvalidValue;
+  const long long work = static_cast<long long>(R) * (vec ? hd / 16 : hd);
+  constexpr int kThreads = 256;
+  const int blocks = static_cast<int>(std::min<long long>((work + kThreads - 1) / kThreads,
+                                                          132LL * 16));
+  kv_dequant_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      q, f, out, R, hd, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // qh [B, S, H, hd] fp32 contiguous; km / vm int8 mantissas [B, W, KV, hdm] read
 // through (m_sb, m_st, m_skv) with the last axis contiguous (hdm = hd, or hd / 2
 // when packed); vec = 1 when the mantissa rows and strides are 16-byte aligned and
 // hdm % 16 == 0; kf / vf int8 exponents [B, W, KV] through (f_sb, f_st, f_skv);
 // qpos [B, S] int32 contiguous; tpos [B, W] int32 through (tp_sb, tp_st), negative
 // = empty slot; pf: device pointer to the fp32 probs exponent, or null for no
-// probs grid; window < 0 for none.  out [B, S, H, hd] fp32 contiguous.
+// probs grid; window < 0 for none; cluster: blocks sharing one ring (1..8, chosen
+// from W alone by the caller).  out [B, S, H, hd] fp32 contiguous.  Any W: a
+// block whose slots' scores do not fit in shared memory recomputes them.
 extern "C" int kv_attention_launch(const float* qh, const int8_t* km, const int8_t* vm,
                                    long long m_sb, long long m_st, long long m_skv,
                                    const int8_t* kf, const int8_t* vf,
@@ -355,16 +618,21 @@ extern "C" int kv_attention_launch(const float* qh, const int8_t* km, const int8
                                    long long tp_sb, long long tp_st, const float* pf,
                                    float* out, int B, int S, int H, int KV, int W,
                                    int hd, int packed, int vec, int window, float scale,
-                                   void* stream) {
+                                   int cluster, void* stream) {
   if (hd <= 0 || hd > ATT_HDMAX || hd % 2 || KV <= 0 || H % KV || W <= 0 || B <= 0 ||
-      S <= 0)
+      S <= 0 || cluster < 1 || cluster > 8)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S * (H / KV) <= 8)
-    return launch_attention<8>(qh, km, vm, m_sb, m_st, m_skv, kf, vf, f_sb, f_st, f_skv,
-                               qpos, tpos, tp_sb, tp_st, pf, out, B, S, H, KV, W, hd,
-                               packed, vec, window, scale, st);
-  return launch_attention<16>(qh, km, vm, m_sb, m_st, m_skv, kf, vf, f_sb, f_st, f_skv,
-                              qpos, tpos, tp_sb, tp_st, pf, out, B, S, H, KV, W, hd,
-                              packed, vec, window, scale, st);
+#define KV_ATTENTION_LAUNCH(RT, DPL)                                                    \
+  return launch_attention<RT, DPL>(qh, km, vm, m_sb, m_st, m_skv, kf, vf, f_sb, f_st, f_skv, \
+                                   qpos, tpos, tp_sb, tp_st, pf, out, B, S, H, KV, W, hd,   \
+                                   packed, vec, window, scale, cluster, st)
+  const bool small = S * (H / KV) <= 8;
+  if (hd <= 64) {
+    if (small) KV_ATTENTION_LAUNCH(8, 2);
+    KV_ATTENTION_LAUNCH(16, 2);
+  }
+  if (small) KV_ATTENTION_LAUNCH(8, 4);
+  KV_ATTENTION_LAUNCH(16, 4);
+#undef KV_ATTENTION_LAUNCH
 }

@@ -2,12 +2,14 @@
 (counterpart of ``repro/kernels/kv_dequant/ops.py``).
 
 Entry points take the cache-native layouts (``[B, W, KV, hdm]``
-mantissas, ``[B, W, KV]`` exponents).  On CUDA tensors ``kv_quantize``
-and ``kv_attention_decode`` launch the hand-written kernels of
-``csrc/kv_dequant.cu`` (no fallback); on CPU tensors they take the plain
-versions in ``ref.py``.  ``kv_dequant``, ``kv_pack`` and ``kv_unpack``
-are plain PyTorch everywhere: the serving path never dequantizes the
-cache, and the packed rows it writes per tick are tiny.
+mantissas, ``[B, W, KV]`` exponents).  On CUDA tensors ``kv_quantize``,
+``kv_dequant`` and ``kv_attention_decode`` launch the hand-written
+kernels of ``csrc/kv_dequant.cu`` (no fallback); on CPU tensors they take
+the plain versions in ``ref.py``.  ``kv_pack`` and ``kv_unpack`` are
+plain PyTorch everywhere: the packed rows the serving path writes per
+tick are tiny.  (The serving path never dequantizes the cache: its
+attention read folds the dequant in; ``kv_dequant`` is the op's public
+entry point, as in the JAX package.)
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["kv_attention_decode", "kv_attention_rows", "kv_dequant",
-           "kv_pack", "kv_quantize", "kv_quantize_rows", "kv_unpack"]
+__all__ = ["attention_cluster", "kv_attention_decode", "kv_attention_rows",
+           "kv_dequant", "kv_dequant_rows", "kv_pack", "kv_quantize",
+           "kv_quantize_rows", "kv_unpack"]
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,9 +34,11 @@ def _lib() -> ctypes.CDLL:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.kv_quantize_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.kv_quantize_launch.restype = ci
+        lib.kv_dequant_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        lib.kv_dequant_launch.restype = ci
         lib.kv_attention_launch.argtypes = [
             vp, vp, vp, ll, ll, ll, vp, vp, ll, ll, ll, vp, vp, ll, ll, vp,
-            vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+            vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
         lib.kv_attention_launch.restype = ci
         lib.typed = True
     return lib
@@ -77,10 +82,45 @@ def kv_quantize(x: torch.Tensor, bits: int = 8
     return q.reshape(lead + (hd,)), f.reshape(lead)
 
 
+def kv_dequant_rows(q: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel: [R, hd] int8 contiguous mantissas, [R] int8
+    exponents -> [R, hd] fp32 ``q * 2^-f``, bit-exact."""
+    if not (q.is_cuda and f.is_cuda):
+        raise ValueError("kv_dequant_rows needs CUDA tensors")
+    if q.dtype != torch.int8 or f.dtype != torch.int8:
+        raise TypeError("kv_dequant_rows takes int8 mantissas and exponents")
+    if q.ndim != 2 or tuple(f.shape) != (q.shape[0],) \
+            or not (q.is_contiguous() and f.is_contiguous()):
+        raise ValueError(f"kv_dequant_rows takes contiguous [R, hd] / [R], got "
+                         f"q{tuple(q.shape)} f{tuple(f.shape)}")
+    R, hd = q.shape
+    out = torch.empty((R, hd), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    vec = hd % 16 == 0 and q.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    _build.check(_lib().kv_dequant_launch(
+        q.data_ptr(), f.data_ptr(), out.data_ptr(), R, hd, int(vec),
+        _build.stream_ptr(q.device)), "kv_dequant_rows")
+    kv_dequant_rows.launches += 1
+    kv_dequant_rows.shapes[R, hd] += 1
+    return out
+
+
+# launches of the kernel, in all and by (R, hd)
+kv_dequant_rows.launches = 0
+kv_dequant_rows.shapes = collections.Counter()
+
+
 def kv_dequant(q: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """(int8 mantissas ``[..., hd]``, int8 exponents ``[...]``) -> fp32
     ``q * 2^-f``."""
-    return ref.kv_dequant_ref(q, f)
+    if not q.is_cuda:
+        return ref.kv_dequant_ref(q, f)
+    lead, hd = q.shape[:-1], q.shape[-1]
+    out = kv_dequant_rows(q.to(torch.int8).reshape(-1, hd).contiguous(),
+                          f.to(torch.int8).reshape(-1).contiguous())
+    return out.reshape(lead + (hd,))
 
 
 def kv_pack(q: torch.Tensor) -> torch.Tensor:
@@ -90,6 +130,18 @@ def kv_pack(q: torch.Tensor) -> torch.Tensor:
 
 def kv_unpack(packed: torch.Tensor, hd: int) -> torch.Tensor:
     return ref.kv_unpack_ref(packed, hd)
+
+
+# ring slots a block of the attention kernel's cluster owns at least, and
+# the most blocks a cluster may have (the portable cluster size)
+CLUSTER_SLOTS, CLUSTER_MAX = 128, 8
+
+
+def attention_cluster(W: int) -> int:
+    """Blocks that share one ring of ``W`` slots in ``kv_attention_rows``
+    (8 at W = 1024): from W alone, so a request's rows are summed in the
+    same order in any batch."""
+    return max(1, min(CLUSTER_MAX, -(-W // CLUSTER_SLOTS)))
 
 
 def kv_attention_rows(qh: torch.Tensor, km: torch.Tensor, kf: torch.Tensor,
@@ -143,7 +195,8 @@ def kv_attention_rows(qh: torch.Tensor, km: torch.Tensor, kf: torch.Tensor,
         tpos.stride(1), None if probs_f is None else probs_f.data_ptr(),
         out.data_ptr(), B, S, H, KV, W, hd, int(hdm != hd), int(vec),
         -1 if window is None else int(window), float(hd) ** -0.5,
-        _build.stream_ptr(qh.device)), "kv_attention_rows")
+        attention_cluster(W), _build.stream_ptr(qh.device)),
+        "kv_attention_rows")
     kv_attention_rows.launches += 1
     kv_attention_rows.shapes[B, S, H, KV, hd, W, hdm] += 1
     return out

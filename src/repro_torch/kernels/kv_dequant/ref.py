@@ -39,8 +39,9 @@ def kv_quantize_ref(rows: torch.Tensor, bits: int
 
 
 def kv_dequant_ref(q: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """``q * 2^-f`` in fp32 (also the plain version of the TPU
-    ``kv_dequant_rows``, which has no caller on the serving path)."""
+    """``q * 2^-f`` in fp32: the plain version of the ``kv_dequant_rows``
+    kernel (``kv_dequant`` on a CPU tensor) and the attention read's
+    dequant."""
     return q.to(torch.float32) * _exp2i(-f.to(torch.float32))[..., None]
 
 

@@ -18,7 +18,7 @@ import torch
 
 from ...core.quantizer import _exp2i, floor_log2
 from .. import _build
-from .ref import pack_ref, qmatmul_ref
+from .ref import pack_ref, qmatmul_ref, unpack_nibbles
 
 
 def mantissa_max(bits: int = 8) -> int:
@@ -93,41 +93,51 @@ def pack_nibbles(m: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.movedim(packed.to(torch.int8), -1, axis)
 
 
-def unpack_nibbles(packed: torch.Tensor, orig: int,
-                   axis: int = -1) -> torch.Tensor:
-    """Inverse of :func:`pack_nibbles`: sign-extended mantissas by
-    arithmetic shifts."""
-    p = torch.movedim(packed.to(torch.int8), axis, -1)
-    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(p, 4), 4)
-    hi = torch.bitwise_right_shift(p, 4)
-    m = torch.stack([lo, hi], dim=-1).reshape(
-        p.shape[:-1] + (2 * p.shape[-1],))[..., :orig]
-    return torch.movedim(m, -1, axis)
-
-
 def _lib() -> ctypes.CDLL:
     """The built library, its entry point typed on first use."""
     lib = _build.load("qmatmul")
     if not getattr(lib, "typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qmatmul_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.qmatmul_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                       ci, vp]
         lib.qmatmul_launch.restype = ci
         lib.typed = True
     return lib
 
 
-def qmatmul(x: torch.Tensor, w_int: torch.Tensor,
-            scale: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x [M, K] fp32, w_int [K, N] int8 stored N-major
-    (the transpose of a contiguous [N, K], as the serving packer stores
-    every layer and as the tied head's ``table.T`` reads without a copy),
-    scale [N] fp32 -> [M, N] fp32.  Raises on anything the kernel does
-    not take."""
+# the kernel's block covers this many output channels; a split-K part
+# covers whole groups of KGROUP k values (so int8 and nibble storage cut K
+# at the same places); SPLIT_TARGET blocks fill the 132 SMs twice
+BLOCK_N, KGROUP, SPLIT_TARGET = 128, 128, 264
+
+
+def qmatmul_split(K: int, N: int) -> Tuple[int, int]:
+    """(parts, groups of 128 k per part) of the kernel's split-K, from K
+    and N alone: enough parts that ~2 blocks land on every SM, at most one
+    part per group.  Never from M, so a row's sum runs in the same order
+    at M = 1, 8 and 16."""
+    groups = -(-K // KGROUP)
+    want = max(1, min(groups, -(-SPLIT_TARGET // -(-N // BLOCK_N))))
+    per = -(-groups // want)
+    return -(-groups // per), per
+
+
+def qmatmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor, *,
+            nib: bool = False) -> torch.Tensor:
+    """The CUDA kernel: x [M, K] fp32, scale [N] fp32 -> [M, N] fp32.
+    ``w_int`` is stored N-major (each output channel's row contiguous, as
+    the serving packer stores every layer and as the tied head's
+    ``table.T`` reads without a copy): [K, N] int8 with strides (1, K),
+    or with ``nib`` the packed nibble storage [K / 2, N] with strides
+    (1, K / 2), read as it is.  Raises on anything the kernel does not
+    take."""
     M, K = x.shape
-    K2, N = w_int.shape
-    if K2 != K or tuple(scale.shape) != (N,):
+    rows, N = w_int.shape
+    if rows != (K // 2 if nib else K) or (nib and K % 2) \
+            or tuple(scale.shape) != (N,):
         raise ValueError(f"qmatmul shapes x{tuple(x.shape)} "
-                         f"w{tuple(w_int.shape)} scale{tuple(scale.shape)}")
+                         f"w{tuple(w_int.shape)} scale{tuple(scale.shape)}"
+                         f"{' (nibbles)' if nib else ''}")
     if not (x.is_cuda and w_int.is_cuda and scale.is_cuda):
         raise ValueError("qmatmul kernel needs CUDA tensors")
     if x.dtype != torch.float32 or scale.dtype != torch.float32 \
@@ -135,37 +145,41 @@ def qmatmul(x: torch.Tensor, w_int: torch.Tensor,
         raise TypeError("qmatmul kernel takes fp32 x / scale, int8 w")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("qmatmul kernel needs contiguous x and scale")
-    if w_int.stride() != (1, K):
+    if w_int.stride() != (1, rows):
         raise ValueError(f"qmatmul kernel takes N-major [N, K] storage, "
                          f"got strides {w_int.stride()}")
-    vec = int(K % 4 == 0 and x.data_ptr() % 16 == 0
-              and w_int.data_ptr() % 4 == 0)
+    parts, per = qmatmul_split(K, N)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    ws = torch.empty((parts, M, N), dtype=torch.float32, device=x.device) \
+        if parts > 1 else None
     _build.check(_lib().qmatmul_launch(
         x.data_ptr(), w_int.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        M, K, N, vec, _build.stream_ptr(x.device)), "qmatmul")
+        None if ws is None else ws.data_ptr(), M, K, N, int(nib), parts,
+        per * KGROUP, _build.stream_ptr(x.device)), "qmatmul")
     qmatmul.launches += 1
-    qmatmul.shapes[M, K, N] += 1
+    qmatmul.shapes[M, K, N, 4 if nib else 8] += 1
     return y
 
 
-# launches of the kernel, in all and by (M, K, N)
+# launches of the kernel, in all and by (M, K, N, bits of the storage)
 qmatmul.launches = 0
 qmatmul.shapes = collections.Counter()
 
 
 def qmatmul_any(x: torch.Tensor, w_int: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """``x [..., K] @ packed w [K, N]`` scaled per output channel, in
-    x's dtype.  CUDA tensors go through the kernel, CPU tensors through
+                scale: torch.Tensor, *, nib: bool = False) -> torch.Tensor:
+    """``x [..., K] @ packed w`` scaled per output channel, in x's dtype;
+    ``w_int`` is [K, N] int8 or, with ``nib``, the nibble storage
+    [K / 2, N].  CUDA tensors go through the kernel, CPU tensors through
     the plain version."""
-    K, N = w_int.shape
+    N = w_int.shape[1]
+    K = x.shape[-1]
     lead = x.shape[:-1]
     M = math.prod(lead) if lead else 1
     x2 = x.reshape(M, K).to(torch.float32)
     if x.is_cuda:
         out = qmatmul(x2.contiguous(), w_int, scale.to(torch.float32)
-                      .contiguous())
+                      .contiguous(), nib=nib)
     else:
-        out = qmatmul_ref(x2, w_int, scale)
+        out = qmatmul_ref(x2, w_int, scale, nib=nib)
     return out.reshape(*lead, N).to(x.dtype)

@@ -140,12 +140,14 @@ class TransformerLM(nn.Module):
         if is_packed(tbl):
             # tied head over the packed table: the per-embedding-column
             # scales fold into the activation, h @ (m * s).T ==
-            # (h * s) @ m.T, and the kernel reads m.T without a copy
+            # (h * s) @ m.T, and the kernel reads m.T without a copy.
+            # A nibble table is packed along the vocab (the head's N),
+            # which the kernel does not read: it is unpacked first.
             s_d = tbl["scale"].reshape(cfg.d_model)
             ones = torch.ones((cfg.vocab,), dtype=torch.float32,
                               device=h.q.device)
-            return qmatmul_any(h.q.to(torch.float32) * s_d,
-                               packed_mantissas(tbl).T, ones)
+            m = tbl["w_int8"] if "w_int8" in tbl else packed_mantissas(tbl)
+            return qmatmul_any(h.q.to(torch.float32) * s_d, m.T, ones)
         wq = get_qw(tbl, mode)
         return torch.matmul(h.q.to(wq.q.dtype), wq.q.T)
 

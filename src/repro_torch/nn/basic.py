@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from ..core import hgq
 from ..core.hgq import Aux, QTensor
 from ..core.quantizer import f_shape_for
-from ..dist.perf import is_packed, packed_mantissas
+from ..dist.perf import is_packed, packed_mantissas, packed_storage
 from ..kernels.qmatmul.ops import qmatmul_any
 from .common import HGQConfig, act_q_init, apply_act_q, get_qw, qweight_init
 
@@ -64,11 +64,11 @@ class HDense:
               act: str = "") -> Tuple[QTensor, Dict[str, Any]]:
         kern = p["kernel"]
         if is_packed(kern):
-            # serving hot path: packed mantissas stream into the kernel
-            # (nibble layers sign-extend to int8 first)
-            ki = packed_mantissas(kern)
+            # serving hot path: the stored mantissas (int8 or nibbles)
+            # stream into the kernel as they lie
+            ki, nib = packed_storage(kern)
             y = qmatmul_any(x.q.to(torch.float32), ki,
-                            kern["scale"].reshape(ki.shape[-1])
+                            kern["scale"].reshape(ki.shape[-1]), nib=nib
                             ).to(x.q.dtype)
         else:
             wq = get_qw(kern, mode)

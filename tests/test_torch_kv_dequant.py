@@ -152,3 +152,33 @@ def test_kv_attention_empty_rows_are_zero():
                                   window=None, n_kv=KV,
                                   probs_f=torch.tensor(6.0))
     assert torch.count_nonzero(out) == 0
+
+
+@pytest.mark.parametrize("lead,hd", [((3, 5), 64), ((7,), 80), ((1, 3, 3), 48)])
+def test_kv_dequant_matches_jax_kernel(lead, hd):
+    """``kv_dequant`` (the plain version on the CPU) bit for bit against
+    JAX's ``kv_dequant_rows`` kernel in interpret mode and its reference,
+    with an odd number of rows and head dims that are not a multiple of
+    128 (the JAX op pads them to its lanes; the port pads nothing)."""
+    rng = _rng("dequant", lead, hd)
+    q = rng.integers(-128, 128, size=lead + (hd,)).astype(np.int8)
+    f = rng.integers(-3, 12, size=lead).astype(np.int8)
+    f.reshape(-1)[0] = 127                       # 2^-127: clamped to 2^-126
+    assert math.prod(lead) % 2 == 1
+    out = tkv.kv_dequant(torch.from_numpy(q), torch.from_numpy(f))
+    assert out.dtype == torch.float32 and tuple(out.shape) == lead + (hd,)
+    _eq(jkv.kv_dequant(jnp.asarray(q), jnp.asarray(f), use_kernel=True,
+                       interpret=True), out)
+    _eq(jkv.kv_dequant(jnp.asarray(q), jnp.asarray(f), use_kernel=False),
+        out)
+
+
+def test_attention_cluster_from_w_only():
+    """The attention kernel's cluster size takes the ring length W and
+    nothing else (so never B or S): 8 blocks at qwen2's 1024-slot ring,
+    one for a short ring, never more than the portable 8."""
+    import inspect
+    from repro_torch.kernels.kv_dequant import attention_cluster
+    assert list(inspect.signature(attention_cluster).parameters) == ["W"]
+    assert [attention_cluster(W) for W in (1, 20, 128, 129, 1024, 2048,
+                                           100000)] == [1, 1, 1, 2, 8, 8, 8]

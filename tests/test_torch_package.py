@@ -21,11 +21,14 @@ from repro_torch.kernels.hgq_quantize import (hgq_quantize, hgq_quantize_bwd,
                                               hgq_quantize_grad_ref,
                                               hgq_quantize_ref)
 from repro_torch.kernels.kv_dequant import (kv_attention_decode,
-                                            kv_attention_rows, kv_quantize,
+                                            kv_attention_rows, kv_dequant,
+                                            kv_dequant_rows, kv_quantize,
                                             kv_quantize_rows)
 from repro_torch.kernels.kv_dequant.ref import (kv_attention_ref,
+                                                kv_dequant_ref,
                                                 kv_quantize_ref)
-from repro_torch.kernels.qmatmul import qmatmul, qmatmul_any, qmatmul_ref
+from repro_torch.kernels.qmatmul import (pack_nibbles, qmatmul, qmatmul_any,
+                                         qmatmul_ref)
 from repro_torch.kernels import wire_pack as wp
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -265,3 +268,115 @@ def test_wire_pack_launches_the_kernels_on_cuda(cuda_device):
             got = launched(wp.dequant_sum, q, ss, shift, n)
             assert torch.equal(_bits(got),
                                _bits(wp.dequant_sum_ref(q, ss, shift, n)))
+
+
+@pytest.mark.cuda
+def test_kv_dequant_launches_its_kernel_on_cuda(cuda_device):
+    """``kv_dequant`` on CUDA tensors moves the ``kv_dequant_rows`` counter
+    by one and equals the plain version bit for bit: a qwen2 layer's ring
+    (hd 64, the 16-byte path) and head dims that are not a multiple of 16
+    (hd 72 with 21 rows, hd 24 with 5: the one-value path)."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    for lead, hd in (((2, 1024, 2), 64), ((7, 3), 72), ((5,), 24)):
+        q = torch.randint(-128, 128, lead + (hd,), generator=g,
+                          device=cuda_device, dtype=torch.int8)
+        f = torch.randint(-3, 12, lead, generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        before = kv_dequant_rows.launches
+        out = kv_dequant(q, f)
+        torch.cuda.synchronize()
+        assert kv_dequant_rows.launches == before + 1
+        assert torch.equal(out, kv_dequant_ref(q, f))
+
+
+@pytest.mark.cuda
+def test_qmatmul_reads_nibbles_in_the_kernel(cuda_device, monkeypatch):
+    """``qmatmul_any`` on the packer's ``w_nib`` storage launches the
+    kernel once and unpacks nothing on the way."""
+    import repro_torch.dist.perf as perf
+    import repro_torch.kernels.qmatmul.ops as qops
+    import repro_torch.kernels.qmatmul.ref as qref
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    M, K, N = 8, 896, 608
+    x = torch.randn((M, K), generator=g, device=cuda_device)
+    m = torch.randint(-7, 8, (K, N), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    s = torch.full((N,), 2.0 ** -5, device=cuda_device)
+    stored = pack_nibbles(m, axis=-2).T.contiguous().T    # as w_nib lies
+    ref = qmatmul_ref(x, m, s)
+    tol = 1e-5 * qmatmul_ref(x.abs(), m.abs(), s)
+
+    def refuse(*a, **k):
+        raise AssertionError("unpack_nibbles on the kernel path")
+
+    for mod in (perf, qops, qref):
+        monkeypatch.setattr(mod, "unpack_nibbles", refuse)
+    before = qmatmul.launches
+    y = qmatmul_any(x, stored, s, nib=True)
+    torch.cuda.synchronize()
+    assert qmatmul.launches == before + 1
+    assert bool(((y - ref).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_qmatmul_rows_bitwise_equal_at_m_1_8_16(cuda_device):
+    """A row's result has the same bits alone, in a decode tick of 8 and in
+    a prefill chunk of 16, for int8 and nibble storage, with and without
+    the split over K."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    for K, N in ((896, 128), (896, 151936 // 16), (4864, 896)):
+        x = torch.randn((16, K), generator=g, device=cuda_device)
+        s = torch.full((N,), 2.0 ** -6, device=cuda_device)
+        m8 = torch.randint(-128, 128, (N, K), generator=g,
+                           device=cuda_device, dtype=torch.int8).T
+        m4 = torch.randint(-7, 8, (K, N), generator=g, device=cuda_device,
+                           dtype=torch.int8)
+        for w, nib in ((m8, False), (pack_nibbles(m4, axis=-2).T
+                                     .contiguous().T, True)):
+            y16 = qmatmul(x, w, s, nib=nib)
+            y8 = qmatmul(x[:8].contiguous(), w, s, nib=nib)
+            y1 = qmatmul(x[3:4].contiguous(), w, s, nib=nib)
+            assert torch.equal(y16[:8], y8)
+            assert torch.equal(y16[3:4], y1)
+
+
+# (B, S, W, hd): RT = 8 query rows a block at B = 8, S = 1, RT = 16 at
+# B = 2, S = 16; W = 1500 leaves the cluster's last block ragged, W = 2048
+# gives a block two staging rounds, W = 16384 at RT = 16 and W = 32768 at
+# RT = 8 keep no scores in shared memory (pass 2 recomputes them), hd = 40
+# stages rows without 16-byte loads
+LONG_RINGS = [(8, 1, 1500, 64), (2, 16, 1500, 64), (8, 1, 2048, 64),
+              (2, 16, 2048, 64), (2, 16, 16384, 64), (8, 1, 32768, 64),
+              (2, 16, 1500, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nibble", [False, True], ids=["int8", "nibble"])
+@pytest.mark.parametrize("B,S,W,hd", LONG_RINGS)
+def test_kv_attention_long_rings_on_cuda(cuda_device, B, S, W, hd, nibble):
+    """Rings longer than the serving slice's, partly empty, with and
+    without a window: within 1e-5 of the plain version, and each request's
+    rows bit for bit the same alone as in the batch."""
+    from repro_torch.kernels.kv_dequant import kv_pack
+    g = torch.Generator(device=cuda_device).manual_seed(W + hd)
+    H, KV, bits = 14, 2, 4 if nibble else 8
+    m, f = kv_quantize_ref(torch.randn((2, B, W, KV, hd), generator=g,
+                                       device=cuda_device), bits)
+    if nibble:
+        m = kv_pack(m)
+    qh = torch.randn((B, S, H, hd), generator=g, device=cuda_device)
+    last = torch.randint(S, W, (B,), generator=g, device=cuda_device)
+    qpos = (last[:, None] - S + 1 + torch.arange(S, device=cuda_device)
+            ).to(torch.int32)
+    tpos = torch.arange(W, device=cuda_device).expand(B, W).clone()
+    tpos[tpos > last[:, None]] = -1
+    args = (qh, m[0], f[0], m[1], f[1], qpos, tpos.to(torch.int32))
+    for window in (None, 700):
+        out = kv_attention_rows(*args, window=window, n_kv=KV)
+        ref = kv_attention_ref(qh.reshape(B, S, KV, H // KV, hd), *args[1:],
+                               window=window).reshape(qh.shape)
+        assert float((out - ref).abs().max()) <= 1e-5
+        for b in (0, B - 1):
+            one = [a[b:b + 1].contiguous() for a in args]
+            assert torch.equal(kv_attention_rows(*one, window=window,
+                                                 n_kv=KV), out[b:b + 1])

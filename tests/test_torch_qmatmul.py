@@ -128,3 +128,80 @@ def test_qmatmul_any_transposed_weight():
     a = tops.qmatmul_any(x, m.T, s)
     b = tops.qmatmul_any(x, m.T.contiguous(), s)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _nibble_storage(w):
+    """The serving packer's ``w_nib`` for a 4-bit layer: [K / 2, N] bytes,
+    N-major, the even k in the low nibble; and the mantissas and scale."""
+    from repro_torch.dist.perf import _pack_one
+    packed = _pack_one({"w": torch.from_numpy(w)}, 4, n_major=True)
+    m, s = tops.pack_linear(torch.from_numpy(w), None, 4)
+    return packed["w_nib"], m, s
+
+
+@pytest.mark.parametrize("lead,K,N", [((8,), 112, 608), ((16,), 608, 112),
+                                      ((2, 3), 50, 24)])
+def test_qmatmul_any_nibbles_matches_jax(lead, K, N):
+    """The nibble storage as the packer keeps it, against JAX's kernel
+    (interpret mode) over the unpacked mantissas, at qwen2-0.5b's MLP
+    widths cut by 8 (gate/up [896, 4864] and down [4864, 896]) and an
+    odd-shaped one; held to ``1e-5 * (|x| @ |w|) * scale``."""
+    x = RNG.normal(size=lead + (K,)).astype(np.float32)
+    stored, m, s = _nibble_storage(_weights((K, N)))
+    assert tuple(stored.shape) == (K // 2, N)
+    assert stored.stride() == (1, K // 2)          # N-major
+    yj = np.asarray(jops.qmatmul_any(jnp.asarray(x), jnp.asarray(m.numpy()),
+                                     jnp.asarray(s.numpy())))
+    before = qmatmul.launches
+    yt = tops.qmatmul_any(torch.from_numpy(x), stored, s, nib=True)
+    assert qmatmul.launches == before        # CPU tensors: the plain version
+    assert tuple(yt.shape) == lead + (N,)
+    tol = 1e-5 * (np.abs(x) @ np.abs(m.numpy().astype(np.float32))) \
+        * s.numpy()
+    assert np.all(np.abs(yt.numpy() - yj) <= tol + 1e-30)
+    # the plain version computes one function over either storage
+    torch.testing.assert_close(
+        tops.qmatmul_any(torch.from_numpy(x), m, s), yt, rtol=0, atol=0)
+
+
+def test_bf16_split3_is_exact():
+    """hi + mid + lo == x for seeded normal fp32 over a wide exponent
+    range (summed in float64), and each term times every int8 and int4
+    mantissa is exact in fp32 (equal to the float64 product)."""
+    from repro_torch.kernels.qmatmul import bf16_split3
+    rng = np.random.default_rng(11)
+    mag = np.exp2(rng.uniform(-90, 90, 4096)).astype(np.float32)
+    x = torch.from_numpy(mag * rng.choice([-1.0, 1.0], 4096)
+                         .astype(np.float32))
+    x[:4] = torch.tensor([1.0, -3.0, 2.0 ** -100, 1.0 - 2.0 ** -24])
+    terms = bf16_split3(x)
+    assert all(t.dtype == torch.bfloat16 for t in terms)
+    total = sum(t.to(torch.float64) for t in terms)
+    assert torch.equal(total, x.to(torch.float64))
+    mant = torch.arange(-128, 128, dtype=torch.float32)   # int4 is inside
+    for t in terms:
+        t32 = t.to(torch.float32)[:, None]
+        assert torch.equal((t32 * mant).to(torch.float64),
+                           t32.to(torch.float64) * mant.to(torch.float64))
+
+
+def test_qmatmul_split_from_k_and_n_only():
+    """The split-K choice takes K and N and nothing else (so never M), its
+    parts cover K's groups of 128 with none empty, and qwen2-0.5b's layers
+    fill the card: ~2 blocks of 128 channels per SM where K allows."""
+    import inspect
+    assert list(inspect.signature(tops.qmatmul_split).parameters) == \
+        ["K", "N"]
+    for K in (1, 64, 127, 128, 129, 896, 4864, 10000):
+        for N in (1, 48, 128, 896, 4864, 151936):
+            parts, per = tops.qmatmul_split(K, N)
+            groups = -(-K // 128)
+            assert parts >= 1 and per >= 1
+            assert (parts - 1) * per < groups <= parts * per
+    blocks = {}
+    for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896),
+                 (896, 151936)):
+        parts, _ = tops.qmatmul_split(K, N)
+        blocks[K, N] = parts * -(-N // 128)
+    assert blocks == {(896, 896): 49, (896, 128): 7, (896, 4864): 266,
+                      (4864, 896): 266, (896, 151936): 1187}
