@@ -21,7 +21,10 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    library yardstick (where one exists) with CUDA events, beside the least
    time the card could take; holds ``qmatmul``'s exact products against
    a control that drops the lowest bf16 term, and ``kv_attention_rows``
-   on rings longer than serving's (up to 32768 slots);
+   on rings longer than serving's (up to 32768 slots); holds
+   ``wire_pack_rows`` on views 0-15 bytes past a 16-byte boundary, and
+   the ``hgq_quantize`` backward on an unaligned view against an aligned
+   copy (the same bits);
 4. slice phase: serves qwen2-0.5b at full width (random weights from a
    seed) through the port's ``Engine`` in two configurations, holds the
    tokens against ``generate()`` and the logits against the CPU's plain
@@ -38,7 +41,8 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    proxy; tallies one step's ``hgq_quantize`` launches by shape; runs 20
    steps on the card and on the CPU from one init (a limit that two faulty
    controls must exceed) and twice on the card (bit-identical); then
-   traces one step with ``torch.profiler``;
+   traces one step with ``torch.profiler``, whose trace must hold one
+   ``hgq_bwd`` kernel for each per-channel and per-tensor backward;
 6. wire phase: (a) trains the same jet tagger data-parallel over
    ``dist.LocalMesh(4)`` (four ranks as threads on the one card: NCCL
    refuses two ranks on one GPU) with ``reduce="compressed"`` (1D, fused,
@@ -47,7 +51,8 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    layer-0 bits against the same code's uncompressed run from one init;
    runs 20 compressed steps on the card and on the CPU from one init (a
    limit that two faulty wires must exceed) and twice on the card
-   (bit-identical); (b) reduces qwen2-0.5b's full-width gradient tree
+   (bit-identical), and traces one step as the train phase does; (b)
+   reduces qwen2-0.5b's full-width gradient tree
    (4 shards of seeded values) over the wire, uniform int8 and
    ``plan_mixed_w4w8``, and holds the fused path, the per-leaf path and
    ``simulate_wire_pmean`` equal bit for bit, the card equal to the CPU
@@ -531,9 +536,17 @@ HGQ_SHAPES = (
     + [((1024, 64), (), torch.float32), ((1024, 32), (), torch.float32)]
     + [(s, f, dt) for dt in (torch.float32, torch.bfloat16)
        for s, f in (((896, 4864), (1, 4864)), ((8192, 896), ()))])
-# rows of one partial sum of the backward kernel (csrc/hgq_quantize.cu):
-# TILE_ROWS per channel, TILE_ELEMS / cols per tensor
-HGQ_TILE_ROWS, HGQ_TILE_ELEMS = 32, 2048
+# edge shapes of the backward's cluster geometry (csrc/hgq_quantize.cu,
+# ``hgq_quantize.ops.bwd_plan``): rows not a multiple of a block's rows, a
+# single row, columns not a multiple of 32 (and of a 16-byte vector: values
+# loaded one by one), bfloat16 at the training shapes, and one shape of each
+# reduction just past the one-cluster line (a second pass)
+HGQ_EDGE = (
+    [((1001, 16), (16,), torch.float32), ((1, 16), (16,), torch.float32),
+     ((1, 64), (), torch.float32), ((1024, 33), (33,), torch.float32),
+     ((1001, 33), (), torch.float32), ((300, 5), (5,), torch.bfloat16),
+     ((1024, 16), (16,), torch.bfloat16), ((1024, 64), (), torch.bfloat16),
+     ((2049, 16), (16,), torch.float32), ((256, 257), (), torch.float32)])
 
 
 def _bits_of(t):
@@ -691,16 +704,61 @@ def wire_case(name, key, dev, g):
 
 # edge shapes of the wire kernels, beside the shapes the wire phase takes
 # from its main paths: stacked rows at every width, odd tails, a qwen2 MLP
-# leaf (24 layers) and the embedding, n = 3 (a true division) and 4
+# leaf (24 layers) and the embedding, n = 3 (a true division) and 4; packs
+# of even C around the 16- and 32-byte vectors (16 packed bytes from 32)
 WIRE_EDGE = {
     "wire_quantize_rows": [(1, 1, 8), (3, 40, 2), (4, 129, 5), (7, 257, 7),
                            (24, 1000, 3), (24, 896 * 4864, 4),
                            (1, 151936 * 896, 8)],
     "wire_quantize_sflat": [((4, 33), 8), ((4, 1001), 4), ((4, 2 ** 20), 8)],
-    "wire_pack_rows": [(1, 1), (3, 7), (4, 1001), (1, 2 ** 20)],
+    "wire_pack_rows": [(1, 1), (3, 7), (4, 1001), (1, 2 ** 20), (1, 14),
+                       (3, 16), (1, 18), (3, 30), (1, 32), (3, 34), (2, 62),
+                       (1, 64), (2, 66), (3, 2 ** 20 + 2)],
     "wire_dequant_rows": [(3, 1001, 2, 3), (4, 1001, 2, 4),
                           (4, 2 ** 20, 2, 4)],
 }
+
+
+def _hgq_alignment_check(dev):
+    """The backward's sums do not depend on where g and x lie: views one
+    element past a 16-byte boundary (values loaded one by one) give the bits
+    of aligned copies (16-byte loads)."""
+    from repro_torch.kernels.hgq_quantize import hgq_quantize_bwd
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    for shape, fshape, dtype in (((1024, 16), (16,), torch.float32),
+                                 ((1024, 64), (), torch.float32),
+                                 ((1024, 16), (16,), torch.bfloat16),
+                                 ((512, 257), (), torch.bfloat16)):
+        n = math.prod(shape)
+        buf = (torch.randn(2 * n + 1, generator=g, device=dev) * 4).to(dtype)
+        x, gy = buf[1:n + 1].view(shape), buf[n + 1:].view(shape)
+        f = torch.rand(fshape, generator=g, device=dev) * 8 - 1
+        a = hgq_quantize_bwd(gy, x, f)
+        b = hgq_quantize_bwd(gy.clone(), x.clone(), f)
+        check(torch.equal(_bits_of(a), _bits_of(b)),
+              f"hgq_quantize_bwd {tuple(shape)} {dtype}: an unaligned view "
+              f"sums differently from an aligned copy")
+
+
+def _pack_offset_check(dev):
+    """``wire_pack_rows`` on contiguous views whose base sits 0-15 bytes past
+    a 16-byte boundary (a slice of a larger tensor): bit-exact against the
+    plain version and repeatable, at even C (the 16-byte path, an input
+    misaligned against its output) and odd C."""
+    from repro_torch.kernels import wire_pack as wp
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 6)
+    for R, C in ((4, 2 * 16 * 1000 + 34), (1, 70), (3, 1001)):
+        buf = torch.randint(-7, 8, (R * C + 16,), generator=g, device=dev,
+                            dtype=torch.int8)
+        for off in range(16):
+            q = buf[off:off + R * C].view(R, C)
+            out = wp.wire_pack_rows(q)
+            check(torch.equal(out, wp.pack_chunks_ref(q))
+                  and torch.equal(out, wp.wire_pack_rows(q)),
+                  f"wire_pack_rows R{R} C{C} at byte offset {off}: not "
+                  f"bit-exact or not repeatable")
 
 
 def _subnormal_check(dev):
@@ -782,10 +840,12 @@ def kernel_phase(dev):
             cases["kv_attention_rows"][key] = kv_attention_case(
                 B, S, W, nibble, 6.0, dev, g, H=H, KV=KV, hd=hd)
     long_ring_checks(dev, g)
-    for shape, fshape, dtype in HGQ_SHAPES:
+    for shape, fshape, dtype in HGQ_SHAPES + HGQ_EDGE:
         key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
         cases["hgq_quantize_fwd"][key] = fwd
         cases["hgq_quantize_bwd"][key] = bwd
+    _hgq_alignment_check(dev)
+    _pack_offset_check(dev)
     _subnormal_check(dev)
     _division_check(dev)
     for name, keys in WIRE_EDGE.items():
@@ -843,10 +903,20 @@ def kernels_line(cases, tallies):
                  "per": None, "calls_per_unit": None}
         if name == "hgq_quantize_bwd":
             entry["note"] = ("the backward of the kernel's op, the custom_vjp "
-                             "at src/repro/kernels/hgq_quantize/ops.py:164")
+                             "at src/repro/kernels/hgq_quantize/ops.py:164; "
+                             "per channel and per tensor one launch of a "
+                             "thread block cluster (partials summed in rank "
+                             "order in rank 0's shared memory, no scratch) up "
+                             "to 8 blocks of two batches a thread (65536 "
+                             "float32 elements, 2048 rows per channel), "
+                             "clusters of 8 and a second pass beyond")
         if name in WIRE:
             entry["note"] = ("library_ms null: no single PyTorch call "
                              "computes this function")
+        if name == "wire_pack_rows":
+            entry["note"] += ("; even C packs the flat bytes in 16-byte "
+                              "vectors (two 16-byte loads, prmt, one 16-byte "
+                              "store), odd C a row at a time")
         if name == "qmatmul":
             entry["note"] = ("tensor cores (mma.sync bf16, x in three exact "
                              "terms); bound: bytes, or 3 x 2MKN operations "
@@ -1351,9 +1421,10 @@ def _trajectory(dev, params, qstate, batches):
 
 
 @contextlib.contextmanager
-def _df_without_last_tile():
-    """Control: the per-channel and per-tensor backward skips its last
-    tile of rows (a reduction that drops a partial sum)."""
+def _df_without_last_block():
+    """Control: the per-channel and per-tensor backward drops the rows of
+    its last block (a reduction that loses a block's partial sum; per
+    tensor, every row that holds one of the last block's elements)."""
     import repro_torch.kernels.hgq_quantize.ops as ops
     real = ops.hgq_quantize_bwd
 
@@ -1362,8 +1433,11 @@ def _df_without_last_tile():
             return real(g, x, f)
         cols = x.shape[-1]
         rows = x.numel() // cols
-        tile = HGQ_TILE_ROWS if f.ndim else max(1, HGQ_TILE_ELEMS // cols)
-        keep = rows - ((rows - 1) % tile + 1)
+        lay = "per_channel" if f.ndim else "per_tensor"
+        (_, _, span), _ = ops.bwd_plan(rows, cols, lay, x.dtype)
+        units = rows if f.ndim else rows * cols
+        start = (units - 1) // span * span       # the last block's first
+        keep = start if f.ndim else start // cols
         return real(g.reshape(rows, cols)[:keep].contiguous(),
                     x.reshape(rows, cols)[:keep].contiguous(), f)
 
@@ -1416,12 +1490,12 @@ def _card_vs_cpu(dev):
     same = card1[0] == card2[0] and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(card1[1]),
                                           tree_leaves(card2[1])))
-    with _df_without_last_tile():
+    with _df_without_last_block():
         drop = _trajectory(dev, params, qstate, batches)
     with _rounding_down():
         floor = _trajectory(dev, params, qstate, batches)
     out = {"sound": gaps(card1), "repeat_bit_identical": same,
-           "controls": {"df_drops_last_row_tile": gaps(drop),
+           "controls": {"df_drops_last_block": gaps(drop),
                         "forward_fi_floor_f": gaps(floor)},
            "cpu_final_loss": ref[-1][0]}
     print(f"[train] card vs CPU, 20 steps: {json.dumps(out)} (limit on the "
@@ -1435,20 +1509,42 @@ def _card_vs_cpu(dev):
     return out
 
 
+def _reducing_bwd_calls(per_step):
+    """Per-channel and per-tensor backward calls of one step."""
+    return sum(n for k, n in per_step["hgq_quantize_bwd"].items()
+               if k[0] != "per_parameter")
+
+
+def _one_kernel_a_bwd(grids, per_step, what):
+    """Every per-channel and per-tensor backward of a profiled step was one
+    device kernel: the trace holds one ``hgq_bwd_*`` kernel (cluster
+    kernel or second pass) for each such call."""
+    want = _reducing_bwd_calls(per_step)
+    check(len(grids) == want,
+          f"{what}: {len(grids)} hgq_bwd device kernels for {want} "
+          f"per-channel and per-tensor backward calls")
+    return {"hgq_bwd_kernels": len(grids), "reducing_bwd_calls": want,
+            "hgq_bwd_grids": sorted(set(grids))}
+
+
 def train_phase(dev):
     trainer, report, per_step = _quickstart(dev)
     report["card_vs_cpu"] = _card_vs_cpu(dev)
     # profiled only now, after every timed run
     step = QUICKSTART["steps"]
     batch = trainer.pipeline(step)
-    ops, busy, _ = _profiled(lambda: trainer.step_fn(
-        trainer.params, trainer.qstate, trainer.opt, batch, step))
+    ops, busy, grids = _profiled(lambda: trainer.step_fn(
+        trainer.params, trainer.qstate, trainer.opt, batch, step),
+        grids_of="hgq_bwd")
     med = report["step_ms_median"]
     report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
-                               "idle_share_of_median_step": 1.0 - busy / med}
+                               "idle_share_of_median_step": 1.0 - busy / med,
+                               **_one_kernel_a_bwd(grids, per_step,
+                                                   "profiled step")}
     print(f"[train] profiled step: {ops} device operations, device busy "
           f"{busy:.3f} ms, idle {1.0 - busy / med:.1%} of the median step "
-          f"({med:.3f} ms)", flush=True)
+          f"({med:.3f} ms); {len(grids)} hgq_bwd kernels, one a reducing "
+          f"backward", flush=True)
     return report, per_step
 
 
@@ -1694,13 +1790,16 @@ def _dp_jet(dev):
     # profiled only now, after every timed run
     b = pipe(steps)
     step_fn = _profile_step_fn(dev, p_c, q_c, plan)
-    ops, busy, _ = _profiled(lambda: step_fn(b))
+    ops, busy, grids = _profiled(lambda: step_fn(b), grids_of="hgq_bwd")
     med = report["step_ms_median"]
     report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
-                               "idle_share_of_median_step": 1.0 - busy / med}
+                               "idle_share_of_median_step": 1.0 - busy / med,
+                               **_one_kernel_a_bwd(grids, per_step,
+                                                   "profiled compressed step")}
     print(f"[wire] (a) profiled compressed step: {ops} device operations, "
           f"device busy {busy:.3f} ms, idle {1.0 - busy / med:.1%} of the "
-          f"median step ({med:.3f} ms)", flush=True)
+          f"median step ({med:.3f} ms); {len(grids)} hgq_bwd kernels, one a "
+          f"reducing backward", flush=True)
     return report, counts, per_step
 
 

@@ -5,13 +5,16 @@ Each source under ``csrc/`` is compiled for ``sm_90a`` at first use into
 ``build/repro_torch_kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the source and the flags, so a stale
 library is never loaded.  ``build_all`` starts one ``nvcc`` per source at
-once.  No ``--use_fast_math``: the grid math needs IEEE division, no
+once.  ``variant`` routes ``load`` to a build with other ``-D`` values of
+a kernel's geometry constants (what ``torch_kernel_sweep.py`` times).
+No ``--use_fast_math``: the grid math needs IEEE division, no
 flush-to-zero and the accurate ``expf``.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmatmul": "qmatmul.cu", "kv_dequant": "kv_dequant.cu",
@@ -31,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # loaded libraries, one per source, for the life of the process (a
 # library cannot be unloaded safely while the caching allocator may
 # still hold work launched from it)
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+# -D flags ``load`` builds a source with, by name: none outside ``variant``
+_DEFINES: Dict[str, Tuple[str, ...]] = {}
 # the ranks of a LocalMesh are threads: one of them builds and loads
 _LOAD_LOCK = threading.Lock()
 
@@ -50,29 +55,33 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: Sequence[str] = ()) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join((*NVCC_FLAGS, *defines))
+    h = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{h}.so"
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+def build_all(names: Optional[Iterable[str]] = None,
+              defines: Sequence[str] = ()) -> Dict[str, float]:
     """Compile every (or the named) source not yet built, one ``nvcc``
-    each, all started together.  Returns seconds per source built (0.0
-    when up to date).  Raises with the compiler's output on failure; the
-    ptxas register/spill report lands in ``<lib>.log``."""
+    each, all started together, with ``defines`` (``-DNAME=value``) added.
+    Returns seconds per source built (0.0 when up to date).  Raises with
+    the compiler's output on failure; the ptxas register/spill report
+    lands in ``<lib>.log``."""
     names = list(SOURCES if names is None else names)
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     seconds = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, defines)
         if out.exists():
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)
     failed = []
@@ -102,14 +111,29 @@ def ptxas_report(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, building it first if needed."""
     with _LOAD_LOCK:
-        lib = _LOADED.get(name)
+        defines = _DEFINES.get(name, ())
+        lib = _LOADED.get((name, defines))
         if lib is None:
-            out = _target(name)
+            out = _target(name, defines)
             if not out.exists():
-                build_all([name])
+                build_all([name], defines)
             lib = ctypes.CDLL(str(out))
-            _LOADED[name] = lib
+            _LOADED[(name, defines)] = lib
         return lib
+
+
+@contextlib.contextmanager
+def variant(name: str, defines: Sequence[str]):
+    """Within the block, ``load(name)`` (and so every wrapper of that
+    source) gives the source built with ``defines`` added: another value
+    of a geometry constant, for a sweep."""
+    with _LOAD_LOCK:
+        _DEFINES[name] = tuple(defines)
+    try:
+        yield
+    finally:
+        with _LOAD_LOCK:
+            _DEFINES.pop(name, None)
 
 
 def check(status: int, what: str) -> None:

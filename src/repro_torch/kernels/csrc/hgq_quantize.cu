@@ -17,33 +17,76 @@
 // Backward: dx = g needs no kernel.  df = sum of g * ln2 * (x - xq) over the
 // axes f is broadcast along, with xq recomputed from x and f and rounded to x's
 // dtype first, exactly as the JAX backward does.  Per parameter the product is
-// written elementwise.  The two reductions are deterministic, with no atomics:
-// per channel, block (tile of TILE_ROWS rows, 32 columns) sums its rows in a
-// fixed order into a partial [tiles, cols], and a second pass adds each
-// column's tiles, 8 strided lanes then a fixed sum of the lanes; per tensor,
-// block (tile of TILE_ELEMS elements) reduces its tile by a fixed tree into a
-// partial [tiles], and one block adds the tiles by the same tree.  One tile
-// writes df directly and skips the second pass.  Tiles are short (4 rows, 8
-// elements a thread) so that the dependent float adds of a thread stay few.
+// written elementwise.
+//
+// The two reductions (per channel, per tensor) are one launch of a thread block
+// cluster (cudaLaunchKernelEx) on every shape of the training slice, with no
+// scratch and no atomics; the earlier design's two dependent launches, scratch
+// and 8-step shared-memory tree took 6.3-9.5 us a training call.
+// - The blocks of a cluster split the rows (per channel, 32 columns a cluster)
+//   or the flat elements (per tensor); a thread takes BATCH 16-byte steps of g
+//   and x, all copied into its own slots of shared memory by cp.async before it
+//   waits once (loads into registers were paired by the compiler with each
+//   step's arithmetic, a memory latency a step).  Views that are not 16-byte
+//   aligned, and rows that are not whole vectors, load the same values one by
+//   one into registers.
+// - xq multiplies by the exact reciprocal 2^-fi where quant() divides by 2^fi:
+//   the same bits (see Grid).
+// - A block reduces by a fixed warp-shuffle tree, then its warps by a fixed
+//   tree.  Every rank but 0 stores its partial into rank 0's shared memory with
+//   st.async, completing bytes on rank 0's mbarrier; rank 0 adds the partials in
+//   rank order and writes df.
+// - Which thread takes which value, and so the order of every sum, follows from
+//   the shape and the dtype alone (hgq_quantize_bwd_plan), never from alignment,
+//   batch position or timing: two launches give the same bits.
+// - Clusters hold up to 8 blocks, the portable size every part with clusters
+//   schedules.  16 needs cudaFuncAttributeNonPortableClusterSizeAllowed and a
+//   GPC that holds 16 blocks, which H100 PCIe parts and MIG slices may not; on
+//   the H100 SXM it saves ~0.7 us at the 16-block training shape (1024, 64).
+//   HGQ_CLUSTER and HGQ_ONE_CLUSTER_BATCHES below set the geometry at build
+//   time; torch_kernel_sweep.py builds and times other values.
+//
+// Where the line falls.  One cluster (8 SMs) cannot stream a large shape: a qwen2
+// activation (8192, 896) float32 is 58.7 MB of g and x.  Past 8 blocks of two
+// batches a thread (65536 float32 elements per tensor, 2048 rows per channel),
+// the shape is spread over clusters of 8 blocks of one batch, each writes its
+// partial to scratch, and a second pass adds the partials in cluster order.  In
+// the sweep, float32 at the line runs ~1 us faster as one cluster than as two
+// and a second pass, and one cluster of four batches a thread ~1 us slower.
 //
 // Bound: bytes.  Forward reads x and f and writes out; backward reads g, x and f
 // and writes df (a few flops per element either way).  On the training slice's
 // shapes (a few thousand elements) every launch is latency-bound.
-// Later work: 16-byte vector loads, and fusing the quantizer into its neighbours.
+// Later work: fusing the quantizer into its neighbours.
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float LN2F = 0.6931471805599453f;
 constexpr int EW_THREADS = 256;       // elementwise kernels
 constexpr int EW_MAX_BLOCKS = 132 * 8;
-constexpr int COL_TILE = 32;          // per channel: columns of a block
-constexpr int ROW_LANES = 8;          // per channel: rows a block walks at once
-constexpr int TILE_ROWS = 32;         // per channel: rows of one partial sum
-constexpr int SUM_THREADS = 256;      // per tensor
-constexpr int TILE_ELEMS = 2048;      // per tensor: elements of one partial sum
+constexpr int RED_THREADS = 256;      // reduction blocks: 8 warps
+constexpr int RED_WARPS = RED_THREADS / 32;
+constexpr int COL_TILE = 32;          // per channel: columns of a cluster
+constexpr int BATCH = 4;              // 16-byte steps a thread loads before it adds
+// blocks a cluster (at most 8 unless the kernels may take non-portable sizes)
+#ifndef HGQ_CLUSTER
+#define HGQ_CLUSTER 8
+#endif
+// one cluster takes a shape up to CLUSTER blocks of this many batches a thread;
+// beyond, clusters of CLUSTER blocks of one batch a thread and a second pass
+#ifndef HGQ_ONE_CLUSTER_BATCHES
+#define HGQ_ONE_CLUSTER_BATCHES 2
+#endif
+constexpr int CLUSTER = HGQ_CLUSTER;
+constexpr int ONE_CLUSTER_BATCHES = HGQ_ONE_CLUSTER_BATCHES;
 
 enum Layout { PER_TENSOR = 0, PER_CHANNEL = 1, PER_PARAM = 2 };
 
@@ -76,13 +119,18 @@ __device__ __forceinline__ float quant(float x, float f) {
   return __fdiv_rn(floorf(__fadd_rn(__fmul_rn(x, s), 0.5f)), s);
 }
 
-// one element's share of df: (g * ln2) * (x - xq), xq in x's storage type
+// one element's share of df: (g * ln2) * (x - xq), xq in T, x's storage type
+template <typename T>
+__device__ __forceinline__ float term(float gv, float xv, float f) {
+  const float delta =
+      __fsub_rn(xv, as_stored(quant(xv, f), static_cast<const T*>(nullptr)));
+  return __fmul_rn(__fmul_rn(gv, LN2F), delta);
+}
+
 template <typename T>
 __device__ __forceinline__ float df_term(const T* g, const T* x, float f,
                                          long long i) {
-  const float xv = load(x, i);
-  const float delta = __fsub_rn(xv, as_stored(quant(xv, f), x));
-  return __fmul_rn(__fmul_rn(load(g, i), LN2F), delta);
+  return term<T>(load(g, i), load(x, i), f);
 }
 
 template <int L>
@@ -114,106 +162,399 @@ __global__ void bwd_param_kernel(const T* __restrict__ g,
     df[i] = df_term(g, x, f[i], i);
 }
 
-// grid (row tiles, column blocks), block (COL_TILE, ROW_LANES)
+// values a thread takes a step: 16 bytes of g (and of x)
 template <typename T>
-__global__ void bwd_channel_kernel(const T* __restrict__ g,
-                                   const T* __restrict__ x,
-                                   const float* __restrict__ f,
-                                   float* __restrict__ part, long long rows,
-                                   int cols) {
-  __shared__ float sh[ROW_LANES][COL_TILE];
-  const int c = blockIdx.y * COL_TILE + threadIdx.x;
-  const long long r0 = static_cast<long long>(blockIdx.x) * TILE_ROWS;
-  const long long r1 = r0 + TILE_ROWS < rows ? r0 + TILE_ROWS : rows;
-  float acc = 0.f;
-  if (c < cols) {
-    const float fv = f[c];
-#pragma unroll 4
-    for (long long r = r0 + threadIdx.y; r < r1; r += ROW_LANES)
-      acc = __fadd_rn(acc, df_term(g, x, fv, r * cols + c));
-  }
-  sh[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < cols) {
-    float s = sh[0][threadIdx.x];
+__host__ __device__ constexpr int vec_of() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+// a 16-byte load as float32 values: four float32, or eight bfloat16 widened
+__device__ __forceinline__ void widen(const uint4& u, const float*, float* v) {
+  v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void widen(const uint4& u, const __nv_bfloat16*,
+                                      float* v) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int k = 1; k < ROW_LANES; ++k) s = __fadd_rn(s, sh[k][threadIdx.x]);
-    part[static_cast<long long>(blockIdx.x) * cols + c] = s;
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
 }
 
-// grid (column blocks), block (COL_TILE, ROW_LANES): lane y adds tiles
-// y, y + ROW_LANES, ... of its column, then lane 0 adds the lanes in order
-__global__ void sum_tiles_kernel(const float* __restrict__ part,
-                                 float* __restrict__ df, int tiles, int cols) {
-  __shared__ float sh[ROW_LANES][COL_TILE];
-  const int c = blockIdx.x * COL_TILE + threadIdx.x;
-  float acc = 0.f;
-  if (c < cols) {
-#pragma unroll 4
-    for (int t = threadIdx.y; t < tiles; t += ROW_LANES)
-      acc = __fadd_rn(acc, part[static_cast<long long>(t) * cols + c]);
-  }
-  sh[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < cols) {
-    float s = sh[0][threadIdx.x];
-#pragma unroll
-    for (int k = 1; k < ROW_LANES; ++k) s = __fadd_rn(s, sh[k][threadIdx.x]);
-    df[c] = s;
-  }
+__device__ __forceinline__ uint32_t bits_of(const float* p) {
+  return __float_as_uint(*p);
+}
+__device__ __forceinline__ uint32_t bits_of(const __nv_bfloat16* p) {
+  return __bfloat16_as_ushort(*p);
 }
 
-// fixed-tree sum of one value per thread of a SUM_THREADS block; thread 0 holds it
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float sh[SUM_THREADS];
-  sh[threadIdx.x] = v;
-  __syncthreads();
-#pragma unroll
-  for (int s = SUM_THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] = __fadd_rn(sh[threadIdx.x],
-                                                     sh[threadIdx.x + s]);
-    __syncthreads();
-  }
-  return sh[0];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
 }
 
+// A thread's BATCH 16-byte steps of g and x.  VEC: cp.async copies into the
+// thread's own slots of shared memory, all issued before the first is waited
+// on, so the batch costs one memory latency (loads into registers were paired
+// by the compiler with each step's arithmetic: one latency a step).  Else the
+// values element by element into registers (views not 16-byte aligned, rows
+// not a whole number of vectors).  Elements at or past `valid` read element
+// `safe` instead (a value inside the tensor, whose term the caller drops).
+template <typename T, bool VEC>
+struct Batch {
+  uint4* slots;  // VEC: [2][BATCH][RED_THREADS] uint4 in shared memory
+  uint4 rg[VEC ? 1 : BATCH], rx[VEC ? 1 : BATCH];
+
+  __device__ __forceinline__ void fetch(const T* g, const T* x, int b,
+                                        long long i, int valid,
+                                        long long safe) {
+    if constexpr (VEC) {
+      const long long k = valid > 0 ? i : safe;
+      cp_async16(slots + b * RED_THREADS + threadIdx.x, g + k);
+      cp_async16(slots + (BATCH + b) * RED_THREADS + threadIdx.x, x + k);
+    } else {
+      rg[b] = load16(g, i, valid, safe);
+      rx[b] = load16(x, i, valid, safe);
+    }
+  }
+  __device__ __forceinline__ void wait() {
+    if constexpr (VEC) asm volatile("cp.async.wait_all;" ::: "memory");
+  }
+  __device__ __forceinline__ uint4 gb(int b) const {
+    if constexpr (VEC) return slots[b * RED_THREADS + threadIdx.x];
+    else return rg[b];
+  }
+  __device__ __forceinline__ uint4 xb(int b) const {
+    if constexpr (VEC) return slots[(BATCH + b) * RED_THREADS + threadIdx.x];
+    else return rx[b];
+  }
+
+ private:
+  static __device__ __forceinline__ uint4 load16(const T* p, long long i,
+                                                 int valid, long long safe) {
+    constexpr int PER = 4 / static_cast<int>(sizeof(T));  // values a word
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = 0u;
+#pragma unroll
+      for (int h = 0; h < PER; ++h) {
+        const int e = k * PER + h;
+        w[k] |= bits_of(p + (e < valid ? i + e : safe)) << (16 * h);
+      }
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// shared memory a VEC reduction block stages its batch in (no opt-in needed)
+constexpr int STAGE_BYTES = 2 * BATCH * RED_THREADS * 16;
+static_assert(STAGE_BYTES <= 48 * 1024, "a batch fits default shared memory");
+
+// The cluster's exchange.  Rank 0 keeps a slot per rank and an mbarrier; every
+// other rank stores its partials straight into rank 0's slots with st.async,
+// which completes their bytes on that mbarrier, and leaves.  Rank 0 waits for
+// the bytes and adds the slots in rank order.  The one cluster barrier orders the
+// mbarrier's initialisation before the first remote store: it is arrived at when
+// the kernel starts and waited on only after the block's own reduction, so its
+// latency hides under the loads.  (Two cluster.sync() around rank 0 reading the
+// other blocks' shared memory cost more: each a full barrier after the work.)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+struct Exchange {
+  // rank 0, one thread: expect `bytes` from the other ranks
+  static __device__ __forceinline__ void expect(unsigned long long* mbar,
+                                                unsigned bytes) {
+    asm volatile(
+        "mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n\t"
+        "fence.mbarrier_init.release.cluster;" ::"r"(smem_addr(mbar)),
+        "r"(bytes)
+        : "memory");
+  }
+  // every thread of every block, at the start
+  static __device__ __forceinline__ void arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  }
+  // every thread of every block, before the first remote store
+  static __device__ __forceinline__ void wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
+  // a rank other than 0: v into rank 0's copy of `slot`
+  static __device__ __forceinline__ void send(float* slot, float v,
+                                              unsigned long long* mbar) {
+    asm volatile(
+        "{\n\t.reg .b32 ra, rb;\n\t"
+        "mapa.shared::cluster.u32 ra, %0, 0;\n\t"
+        "mapa.shared::cluster.u32 rb, %2, 0;\n\t"
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [ra], %1, "
+        "[rb];\n\t}" ::"r"(smem_addr(slot)),
+        "r"(__float_as_uint(v)), "r"(smem_addr(mbar))
+        : "memory");
+  }
+  // rank 0: whether every expected byte has landed.  The wait is bounded: bytes
+  // that never come (a fault of this file) give false after 2^20 polls, and
+  // rank 0 writes NaN, which every check of a gradient sees, where a trap would
+  // end the CUDA context.
+  static __device__ __forceinline__ bool receive(unsigned long long* mbar) {
+    for (int i = 0; i < (1 << 20); ++i) {
+      unsigned done;
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+          "0;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done)
+          : "r"(smem_addr(mbar))
+          : "memory");
+      if (done) return true;
+    }
+    return false;
+  }
+};
+
+// The reductions' grid step and its reciprocal for one f: s = 2^fi and 1 / s =
+// 2^-fi, both exact (fi is clamped to -126..127, so 2^-fi lies in 2^-127 ..
+// 2^126; 2^-127 is the subnormal 0x00400000).  q * (1 / s) is then the same real
+// number as q / s and rounds to the same float: the bits of quant(), with a
+// multiply where quant() calls the IEEE division (a thread of the reductions
+// takes 32-64 elements).
+struct Grid {
+  float s, rs;
+};
+__device__ __forceinline__ Grid grid_of(float f) {
+  const float fi = fminf(fmaxf(floorf(__fadd_rn(f, 0.5f)), -126.f), 127.f);
+  const int e = static_cast<int>(fi);
+  return {__int_as_float((e + 127) << 23),
+          e == 127 ? __int_as_float(0x00400000) : __int_as_float((127 - e) << 23)};
+}
+
+// term() with the grid given
 template <typename T>
-__global__ void bwd_tensor_kernel(const T* __restrict__ g,
-                                  const T* __restrict__ x,
-                                  const float* __restrict__ f,
-                                  float* __restrict__ part, long long n) {
-  const float fv = f[0];
-  const long long e0 = static_cast<long long>(blockIdx.x) * TILE_ELEMS;
-  const long long e1 = e0 + TILE_ELEMS < n ? e0 + TILE_ELEMS : n;
-  float acc = 0.f;
-#pragma unroll 4
-  for (long long i = e0 + threadIdx.x; i < e1; i += SUM_THREADS)
-    acc = __fadd_rn(acc, df_term(g, x, fv, i));
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) part[blockIdx.x] = s;
+__device__ __forceinline__ float term_on(float gv, float xv, Grid q) {
+  const float xq = __fmul_rn(floorf(__fadd_rn(__fmul_rn(xv, q.s), 0.5f)), q.rs);
+  const float delta = __fsub_rn(xv, as_stored(xq, static_cast<const T*>(nullptr)));
+  return __fmul_rn(__fmul_rn(gv, LN2F), delta);
 }
 
-__global__ void sum_partials_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, int n) {
-  float acc = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n; i += SUM_THREADS)
-    acc = __fadd_rn(acc, part[i]);
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) out[0] = s;
+// v[0] + ... + v[N - 1] by a fixed pairwise tree
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* v) {
+  float s[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = v[i];
+#pragma unroll
+  for (int w = 1; w < N; w *= 2) {
+#pragma unroll
+    for (int i = 0; i + w < N; i += 2 * w) s[i] = __fadd_rn(s[i], s[i + w]);
+  }
+  return s[0];
+}
+
+// Per channel.  grid (blocks of the clusters along the rows, 32-column tiles),
+// clusters of `cs` blocks along x.  Block b takes rows [b * span, (b + 1) *
+// span); lane: V columns of the tile (TPR lanes across it) and one of the block's
+// 8 V row phases (phase p takes rows p, p + 8 V, ...).  dst: df, or with several
+// clusters the partials [clusters, cols].
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(RED_THREADS)
+hgq_bwd_channel_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                       const float* __restrict__ f, float* __restrict__ dst,
+                       long long rows, int cols, long long span, int cs) {
+  constexpr int V = vec_of<T>();
+  constexpr int TPR = COL_TILE / V;
+  constexpr int PH = RED_WARPS * V;
+  __shared__ float wsum[RED_WARPS][COL_TILE];
+  __shared__ float slots[CLUSTER][COL_TILE];  // rank 0: a row a rank
+  __shared__ unsigned long long mbar;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  if (cs > 1) {
+    if (rank == 0 && threadIdx.x == 0)
+      Exchange::expect(&mbar, (cs - 1) * COL_TILE * sizeof(float));
+    Exchange::arrive();
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pw = lane / TPR;
+  const int c0 = blockIdx.y * COL_TILE + (lane % TPR) * V;
+  const long long r0 = static_cast<long long>(blockIdx.x) * span;
+  const long long r1 = r0 + span < rows ? r0 + span : rows;
+  const int width = cols - c0 < V ? cols - c0 : V;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  if (c0 < cols) {
+    extern __shared__ uint4 stage[];
+    Batch<T, VEC> batch;
+    batch.slots = stage;
+    for (long long r = r0 + warp * V + pw; r < r1; r += BATCH * PH) {
+      int valid[BATCH];
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        const long long rb = r + b * PH;
+        valid[b] = rb < r1 ? width : 0;
+        batch.fetch(g, x, b, rb * cols + c0, valid[b], r * cols + c0);
+      }
+      Grid q[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) q[j] = grid_of(f[c0 + (j < width ? j : 0)]);
+      batch.wait();
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        float gv[V], xv[V];
+        widen(batch.gb(b), g, gv);
+        widen(batch.xb(b), x, xv);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          acc[j] = __fadd_rn(
+              acc[j], j < valid[b] ? term_on<T>(gv[j], xv[j], q[j]) : 0.f);
+      }
+    }
+  }
+  // the warp's V phases of each column: lanes TPR apart, a fixed xor tree
+#pragma unroll
+  for (int off = TPR; off < 32; off *= 2) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      acc[j] = __fadd_rn(acc[j], __shfl_xor_sync(0xFFFFFFFFu, acc[j], off));
+  }
+  if (pw == 0) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) wsum[warp][(lane % TPR) * V + j] = acc[j];
+  }
+  __syncthreads();
+  if (cs > 1) Exchange::wait();
+  if (threadIdx.x < COL_TILE) {
+    float w[RED_WARPS];
+#pragma unroll
+    for (int k = 0; k < RED_WARPS; ++k) w[k] = wsum[k][threadIdx.x];
+    const float part = tree_sum<RED_WARPS>(w);
+    if (rank != 0) {
+      Exchange::send(&slots[rank][threadIdx.x], part, &mbar);
+    } else {
+      float s = part;
+      if (cs > 1) {
+        if (Exchange::receive(&mbar))
+          for (int k = 1; k < cs; ++k) s = __fadd_rn(s, slots[k][threadIdx.x]);
+        else
+          s = __int_as_float(0x7FC00000);
+      }
+      const int c = blockIdx.y * COL_TILE + threadIdx.x;
+      if (c < cols) dst[static_cast<long long>(blockIdx.x / cs) * cols + c] = s;
+    }
+  }
+}
+
+// Per tensor.  grid (blocks of the clusters), clusters of `cs` blocks.  Block b
+// takes elements [b * span, (b + 1) * span), span a multiple of the block's step;
+// a thread V consecutive elements a step, summed by a fixed tree.  dst: df, or
+// with several clusters the partials [clusters].
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(RED_THREADS)
+hgq_bwd_tensor_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                      const float* __restrict__ f, float* __restrict__ dst,
+                      long long n, long long span, int cs) {
+  constexpr int V = vec_of<T>();
+  constexpr long long STEP = static_cast<long long>(RED_THREADS) * V;
+  __shared__ float wsum[RED_WARPS];
+  __shared__ float slots[CLUSTER];  // rank 0: one a rank
+  __shared__ unsigned long long mbar;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  if (cs > 1) {
+    if (rank == 0 && threadIdx.x == 0)
+      Exchange::expect(&mbar, (cs - 1) * sizeof(float));
+    Exchange::arrive();
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long e0 = static_cast<long long>(blockIdx.x) * span;
+  const long long e1 = e0 + span < n ? e0 + span : n;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  extern __shared__ uint4 stage[];
+  Batch<T, VEC> batch;
+  batch.slots = stage;
+  for (long long e = e0 + threadIdx.x * V; e < e1; e += BATCH * STEP) {
+    int valid[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const long long eb = e + b * STEP;
+      valid[b] = eb >= e1 ? 0 : e1 - eb < V ? static_cast<int>(e1 - eb) : V;
+      batch.fetch(g, x, b, eb, valid[b], e);
+    }
+    const Grid q = grid_of(f[0]);
+    batch.wait();
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      float gv[V], xv[V];
+      widen(batch.gb(b), g, gv);
+      widen(batch.xb(b), x, xv);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        acc[j] = __fadd_rn(acc[j],
+                           j < valid[b] ? term_on<T>(gv[j], xv[j], q) : 0.f);
+    }
+  }
+  float s = tree_sum<V>(acc);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    s = __fadd_rn(s, __shfl_xor_sync(0xFFFFFFFFu, s, off));
+  if (lane == 0) wsum[warp] = s;
+  __syncthreads();
+  if (cs > 1) Exchange::wait();
+  if (threadIdx.x == 0) {
+    const float part = tree_sum<RED_WARPS>(wsum);
+    if (rank != 0) {
+      Exchange::send(&slots[rank], part, &mbar);
+    } else {
+      float t = part;
+      if (cs > 1) {
+        if (Exchange::receive(&mbar))
+          for (int k = 1; k < cs; ++k) t = __fadd_rn(t, slots[k]);
+        else
+          t = __int_as_float(0x7FC00000);
+      }
+      dst[blockIdx.x / cs] = t;
+    }
+  }
+}
+
+// second pass, per channel: df[c] = the clusters' partials of column c, in
+// cluster order
+__global__ void hgq_bwd_sum_cols_kernel(const float* __restrict__ part,
+                                        float* __restrict__ df, long long nc,
+                                        int cols) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  float s = part[c];
+  for (long long k = 1; k < nc; ++k) s = __fadd_rn(s, part[k * cols + c]);
+  df[c] = s;
+}
+
+// second pass, per tensor: df[0] = the clusters' partials, thread t adding
+// t, t + RED_THREADS, ... in order, then the fixed trees of the block
+__global__ void __launch_bounds__(RED_THREADS)
+hgq_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ df,
+                   long long nc) {
+  __shared__ float wsum[RED_WARPS];
+  float s = 0.f;
+  for (long long k = threadIdx.x; k < nc; k += RED_THREADS)
+    s = __fadd_rn(s, part[k]);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    s = __fadd_rn(s, __shfl_xor_sync(0xFFFFFFFFu, s, off));
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) df[0] = tree_sum<RED_WARPS>(wsum);
 }
 
 int ew_blocks(long long n) {
   const long long b = (n + EW_THREADS - 1) / EW_THREADS;
   return static_cast<int>(b < EW_MAX_BLOCKS ? b : EW_MAX_BLOCKS);
 }
-
-long long channel_tiles(long long rows) {
-  return (rows + TILE_ROWS - 1) / TILE_ROWS;
-}
-
-long long tensor_tiles(long long n) { return (n + TILE_ELEMS - 1) / TILE_ELEMS; }
 
 template <typename T>
 void fwd(const void* x, const float* f, void* out, long long n, int cols,
@@ -229,58 +570,134 @@ void fwd(const void* x, const float* f, void* out, long long n, int cols,
     fwd_kernel<T, PER_PARAM><<<nb, EW_THREADS, 0, st>>>(xt, f, ot, n, cols);
 }
 
+// blocks a cluster, clusters, rows (per channel) or elements (per tensor) a block
+struct Plan {
+  long long cs, nc, span;
+};
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// rows (per channel) or elements (per tensor) one batch of a block covers, and
+// the multiple a block's span keeps
+long long batch_units(int layout, int bf16) {
+  const int v = bf16 ? 8 : 4;
+  return layout == PER_CHANNEL ? static_cast<long long>(RED_WARPS) * v * BATCH
+                               : static_cast<long long>(RED_THREADS) * v * BATCH;
+}
+long long span_step(int layout, int bf16) {
+  return layout == PER_CHANNEL ? 1 : RED_THREADS * (bf16 ? 8 : 4);
+}
+
+Plan plan_for(long long rows, int cols, int layout, int bf16) {
+  const long long n = layout == PER_CHANNEL ? rows : rows * cols;
+  const long long unit = batch_units(layout, bf16);
+  const long long step = span_step(layout, bf16);
+  const long long blocks = cdiv(n, unit);
+  Plan p;
+  if (blocks <= CLUSTER * ONE_CLUSTER_BATCHES) {
+    p.nc = 1;
+    p.cs = std::min<long long>(CLUSTER, blocks);
+    p.span = cdiv(cdiv(n, p.cs), step) * step;
+  } else {
+    p.cs = CLUSTER;
+    p.nc = cdiv(blocks, CLUSTER);
+    p.span = unit;
+  }
+  return p;
+}
+
+long long scratch_of(const Plan& p, int cols, int layout) {
+  return p.nc > 1 ? p.nc * (layout == PER_CHANNEL ? cols : 1) : 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// a kernel over thread block clusters of cs blocks along x, with smem bytes of
+// dynamic shared memory
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int cs,
+                            int smem, cudaStream_t st, Args... args) {
+  if constexpr (CLUSTER > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(RED_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 template <typename T>
-void bwd(const void* g, const void* x, const float* f, float* df,
-         float* scratch, long long rows, int cols, int layout,
-         cudaStream_t st) {
+cudaError_t bwd(const void* g, const void* x, const float* f, float* df,
+                float* scratch, long long rows, int cols, int layout,
+                const Plan& p, cudaStream_t st) {
   const T* gt = static_cast<const T*>(g);
   const T* xt = static_cast<const T*>(x);
   const long long n = rows * cols;
   if (layout == PER_PARAM) {
     bwd_param_kernel<T><<<ew_blocks(n), EW_THREADS, 0, st>>>(gt, xt, f, df, n);
-  } else if (layout == PER_CHANNEL) {
-    const long long tiles = channel_tiles(rows);
-    float* dst = tiles == 1 ? df : scratch;
-    const dim3 grid(static_cast<unsigned>(tiles),
-                    static_cast<unsigned>((cols + COL_TILE - 1) / COL_TILE));
-    bwd_channel_kernel<T><<<grid, dim3(COL_TILE, ROW_LANES), 0, st>>>(
-        gt, xt, f, dst, rows, cols);
-    if (tiles > 1)
-      sum_tiles_kernel<<<(cols + COL_TILE - 1) / COL_TILE,
-                         dim3(COL_TILE, ROW_LANES), 0, st>>>(
-          scratch, df, static_cast<int>(tiles), cols);
-  } else {
-    const long long tiles = tensor_tiles(n);
-    float* dst = tiles == 1 ? df : scratch;
-    bwd_tensor_kernel<T><<<static_cast<unsigned>(tiles), SUM_THREADS, 0, st>>>(
-        gt, xt, f, dst, n);
-    if (tiles > 1)
-      sum_partials_kernel<<<1, SUM_THREADS, 0, st>>>(scratch, df,
-                                                     static_cast<int>(tiles));
+    return cudaGetLastError();
   }
+  constexpr int V = vec_of<T>();
+  const int cs = static_cast<int>(p.cs);
+  const unsigned blocks = static_cast<unsigned>(p.cs * p.nc);
+  float* dst = p.nc > 1 ? scratch : df;
+  // 16-byte loads where g and x are aligned and every vector lies whole in a
+  // row; the same sums either way
+  const bool vec = aligned16(g) && aligned16(x) &&
+                   (layout == PER_CHANNEL ? cols : n) % V == 0;
+  const int smem = vec ? STAGE_BYTES : 0;
+  cudaError_t e;
+  if (layout == PER_CHANNEL) {
+    const dim3 grid(blocks, static_cast<unsigned>(cdiv(cols, COL_TILE)));
+    e = launch_clusters(vec ? hgq_bwd_channel_kernel<T, true>
+                            : hgq_bwd_channel_kernel<T, false>,
+                        grid, cs, smem, st, gt, xt, f, dst, rows, cols, p.span,
+                        cs);
+    if (e == cudaSuccess && p.nc > 1)
+      hgq_bwd_sum_cols_kernel<<<static_cast<unsigned>(cdiv(cols, RED_THREADS)),
+                                RED_THREADS, 0, st>>>(scratch, df, p.nc, cols);
+  } else {
+    e = launch_clusters(vec ? hgq_bwd_tensor_kernel<T, true>
+                            : hgq_bwd_tensor_kernel<T, false>,
+                        dim3(blocks), cs, smem, st, gt, xt, f, dst, n, p.span,
+                        cs);
+    if (e == cudaSuccess && p.nc > 1)
+      hgq_bwd_sum_kernel<<<1, RED_THREADS, 0, st>>>(scratch, df, p.nc);
+  }
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 bool valid(long long rows, int cols, int layout) {
-  return rows > 0 && cols > 0 && layout >= PER_TENSOR && layout <= PER_PARAM &&
-         channel_tiles(rows) < (1ll << 31) &&
-         tensor_tiles(rows * cols) < (1ll << 31) &&
-         (cols + COL_TILE - 1) / COL_TILE <= 65535;
+  return rows > 0 && cols > 0 && layout >= PER_TENSOR && layout <= PER_PARAM;
 }
 
 }  // namespace
 
-// floats of scratch the backward needs for [rows, cols] at this layout (0: none)
-extern "C" long long hgq_quantize_bwd_scratch(long long rows, int cols,
-                                              int layout) {
-  if (layout == PER_CHANNEL) {
-    const long long t = channel_tiles(rows);
-    return t > 1 ? t * cols : 0;
-  }
-  if (layout == PER_TENSOR) {
-    const long long t = tensor_tiles(rows * cols);
-    return t > 1 ? t : 0;
-  }
-  return 0;
+// The backward's geometry for [rows, cols] at a per-channel or per-tensor layout
+// and x's dtype: plan[0] blocks a cluster, plan[1] clusters (above 1, a second
+// pass adds their partials), plan[2] rows (per channel) or elements (per tensor)
+// a block.  Returns the floats of scratch it needs (0: one launch, none).
+extern "C" long long hgq_quantize_bwd_plan(long long rows, int cols, int layout,
+                                           int bf16, long long* plan) {
+  if (!valid(rows, cols, layout) || layout == PER_PARAM) return -1;
+  const Plan p = plan_for(rows, cols, layout, bf16);
+  plan[0] = p.cs;
+  plan[1] = p.nc;
+  plan[2] = p.span;
+  return scratch_of(p, cols, layout);
 }
 
 // x, out: [rows, cols] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1);
@@ -298,16 +715,20 @@ extern "C" int hgq_quantize_fwd_launch(const void* x, const float* f, void* out,
 }
 
 // g, x: [rows, cols] contiguous in x's dtype; df: float32 in f's layout;
-// scratch: hgq_quantize_bwd_scratch(rows, cols, layout) floats (or null if 0).
+// scratch: the floats hgq_quantize_bwd_plan returns (null if 0).
 extern "C" int hgq_quantize_bwd_launch(const void* g, const void* x,
                                        const float* f, float* df,
                                        float* scratch, long long rows, int cols,
                                        int layout, int bf16, void* stream) {
-  if (!valid(rows, cols, layout)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(rows, cols, layout) || cdiv(cols, COL_TILE) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan_for(rows, cols, layout, bf16);  // unused per parameter
+  if (layout != PER_PARAM && scratch_of(p, cols, layout) > 0 &&
+      scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    bwd<__nv_bfloat16>(g, x, f, df, scratch, rows, cols, layout, st);
-  else
-    bwd<float>(g, x, f, df, scratch, rows, cols, layout, st);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      bf16 ? bwd<__nv_bfloat16>(g, x, f, df, scratch, rows, cols, layout, p, st)
+           : bwd<float>(g, x, f, df, scratch, rows, cols, layout, p, st);
+  return static_cast<int>(e);
 }

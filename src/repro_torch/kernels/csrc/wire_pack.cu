@@ -33,7 +33,27 @@
 // lane alignment or padding is needed and any P works.  Bound: bytes (a few
 // operations per element); quantize moves 9 bytes an element, pack 1.5, dequant
 // 9 (the scale read per position).
-// Later work: 16-byte vector loads and stores; fusing the pack into the quantize.
+//
+// pack_rows with an even C (every shape the fused reduce launches: its chunks are
+// padded to an even width) packs the flat R * C bytes as one run, since the packed
+// rows then lie back to back.  One-byte loads and stores left it issue-bound at
+// ~1.5 TB/s; here a thread packs 16-byte vectors: two 16-byte read-only loads (32
+// mantissas), the low nibbles masked and the odd bytes shifted by 4 in each word,
+// the bytes gathered with one prmt a word, one 16-byte store.  The output vectors
+// start at the first 16-byte-aligned output byte (the bytes before it, and the
+// tail, take the scalar path).  The wrapper takes any contiguous view, so the
+// input of a vector may sit 1-15 bytes past a 16-byte boundary: then a thread
+// reads the three aligned 16-byte pieces that hold its 32 bytes (never beyond
+// those pieces) and funnel-shifts them into place.
+//
+// Geometry: WIRE_PACK_VECS vectors a thread (all loaded before the first is
+// stored) and WIRE_PACK_BLOCKS_PER_SM, a cap on the grid (0: none), set at build
+// time.  torch_kernel_sweep.py times other values at the qwen2 reduce's large
+// shapes: two or four vectors a thread and caps of 4-16 blocks an SM are no
+// faster than one vector a thread on an uncapped grid, a cap of 2 blocks an SM
+// is slower (too few loads in flight), and a view 1 byte off alignment takes
+// the aligned time.  Odd C keeps the per-row kernel.
+// Later work: fusing the pack into the quantize.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +62,18 @@ namespace {
 constexpr int THREADS = 256;
 constexpr long long MAX_BLOCKS = 132 * 8;
 constexpr long long MAX_GRID_Y = 65535;
+constexpr long long SMS = 132;
+
+// the flat pack's geometry: vectors a thread, blocks an SM at most (0: a block
+// per THREADS * PACK_VECS vectors)
+#ifndef WIRE_PACK_VECS
+#define WIRE_PACK_VECS 1
+#endif
+#ifndef WIRE_PACK_BLOCKS_PER_SM
+#define WIRE_PACK_BLOCKS_PER_SM 0
+#endif
+constexpr int PACK_VECS = WIRE_PACK_VECS;
+constexpr long long PACK_BLOCKS_PER_SM = WIRE_PACK_BLOCKS_PER_SM;
 
 __device__ __forceinline__ float exact_exp2(float fi) {
   fi = fminf(fmaxf(fi, -126.f), 127.f);
@@ -137,6 +169,98 @@ __global__ void pack_rows_kernel(const int8_t* __restrict__ q,
   }
 }
 
+// two packed bytes from one word of four mantissas: byte 0 holds
+// (b0 & 0xF) | (b1 << 4), byte 2 holds (b2 & 0xF) | (b3 << 4)
+__device__ __forceinline__ uint32_t pack_pairs(uint32_t w) {
+  return (w & 0x000F000Fu) | ((w >> 4) & 0x00F000F0u);
+}
+
+// four packed bytes from eight mantissas (two words, in memory order)
+__device__ __forceinline__ uint32_t pack_word(uint32_t a, uint32_t b) {
+  return __byte_perm(pack_pairs(a), pack_pairs(b), 0x6420);
+}
+
+__device__ __forceinline__ int8_t pack_byte(const uint8_t* q, long long j) {
+  return static_cast<int8_t>(
+      static_cast<uint8_t>((q[2 * j] & 0x0F) | (q[2 * j + 1] << 4)));
+}
+
+// the 32 bytes at p as eight words; off = p % 16, the same for every vector
+__device__ __forceinline__ void load32(const uint8_t* p, int off,
+                                       uint32_t w[8]) {
+  if (off == 0) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+    return;
+  }
+  // the three aligned pieces holding bytes p .. p + 31
+  const uint4* base = reinterpret_cast<const uint4*>(p - off);
+  const uint4 a = __ldg(base), b = __ldg(base + 1), c = __ldg(base + 2);
+  const uint32_t u[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                          b.z, b.w, c.x, c.y, c.z, c.w};
+  const int ws = off >> 2, sh = (off & 3) * 8;
+  uint32_t v[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    v[i] = ws == 0 ? u[i] : ws == 1 ? u[i + 1] : ws == 2 ? u[i + 2] : u[i + 3];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = __funnelshift_r(v[i], v[i + 1], sh);
+}
+
+// out[j] = pack_byte(q, j) for j < n: bytes [0, head) and [head + 16 nvec, n)
+// one a thread, then 16-byte vectors, PACK_VECS a thread a step (all loaded
+// before the first is stored); in_off is (q + 2 head) % 16
+__global__ void pack_flat_kernel(const uint8_t* __restrict__ q,
+                                 int8_t* __restrict__ out, long long n,
+                                 long long head, long long nvec, int in_off) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long tail = head + 16 * nvec;
+  if (t < head) out[t] = pack_byte(q, t);
+  if (t < n - tail) out[tail + t] = pack_byte(q, tail + t);
+  uint4* dst = reinterpret_cast<uint4*>(out + head);
+  for (long long v0 = t; v0 < nvec; v0 += PACK_VECS * threads) {
+    uint32_t w[PACK_VECS][8];
+#pragma unroll
+    for (int k = 0; k < PACK_VECS; ++k) {
+      const long long v = v0 + k * threads;
+      if (v < nvec) load32(q + 2 * head + 32 * v, in_off, w[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < PACK_VECS; ++k) {
+      const long long v = v0 + k * threads;
+      if (v < nvec)
+        dst[v] = make_uint4(pack_word(w[k][0], w[k][1]),
+                            pack_word(w[k][2], w[k][3]),
+                            pack_word(w[k][4], w[k][5]),
+                            pack_word(w[k][6], w[k][7]));
+    }
+  }
+}
+
+// the flat pack of n output bytes: vectors from the first 16-byte-aligned output
+// byte on
+void launch_pack_flat(const int8_t* q, int8_t* out, long long n,
+                      cudaStream_t st) {
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(q);
+  long long head = static_cast<long long>(
+      (16 - reinterpret_cast<uintptr_t>(out) % 16) % 16);
+  if (head > n) head = n;
+  const long long nvec = (n - head) / 16;
+  const int in_off =
+      static_cast<int>(reinterpret_cast<uintptr_t>(src + 2 * head) % 16);
+  // at least one block: its first threads take the scalar bytes (< 32)
+  long long blocks = (nvec + THREADS * PACK_VECS - 1) / (THREADS * PACK_VECS);
+  if (PACK_BLOCKS_PER_SM > 0 && blocks > SMS * PACK_BLOCKS_PER_SM)
+    blocks = SMS * PACK_BLOCKS_PER_SM;
+  if (blocks < 1) blocks = 1;
+  pack_flat_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+      src, out, n, head, nvec, in_off);
+}
+
 // s_stride: C when s holds a scale per position, 0 when one row of C scales
 // serves every row
 __global__ void dequant_rows_kernel(const int8_t* __restrict__ q,
@@ -188,12 +312,17 @@ extern "C" int wire_quantize_sflat_launch(const float* x, const float* s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: [R, C] int8; out: [R, (C + 1) / 2] int8; both contiguous.
+// q: [R, C] int8; out: [R, (C + 1) / 2] int8; both contiguous, at any byte
+// offset.  Even C: the flat 16-byte path; odd C: the per-row kernel.
 extern "C" int wire_pack_rows_launch(const int8_t* q, int8_t* out, long long R,
                                      long long C, void* stream) {
   if (R < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  pack_rows_kernel<<<grid_for(R, (C + 1) / 2), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(q, out, R, C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C % 2 == 0)
+    launch_pack_flat(q, out, R * (C / 2), st);
+  else
+    pack_rows_kernel<<<grid_for(R, (C + 1) / 2), THREADS, 0, st>>>(q, out, R,
+                                                                   C);
   return static_cast<int>(cudaGetLastError());
 }
 

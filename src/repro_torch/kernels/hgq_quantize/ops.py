@@ -60,8 +60,8 @@ def _lib() -> ctypes.CDLL:
         lib.hgq_quantize_bwd_launch.argtypes = [vp, vp, vp, vp, vp, ll, ci,
                                                 ci, ci, vp]
         lib.hgq_quantize_bwd_launch.restype = ci
-        lib.hgq_quantize_bwd_scratch.argtypes = [ll, ci, ci]
-        lib.hgq_quantize_bwd_scratch.restype = ll
+        lib.hgq_quantize_bwd_plan.argtypes = [ll, ci, ci, ci, vp]
+        lib.hgq_quantize_bwd_plan.restype = ll
         lib.typed = True
     return lib
 
@@ -114,25 +114,42 @@ hgq_quantize_fwd.launches = 0
 hgq_quantize_fwd.shapes = collections.Counter()
 
 
+def bwd_plan(rows: int, cols: int, layout: str, dtype: torch.dtype
+             ) -> Tuple[Tuple[int, int, int], int]:
+    """The backward kernel's geometry for x viewed as [rows, cols] at a
+    per-channel or per-tensor layout: ((blocks a cluster, clusters, rows
+    (per channel) or elements (per tensor) a block), floats of scratch).
+    One cluster needs no scratch and no second launch."""
+    plan = (ctypes.c_longlong * 3)()
+    n = _lib().hgq_quantize_bwd_plan(rows, cols, LAYOUTS.index(layout),
+                                     int(dtype == torch.bfloat16), plan)
+    if n < 0:
+        raise ValueError(f"no backward plan for {layout} [{rows}, {cols}]")
+    return tuple(plan), n
+
+
 def hgq_quantize_bwd(g: torch.Tensor, x: torch.Tensor,
                      f: torch.Tensor) -> torch.Tensor:
     """The backward kernel: ``df`` (float32, f's shape) from contiguous
-    CUDA g and x of one dtype and float32 f; a fixed-order reduction."""
+    CUDA g and x of one dtype and float32 f; a fixed-order reduction, one
+    launch of a thread block cluster wherever one cluster suffices
+    (``bwd_plan``)."""
     lay = _check("hgq_quantize_bwd", f, x, g)
     rows, cols = _rows_cols(x)
     if rows == 0:
         return torch.zeros_like(f)
     df = torch.empty_like(f)
-    lib = _lib()
-    n_scratch = lib.hgq_quantize_bwd_scratch(rows, cols, LAYOUTS.index(lay))
-    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=x.device)
-               if n_scratch else None)
-    _build.check(lib.hgq_quantize_bwd_launch(
+    scratch = None
+    if lay != "per_parameter":
+        _, n_scratch = bwd_plan(rows, cols, lay, x.dtype)
+        if n_scratch:
+            scratch = torch.empty((n_scratch,), dtype=torch.float32,
+                                  device=x.device)
+    _build.check(_lib().hgq_quantize_bwd_launch(
         g.data_ptr(), x.data_ptr(), f.data_ptr(), df.data_ptr(),
         None if scratch is None else scratch.data_ptr(), rows, cols,
-        LAYOUTS.index(lay),
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device)),
-        "hgq_quantize_bwd")
+        LAYOUTS.index(lay), int(x.dtype == torch.bfloat16),
+        _build.stream_ptr(x.device)), "hgq_quantize_bwd")
     hgq_quantize_bwd.launches += 1
     hgq_quantize_bwd.shapes[_key(lay, x)] += 1
     return df

@@ -163,3 +163,24 @@ def test_cpu_takes_the_plain_version_and_any_broadcast():
         hgq_quantize_fwd(x, f.detach())
     with pytest.raises(ValueError):
         hgq_quantize_bwd(x, x, f.detach())
+
+
+@pytest.mark.parametrize("lo", range(-126, 128, 32))
+def test_reciprocal_grid_step_is_the_division(lo):
+    """The backward's reductions (csrc/hgq_quantize.cu, ``Grid``) compute
+    ``xq = floor(x * 2^fi + 1/2) * 2^-fi`` where the plain version divides
+    by ``2^fi``: ``2^-fi`` is exact for every fi in -126..127 (``2^-127``
+    is a subnormal), so the product rounds the same real number as the
+    quotient, bit for bit, overflow to inf included."""
+    rng = np.random.default_rng(lo + 200)
+    mant = rng.normal(size=4096)
+    x = torch.from_numpy((mant * 2.0 ** rng.integers(-150, 104, 4096))
+                         .astype(np.float32))
+    for fi in range(lo, min(lo + 32, 128)):
+        f = torch.tensor(float(fi))
+        s = torch.tensor(2.0 ** fi, dtype=torch.float32)
+        rs = torch.tensor(2.0 ** -fi, dtype=torch.float32)
+        assert float(rs) * float(s) == 1.0, fi          # 2^-fi is exact
+        xq = torch.floor(x * s + 0.5) * rs
+        assert torch.equal(xq.view(torch.int32),
+                           hgq_quantize_ref(x, f).view(torch.int32)), fi

@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -67,7 +68,8 @@ def _imports(path: Path):
 
 
 def test_sources_import_neither_jax_nor_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "torch_kernel_sweep.py"]
     assert len(files) > 20
     for f in files:
         for name in _imports(f):
@@ -380,3 +382,109 @@ def test_kv_attention_long_rings_on_cuda(cuda_device, B, S, W, hd, nibble):
             one = [a[b:b + 1].contiguous() for a in args]
             assert torch.equal(kv_attention_rows(*one, window=window,
                                                  n_kv=KV), out[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(16))
+def test_wire_pack_rows_unaligned_views_on_cuda(cuda_device, offset):
+    """``wire_pack_rows`` on contiguous views whose base sits ``offset``
+    bytes into a tensor: even C (the 16-byte path, its input misaligned
+    against its output) and odd C (a row at a time), bit-exact against the
+    plain version, one launch each."""
+    g = torch.Generator(device=cuda_device).manual_seed(offset)
+    for R, C in ((4, 2 * 16 * 100 + 34), (3, 66), (1, 2), (2, 1001)):
+        buf = torch.randint(-8, 8, (R * C + 16,), generator=g,
+                            device=cuda_device, dtype=torch.int8)
+        q = buf[offset:offset + R * C].view(R, C)
+        before = wp.wire_pack_rows.launches
+        out = wp.wire_pack_rows(q)
+        torch.cuda.synchronize()
+        assert wp.wire_pack_rows.launches == before + 1
+        assert torch.equal(out, wp.pack_chunks_ref(q)), (R, C)
+
+
+# the backward's per-channel and per-tensor shapes on the training slice
+# (batch 1024 on one card, 256 a slice of the compressed step)
+TRAINING_BWD = [((1024, 16), (16,)), ((1024, 64), ()), ((1024, 32), ()),
+                ((256, 16), (16,)), ((256, 64), ()), ((256, 32), ())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,fshape", TRAINING_BWD)
+def test_hgq_bwd_is_one_launch_at_training_shapes(cuda_device, shape, fshape,
+                                                  dtype):
+    """At every training shape the per-channel and per-tensor backward is
+    one device kernel (a thread block cluster, no scratch, no second pass),
+    repeatable bit for bit, within 1e-5 of the sum of |terms| of the plain
+    version, and summed in the same order for an unaligned view."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.hgq_quantize.ops import bwd_plan
+    lay = "per_channel" if fshape else "per_tensor"
+    (_, clusters, _), scratch = bwd_plan(shape[0], shape[1], lay, dtype)
+    assert clusters == 1 and scratch == 0
+    g = torch.Generator(device=cuda_device).manual_seed(shape[0] + shape[1])
+    n = shape[0] * shape[1]
+    buf = (torch.randn(2 * n + 1, generator=g, device=cuda_device) * 4
+           ).to(dtype)
+    x, gy = buf[:n].view(shape), buf[n:2 * n].view(shape)
+    f = torch.rand(fshape, generator=g, device=cuda_device) * 8 - 1
+    hgq_quantize_bwd(gy, x, f)                                # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        df = hgq_quantize_bwd(gy, x, f)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "hgq_bwd" in kernels[0], kernels
+    assert torch.equal(df, hgq_quantize_bwd(gy, x, f))
+    ref = hgq_quantize_grad_ref(gy, x, f)
+    xq = hgq_quantize_ref(x, f).float()
+    scale = (gy.float() * 0.6931471805599453
+             * (x.float() - xq)).abs().sum_to_size(fshape)
+    assert bool(((df - ref).abs() <= 1e-5 * scale).all())
+    xu, gu = buf[1:n + 1].view(shape), buf[n + 1:].view(shape)
+    assert torch.equal(hgq_quantize_bwd(gu, xu, f),
+                       hgq_quantize_bwd(gu.clone(), xu.clone(), f))
+
+
+# f at the ends of the grid step's clamp (fi = floor(f + 1/2) in -126..127)
+# and past them, each with an x off the grid there (x * 2^fi = m, 2 m or 4 m,
+# m in [1, 2)) and a g that keeps the term a normal float32:
+# (f, exponent of x, exponent of g)
+GRID_EDGES = [(-300.0, 126, -100), (-126.0, 126, -100), (-125.6, 126, -100),
+              (126.0, -125, 40), (126.5, -125, 40), (127.0, -125, 40),
+              (300.0, -125, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_hgq_bwd_grid_step_at_the_clamp_on_cuda(cuda_device, dtype):
+    """The reductions' grid step and its reciprocal (``grid_of``:
+    ``2^-fi`` built in the exponent field, ``2^-127`` the subnormal
+    ``0x00400000``) at fi = -126, 126 and 127 and past the clamp: ``df`` of
+    a one-element tensor per tensor, and of one row per channel, equal the
+    plain version bit for bit (one term, nothing else to add)."""
+    rng = np.random.default_rng(15)
+    m = rng.uniform(1.0, 1.999, size=len(GRID_EDGES))
+    xs = [mi * 2.0 ** e for mi, (_, e, _) in zip(m, GRID_EDGES)]
+    gs = [rng.uniform(1.0, 2.0) * 2.0 ** e for _, _, e in GRID_EDGES]
+    x = torch.tensor([xs], dtype=torch.float32).to(dtype)
+    gy = torch.tensor([gs], dtype=torch.float32).to(dtype)
+    f = torch.tensor([fv for fv, _, _ in GRID_EDGES], dtype=torch.float32)
+    assert bool((hgq_quantize_ref(x, f) != x).all())       # off the grid
+    want = hgq_quantize_grad_ref(gy, x, f)
+    assert bool(torch.isfinite(want).all() & (want != 0).all())
+    on = lambda t: t.to(cuda_device)
+    got = hgq_quantize_bwd(on(gy), on(x), on(f)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for k in range(len(GRID_EDGES)):
+        xk, gk, fk = x[:, k:k + 1], gy[:, k:k + 1], f[k]
+        want = hgq_quantize_grad_ref(gk, xk, fk)
+        got = hgq_quantize_bwd(on(gk.contiguous()), on(xk.contiguous()),
+                               on(fk)).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            GRID_EDGES[k]

@@ -146,6 +146,30 @@ def test_pack_chunks_matches_pack_nibbles(shape):
     np.testing.assert_array_equal(back.numpy(), q)
 
 
+@pytest.mark.parametrize("C", [14, 15, 16, 17, 18, 30, 31, 32, 33, 34, 62,
+                               63, 64, 65, 66])
+def test_pack_chunks_around_vector_widths_matches_pack_nibbles(C):
+    """Even and odd C around the CUDA kernel's 16-byte output vectors (32
+    mantissas in, 16 packed bytes out), over three rows."""
+    q = np.random.default_rng(C).integers(-8, 8, (3, C)).astype(np.int8)
+    want = j_pack_nibbles(jnp.asarray(q), axis=-1)
+    _same(twp.pack_chunks(torch.from_numpy(q)), want)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4, 7, 8, 15])
+@pytest.mark.parametrize("C", [34, 4098, 1001])
+def test_pack_chunks_of_an_offset_view_matches_pack_nibbles(offset, C):
+    """A contiguous view with a storage offset (a slice of a larger tensor,
+    as the wrapper may be handed) packs as its own values do."""
+    base = np.random.default_rng(offset).integers(
+        -8, 8, 3 * C + 16).astype(np.int8)
+    view = torch.from_numpy(base)[offset:offset + 3 * C].view(3, C)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    want = j_pack_nibbles(jnp.asarray(base[offset:offset + 3 * C]
+                                      .reshape(3, C)), axis=-1)
+    _same(twp.pack_chunks(view), want)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
 def test_dequant_sum_matches_eager_jax(n):
     shift = max((n - 1).bit_length(), 0)
