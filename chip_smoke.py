@@ -24,25 +24,39 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    on rings longer than serving's (up to 32768 slots); holds
    ``wire_pack_rows`` on views 0-15 bytes past a 16-byte boundary, and
    the ``hgq_quantize`` backward on an unaligned view against an aligned
-   copy (the same bits);
+   copy (the same bits); holds the grouped ``hgq_quantize`` forward
+   against per-member launches and the plain group (mixed layouts and
+   dtypes, unaligned views), and the fused KV store ``kv_quantize_store``
+   against its plain version on int8 and nibble rings, S = 1 and 16, a
+   windowed ring, a chunk longer than the ring, bfloat16 rows and views
+   1-15 bytes into their buffers;
 4. slice phase: serves qwen2-0.5b at full width (random weights from a
    seed) through the port's ``Engine`` in two configurations, holds the
    tokens against ``generate()`` and the logits against the CPU's plain
    path (a limit that two faulty controls must exceed), checks that every
    serving kernel's launch counter moved and that configuration (a), whose
    MLP is stored in nibbles, unpacks none, and tallies one full tick's
-   launches by shape; only after every timed run is one full tick per
-   configuration traced with ``torch.profiler``, whose trace also gives
-   the blocks each ``kv_attention_rows`` launch ran (at least 128);
+   launches by shape (one ``kv_quantize_store`` a layer); only after every
+   timed run is one full tick per configuration traced with
+   ``torch.profiler``, whose trace also gives the blocks each
+   ``kv_attention_rows`` launch ran (at least 128) and must hold no
+   ``stack``, ``index_put`` or ``bitwise`` operation (the KV store is one
+   kernel);
 5. train phase: trains the paper's jet tagger at its full width with
    ``examples/quickstart.py``'s configuration through the port's
    ``Trainer.run`` (300 steps, batch 1024), calibrates it on a held-out
    batch and checks accuracy, ~EBOPs, layer-0 bits and the fixed-point
-   proxy; tallies one step's ``hgq_quantize`` launches by shape; runs 20
+   proxy; tallies one step's ``hgq_quantize`` launches by shape (exactly
+   one grouped forward of the 8 weights and biases, 4 single forwards,
+   12 backward); runs 20
    steps on the card and on the CPU from one init (a limit that two faulty
    controls must exceed) and twice on the card (bit-identical); then
-   traces one step with ``torch.profiler``, whose trace must hold one
-   ``hgq_bwd`` kernel for each per-channel and per-tensor backward;
+   traces one step with ``torch.profiler``, whose trace must hold five
+   ``hgq_fwd_group`` kernels and one ``hgq_bwd`` kernel for each
+   per-channel and per-tensor backward (a trace is read only whole, with
+   a device kernel for every kernel launch of the step, which runs after
+   512 marker kernels, and the step runs again, up to three times, until
+   one is);
 6. wire phase: (a) trains the same jet tagger data-parallel over
    ``dist.LocalMesh(4)`` (four ranks as threads on the one card: NCCL
    refuses two ranks on one GPU) with ``reduce="compressed"`` (1D, fused,
@@ -65,12 +79,14 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    tallies, the TPU kernels still to port, then, last, ``{"ok": true,
    "device": {...}}``.
 
-Kernel groups: ``SERVING`` (``qmatmul``, ``kv_quantize_rows``,
-``kv_attention_rows``), ``TRAINING`` (``hgq_quantize`` forward and
-backward), ``WIRE`` (``wire_quantize_rows``, ``wire_quantize_sflat``,
-``wire_pack_rows``, ``wire_dequant_rows``); ``kv_dequant_rows`` is on no
-main path of either package (the op ``kv_dequant``'s entry point) and is
-held and timed in the kernel phase only.
+Kernel groups: ``SERVING`` (``qmatmul``, ``kv_quantize_store``,
+``kv_attention_rows``), ``TRAINING`` (``hgq_quantize`` forward, single
+and grouped, and backward), ``WIRE`` (``wire_quantize_rows``,
+``wire_quantize_sflat``, ``wire_pack_rows``, ``wire_dequant_rows``);
+``kv_dequant_rows`` and ``kv_quantize_rows`` are on no main path (the
+entry points of the ops ``kv_dequant`` and ``kv_quantize``; the serving
+store runs the latter's body as ``kv_quantize_store``) and are held and
+timed in the kernel phase only.
 
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
@@ -120,17 +136,19 @@ _CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "qmatmul": (_CSRC + "qmatmul.cu", "qmatmul"),
     "kv_quantize_rows": (_CSRC + "kv_dequant.cu", "kv_quantize_rows"),
+    "kv_quantize_store": (_CSRC + "kv_dequant.cu", "kv_quantize_rows"),
     "kv_dequant_rows": (_CSRC + "kv_dequant.cu", "kv_dequant_rows"),
     "kv_attention_rows": (_CSRC + "kv_dequant.cu", "kv_attention_rows"),
     "hgq_quantize_fwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
+    "hgq_quantize_fwd_group": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
     "hgq_quantize_bwd": (_CSRC + "hgq_quantize.cu", "hgq_quantize_2d"),
     "wire_quantize_rows": (_CSRC + "wire_pack.cu", "wire_quantize_rows"),
     "wire_quantize_sflat": (_CSRC + "wire_pack.cu", "wire_quantize_sflat"),
     "wire_pack_rows": (_CSRC + "wire_pack.cu", "wire_pack_rows"),
     "wire_dequant_rows": (_CSRC + "wire_pack.cu", "wire_dequant_rows"),
 }
-SERVING = ("qmatmul", "kv_quantize_rows", "kv_attention_rows")
-TRAINING = ("hgq_quantize_fwd", "hgq_quantize_bwd")
+SERVING = ("qmatmul", "kv_quantize_store", "kv_attention_rows")
+TRAINING = ("hgq_quantize_fwd", "hgq_quantize_fwd_group", "hgq_quantize_bwd")
 # the compressed gradient reduce: the fused path launches the last three,
 # the per-leaf path and the simulator the first
 WIRE = ("wire_quantize_rows", "wire_quantize_sflat", "wire_pack_rows",
@@ -374,6 +392,105 @@ def kv_quantize_case(R, hd, bits, dev, g):
             "bytes": nbytes, "flops": 0.0}
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def kv_store_case(key, window, dev, g, off=0, xoff=0, timed=True):
+    """The fused store ``kv_quantize_store`` against its plain version on
+    one ring, keyed as the wrapper keys its tallies (B, S, KV, hd, W, hdm,
+    bits, dtype): the four ring buffers bit for bit (the slots the chunk
+    does not reach keep their bytes), two launches the same.  The k/v rows
+    lie ``xoff`` elements and the ring views ``off`` bytes into their
+    buffers; a windowed ring keeps a chunk's newest W rows and drops the
+    rest (slot W), an unwindowed one takes the positions."""
+    from repro_torch.kernels.kv_dequant import kv_quantize_store
+    from repro_torch.kernels.kv_dequant.ref import kv_quantize_store_ref
+    B, S, KV, hd, W, hdm, bits, dt = key
+    dtype = _DTYPES[dt]
+    n = B * S * KV * hd
+
+    def make():
+        rows = (torch.randn(2 * n + 4, generator=g, device=dev) * 3
+                ).to(dtype)
+        kh = rows[xoff:xoff + n].view(B, S, KV, hd)
+        vh = rows[n + xoff:2 * n + xoff].view(B, S, KV, hd)
+        cp = torch.randint(0, 3 * W if window else W - S + 1, (B,),
+                           generator=g, device=dev)
+        qpos = cp[:, None] + torch.arange(S, device=dev)
+        if window:
+            last = cp + S - 1
+            slot = torch.where(qpos > last[:, None] - W, qpos % W,
+                               torch.full_like(qpos, W))
+        else:
+            slot = qpos
+
+        def ring(shape):
+            m = math.prod(shape)
+            buf = torch.randint(-128, 128, (m + 16,), generator=g,
+                                device=dev, dtype=torch.int8)
+            return buf[off:off + m].view(shape)
+
+        return (kh, vh, slot, ring((B, W, KV, hdm)), ring((B, W, KV, hdm)),
+                ring((B, W, KV)), ring((B, W, KV)), bits)
+
+    item = torch.finfo(dtype).bits // 8
+    nbytes = 2 * n * item + 2 * B * W * KV * (hdm + 1)
+    sets = [make() for _ in range(n_copies(nbytes) if timed else 1)]
+    args = sets[0]
+    want = [b.clone() for b in args[3:7]]
+    kv_quantize_store_ref(*args[:3], *want, bits)
+    kv_quantize_store(*args)
+    shape = (f"B{B} S{S} KV{KV} hd{hd} W{W} {'nibble' if hdm != hd else 'int8'}"
+             f" bits{bits} {dt}{' windowed' if window else ''}"
+             f"{f' rows+{xoff}' if xoff else ''}{f' ring+{off}B' if off else ''}")
+    check(all(torch.equal(a, b) for a, b in zip(args[3:7], want)),
+          f"kv_quantize_store {shape}: not bit-exact against the plain "
+          f"version")
+    kv_quantize_store(*args)
+    check(all(torch.equal(a, b) for a, b in zip(args[3:7], want)),
+          f"kv_quantize_store {shape}: not repeatable")
+    kept = int((args[2] < W).sum())
+    dropped = B * S - kept
+    # rows read once, the slots read, the kept rows' mantissas and exponents
+    # written
+    nbytes = 2 * n * item + B * S * 8 + 2 * kept * KV * (hdm + 1)
+    b_ms, b_by = bound(nbytes, 0.0)
+    case = {"shape": shape, "max_abs_err": 0.0, "dropped_rows": dropped,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": 0.0}
+    if timed:
+        case["ms"] = time_ms(kv_quantize_store, sets)
+        case["plain_ms"] = time_ms(kv_quantize_store_ref, sets, 16)
+    return case
+
+
+# the fused store at serving's shapes (a decode tick of 8 slots and a
+# prefill chunk of 16, qwen2-0.5b's 2 kv heads of 64, the 1024-slot ring;
+# int8 and nibble rings), timed; then checks only: a windowed ring, a
+# chunk longer than its ring (rows dropped), bfloat16 rows, and views 1-15
+# bytes into their buffers
+STORE_TIMED = [(8, 1, 2, 64, 1024, 64, 8, "float32"),
+               (8, 1, 2, 64, 1024, 32, 4, "float32"),
+               (1, 16, 2, 64, 1024, 64, 8, "float32"),
+               (1, 16, 2, 64, 1024, 32, 4, "float32")]
+STORE_CHECKS = ([((4, 1, 2, 64, 64, 64, 8, "float32"), True, 0, 0),
+                 ((2, 16, 2, 64, 8, 64, 8, "float32"), True, 0, 0),
+                 ((2, 16, 2, 64, 8, 32, 4, "float32"), True, 0, 0),
+                 ((8, 1, 2, 64, 1024, 64, 8, "bfloat16"), False, 0, 0),
+                 ((2, 16, 2, 64, 64, 32, 4, "bfloat16"), True, 0, 0)]
+                + [((2, 3, 2, 64, 32, 32 if off % 2 else 64,
+                     4 if off % 2 else 8, "float32"), True, off, off % 4)
+                   for off in range(1, 16)])
+
+
+def kv_store_checks(dev, g):
+    for key, window, off, xoff in STORE_CHECKS:
+        c = kv_store_case(key, window, dev, g, off=off, xoff=xoff,
+                          timed=False)
+        print(f"[kernels] kv_quantize_store {c['shape']}: bit-exact "
+              f"({c['dropped_rows']} rows dropped)", flush=True)
+
+
 def _attention_inputs(B, S, H, KV, hd, W, nibble, dev, g, ragged=False):
     from repro_torch.kernels.kv_dequant import kv_pack
     qmax = 7 if nibble else 127
@@ -528,14 +645,16 @@ def long_ring_checks(dev, g):
 # the quantizer's shapes: the training slice's own (the jet tagger's input
 # quantizer per channel, weights and biases per parameter, outputs per
 # tensor, batch 1024), a qwen2-0.5b layer (the MLP weight per channel, a
-# prefill's activations per tensor) in float32 and bfloat16
+# prefill's activations per tensor) in float32 and bfloat16, and the MLP
+# weight per parameter
 HGQ_SHAPES = (
     [((1024, 16), (16,), torch.float32)]
     + [(s, s, torch.float32) for s in ((16, 64), (64, 32), (32, 32), (32, 5),
                                        (64,), (32,), (5,))]
     + [((1024, 64), (), torch.float32), ((1024, 32), (), torch.float32)]
     + [(s, f, dt) for dt in (torch.float32, torch.bfloat16)
-       for s, f in (((896, 4864), (1, 4864)), ((8192, 896), ()))])
+       for s, f in (((896, 4864), (1, 4864)), ((8192, 896), ()))]
+    + [((896, 4864), (896, 4864), torch.float32)])
 # edge shapes of the backward's cluster geometry (csrc/hgq_quantize.cu,
 # ``hgq_quantize.ops.bwd_plan``): rows not a multiple of a block's rows, a
 # single row, columns not a multiple of 32 (and of a 16-byte vector: values
@@ -620,6 +739,97 @@ def hgq_quantize_case(shape, fshape, dtype, dev, g):
                bound_ms=bb_ms, bound_by=bb_by, bytes=bwd_bytes,
                flops=9.0 * n)
     return key, fwd, bwd
+
+
+# the jet tagger's weights and biases, per parameter, float32: the members
+# of a training step's one grouped forward launch, in the model's order
+JET_GROUP = [(s, s, torch.float32) for s in
+             ((16, 64), (64,), (64, 32), (32,), (32, 32), (32,), (32, 5),
+              (5,))]
+# a grouped forward of mixed members, checked at aligned and unaligned views:
+# every layout, float32 and bfloat16, rows that are not whole vectors, and
+# two qwen2-0.5b layer shapes
+GROUP_MIXED = [((16, 64), (16, 64), torch.float32),
+               ((1024, 16), (16,), torch.float32),
+               ((300, 5), (5,), torch.bfloat16),
+               ((1001, 33), (), torch.float32),
+               ((37,), (37,), torch.bfloat16),
+               ((1024, 40), (1, 40), torch.bfloat16),
+               ((896, 4864), (1, 4864), torch.float32),
+               ((8192, 896), (), torch.bfloat16)]
+
+
+def _hgq_members(members, dev, g, offset=0):
+    """(xs, fs) of a group, each a view ``offset`` elements into a buffer
+    of its own."""
+    xs, fs = [], []
+    for shape, fshape, dtype in members:
+        n, nf = math.prod(shape), math.prod(fshape)
+        xb = (torch.randn(n + offset, generator=g, device=dev) * 4
+              ).to(dtype)
+        fb = torch.rand(nf + offset, generator=g, device=dev) * 8 - 1
+        xs.append(xb[offset:].view(shape))
+        fs.append(fb[offset:].view(fshape))
+    return xs, fs
+
+
+def hgq_group_case(members, dev, g):
+    """The grouped forward against per-member launches and the plain group,
+    bit for bit, twice the same; timed beside the per-member launches
+    (``per_member_launches_ms``).  Keyed as the wrapper keys its tallies."""
+    from repro_torch.kernels.hgq_quantize import (hgq_quantize_fwd,
+                                                  hgq_quantize_fwd_group,
+                                                  hgq_quantize_group_ref,
+                                                  layout_of)
+    key = tuple((layout_of(s, fs), tuple(s), str(dt)[6:])
+                for s, fs, dt in members)
+    nbytes = sum(2 * math.prod(s) * (torch.finfo(dt).bits // 8)
+                 + 4 * math.prod(fs) for s, fs, dt in members)
+    n = sum(math.prod(s) for s, _, _ in members)
+    sets = [_hgq_members(members, dev, g) for _ in range(n_copies(nbytes))]
+    xs, fs = sets[0]
+    outs = hgq_quantize_fwd_group(xs, fs)
+    same = lambda a, b: all(torch.equal(_bits_of(u), _bits_of(v))
+                            for u, v in zip(a, b))
+    check(same(outs, hgq_quantize_group_ref(xs, fs)),
+          f"hgq_quantize_fwd_group {key}: not bit-exact against the plain "
+          f"group")
+    check(same(outs, [hgq_quantize_fwd(x, f) for x, f in zip(xs, fs)]),
+          f"hgq_quantize_fwd_group {key}: not the per-member launches' bits")
+    check(same(outs, hgq_quantize_fwd_group(xs, fs)),
+          f"hgq_quantize_fwd_group {key}: not repeatable")
+
+    def singles(xs, fs):
+        return [hgq_quantize_fwd(x, f) for x, f in zip(xs, fs)]
+
+    b_ms, b_by = bound(nbytes, 5.0 * n)
+    return key, {"shape": f"{len(members)} members: " + ", ".join(
+        f"{lay} {s} {dt}" for lay, s, dt in key),
+        "max_abs_err": 0.0, "ms": time_ms(hgq_quantize_fwd_group, sets),
+        "plain_ms": time_ms(hgq_quantize_group_ref, sets, 16),
+        "per_member_launches_ms": time_ms(singles, sets, 16),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes, "flops": 5.0 * n}
+
+
+def _hgq_group_checks(dev):
+    """A group of mixed members, at aligned views and one element past a
+    16-byte boundary (values one by one): every member the bits of its own
+    launch and of the plain version."""
+    from repro_torch.kernels.hgq_quantize import (hgq_quantize_fwd,
+                                                  hgq_quantize_fwd_group,
+                                                  hgq_quantize_ref)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    for offset in (0, 1):
+        xs, fs = _hgq_members(GROUP_MIXED, dev, g, offset)
+        for x, f, out in zip(xs, fs, hgq_quantize_fwd_group(xs, fs)):
+            check(torch.equal(_bits_of(out), _bits_of(hgq_quantize_ref(x, f)))
+                  and torch.equal(_bits_of(out),
+                                  _bits_of(hgq_quantize_fwd(x, f))),
+                  f"hgq_quantize_fwd_group {tuple(x.shape)} f "
+                  f"{tuple(f.shape)} {x.dtype} at offset {offset}: not the "
+                  f"bits of its own launch and of the plain version")
 
 
 def _wbits(t):
@@ -830,6 +1040,9 @@ def kernel_phase(dev):
         for bits in (8, 4):
             cases["kv_quantize_rows"][R, hd, bits] = kv_quantize_case(
                 R, hd, bits, dev, g)
+    for key in STORE_TIMED:
+        cases["kv_quantize_store"][key] = kv_store_case(key, False, dev, g)
+    kv_store_checks(dev, g)
     # one qwen2-0.5b layer's full ring (8 slots x 1024 x 2 kv heads) and
     # one slot's
     for R in (8 * W * KV, W * KV):
@@ -844,6 +1057,9 @@ def kernel_phase(dev):
         key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
         cases["hgq_quantize_fwd"][key] = fwd
         cases["hgq_quantize_bwd"][key] = bwd
+    key, case = hgq_group_case(JET_GROUP, dev, g)
+    cases["hgq_quantize_fwd_group"][key] = case
+    _hgq_group_checks(dev)
     _hgq_alignment_check(dev)
     _pack_offset_check(dev)
     _subnormal_check(dev)
@@ -910,6 +1126,22 @@ def kernels_line(cases, tallies):
                              "to 8 blocks of two batches a thread (65536 "
                              "float32 elements, 2048 rows per channel), "
                              "clusters of 8 and a second pass beyond")
+        if name == "hgq_quantize_fwd_group":
+            entry["note"] = ("the forward of the same TPU kernel over a group "
+                             "of tensors in one launch (a training step's 8 "
+                             "weight and bias quantizers); library_ms null: "
+                             "torch.fake_quantize_per_channel_affine rounds "
+                             "half to even, Eq. 4 half up")
+        if name == "kv_quantize_store":
+            entry["note"] = ("the kv_quantize_rows body with the serving "
+                             "ring write fused in (quantize, nibble pack, "
+                             "store at the slots, out-of-ring rows dropped); "
+                             "library_ms null: no single PyTorch call "
+                             "computes this function")
+        if name == "kv_quantize_rows":
+            entry["note"] = ("no main path launches it (the entry point of "
+                             "the op kv_quantize); the serving store runs its "
+                             "body as kv_quantize_store")
         if name in WIRE:
             entry["note"] = ("library_ms null: no single PyTorch call "
                              "computes this function")
@@ -944,16 +1176,20 @@ def kernels_line(cases, tallies):
 
 def _counters():
     from repro_torch.kernels.hgq_quantize import (hgq_quantize_bwd,
-                                                  hgq_quantize_fwd)
+                                                  hgq_quantize_fwd,
+                                                  hgq_quantize_fwd_group)
     from repro_torch.kernels.kv_dequant import (kv_attention_rows,
                                                 kv_dequant_rows,
-                                                kv_quantize_rows)
+                                                kv_quantize_rows,
+                                                kv_quantize_store)
     from repro_torch.kernels.qmatmul import qmatmul
     from repro_torch.kernels import wire_pack as wp
     return {"qmatmul": qmatmul, "kv_quantize_rows": kv_quantize_rows,
+            "kv_quantize_store": kv_quantize_store,
             "kv_dequant_rows": kv_dequant_rows,
             "kv_attention_rows": kv_attention_rows,
             "hgq_quantize_fwd": hgq_quantize_fwd,
+            "hgq_quantize_fwd_group": hgq_quantize_fwd_group,
             "hgq_quantize_bwd": hgq_quantize_bwd,
             **{name: getattr(wp, name) for name in WIRE}}
 
@@ -973,29 +1209,107 @@ def _reset_counts():
         fn.shapes.clear()
 
 
-def _profiled(fn, grids_of=None):
-    """``fn()`` under ``torch.profiler``: (device operations, ms the
-    device was busy, the launch grids of the device kernels whose name
-    holds ``grids_of``, as CUPTI recorded them)."""
+# The profiler's settling time, its markers, and the runs it may take to
+# get a whole trace.  The trace can lack the device records of the first
+# kernels launched after the profiler starts, though every launch was made
+# (readings in PERF.md): one profiled step in 30 lost its first 22 device
+# operations when it began as the profiler started; after the serving
+# phase the profiled step lost its first launch (an ``aten::fill_``) in
+# every run, a settling time or not, and the compressed step its first 8
+# behind a marker kernel.  So the profiled function runs after the
+# settling time and ``PROFILE_MARKERS`` marker kernels, which nothing
+# reads, and a trace is only used whole: every kernel launch of the
+# function has its device kernel, else the function is profiled again.
+PROFILE_SETTLE_S = 0.05
+PROFILE_MARKERS = 512
+PROFILE_ATTEMPTS = 3
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+MARKER = "spin_kernel"                   # torch.cuda._sleep's kernel
+
+
+def _trace_once(fn, args, settle=PROFILE_SETTLE_S, n_markers=PROFILE_MARKERS):
+    """``fn(*args)`` under ``torch.profiler``, after ``settle`` seconds and
+    ``n_markers`` marker kernels: (the profiler, the chrome trace's device
+    kernels but the markers', where the launches of ``fn`` whose device
+    kernel the trace lacks were made, the launches of ``fn``, the markers'
+    device kernels the trace kept)."""
     import tempfile
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        time.sleep(settle)
+        for _ in range(n_markers):
+            torch.cuda._sleep(100)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    grids = []
-    if grids_of is not None:
-        with tempfile.TemporaryDirectory() as d:
-            path = os.path.join(d, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-        grids = [tuple(e["args"]["grid"]) for e in events
-                 if e.get("cat") == "kernel"
-                 and grids_of in e.get("name", "")]
-    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, grids
+        fn(*args)
+        torch.cuda.synchronize()
+        time.sleep(settle)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    calls = sorted((e for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and e.get("name", "").startswith(LAUNCH_CALLS)),
+                   key=lambda e: e["ts"])
+    check(len(calls) > n_markers, "the profiled function launched no kernel")
+    ahead = {e["args"]["correlation"] for e in calls[:n_markers]}
+    markers = [e for e in events if e.get("cat") == "kernel"
+               and MARKER in e.get("name", "")]
+    check(all(e["args"]["correlation"] in ahead for e in markers),
+          "a marker kernel is not among the first launches of the trace")
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and MARKER not in e.get("name", "")]
+    have = {e["args"]["correlation"] for e in kernels}
+    calls = calls[n_markers:]
+    lost = [_launch_site(events, calls, i) for i, e in enumerate(calls)
+            if e["args"]["correlation"] not in have]
+    return prof, kernels, lost, calls, len(markers)
+
+
+def _launch_site(events, calls, i):
+    """Launch i of ``calls`` as the host made it: the call, the innermost
+    host operator around it, its place among the launches."""
+    c = calls[i]
+    around = [e for e in events
+              if e.get("cat") in ("cpu_op", "user_annotation")
+              and e.get("tid") == c.get("tid")
+              and e["ts"] <= c["ts"] <= e["ts"] + e.get("dur", 0)]
+    op = max(around, key=lambda e: e["ts"])["name"] if around else "no op"
+    return f"{c['name']} in {op} (launch {i + 1} of {len(calls)})"
+
+
+def _profiled(fn, grids_of=None, prepare=None):
+    """``fn()`` (or ``fn(prepare())``, ``prepare`` run before the profiler
+    starts) under ``torch.profiler``: (device operations, ms the device
+    was busy, the launch grids of the device kernels whose name holds
+    ``grids_of``, as CUPTI recorded them, and the names of every event,
+    device kernels and host operators, counted), the markers left out.
+    Only a whole trace is read: one with a device kernel for every kernel
+    launch of ``fn``."""
+    from torch.autograd import DeviceType
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        args = () if prepare is None else (prepare(),)
+        prof, kernels, lost, launched, marked = _trace_once(fn, args)
+        if marked < PROFILE_MARKERS:
+            print(f"[profile] the trace kept {marked} of the "
+                  f"{PROFILE_MARKERS} marker kernels", flush=True)
+        if not lost:
+            break
+        print(f"[profile] run {attempt}: the trace lacks the device kernel "
+              f"of {len(lost)} of {len(launched)} kernel launches: "
+              f"{'; '.join(lost[:4])}", flush=True)
+    check(not lost, f"no whole trace in {PROFILE_ATTEMPTS} runs")
+    events = [e for e in prof.events() if MARKER not in e.name]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    grids = [] if grids_of is None else [
+        tuple(e["args"]["grid"]) for e in kernels
+        if grids_of in e.get("name", "")]
+    names = collections.Counter(e.name for e in events)
+    return (len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+            grids, names)
 
 
 def _serve(eng, reqs):
@@ -1026,18 +1340,36 @@ def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
                        kv_bits, prompts, dev):
     """Device operations, busy ms and the attention kernel's launch grids
     of one decode tick with all 8 slots busy (B = 8, KV = 2, W = 1024), on
-    an engine of its own, after every timed run: the profiler
+    an engine of its own (a new one for each profiler run), after every
+    timed run: the profiler
     slows the host, and may go on doing so once it is stopped.  The
     attention kernel reads the whole ring whatever its fill, so short
     prompts give the same device work as the timed run's."""
-    eng = Engine(model, params, qstate, cfg, batch_slots=8, max_len=1024,
-                 prefill_chunk=16, packed=True, plan=pl, kv_bits=kv_bits,
-                 seed=SEED, device=dev)
-    for pr in prompts[:8]:
-        check(eng.submit(Request(prompt=list(pr[:16]), max_new=4))
-              is not None, "profile pass: no free slot")
-    check(all(r is not None for r in eng.slot_req), "profile pass: idle slot")
-    return _profiled(eng.step, "kv_attention_kernel")
+    def engine():
+        eng = Engine(model, params, qstate, cfg, batch_slots=8,
+                     max_len=1024, prefill_chunk=16, packed=True, plan=pl,
+                     kv_bits=kv_bits, seed=SEED, device=dev)
+        for pr in prompts[:8]:
+            check(eng.submit(Request(prompt=list(pr[:16]), max_new=4))
+                  is not None, "profile pass: no free slot")
+        check(all(r is not None for r in eng.slot_req),
+              "profile pass: idle slot")
+        return eng
+
+    return _profiled(lambda eng: eng.step(), "kv_attention_kernel",
+                     prepare=engine)
+
+
+# what a KV store outside the fused kernel would run, by the names of host
+# operators and device kernels: the stack of k and v, the nibble pack's and /
+# or, the scatter writes into the ring.  (A left shift is no sign: every
+# activation quantizer builds its 2^f in the exponent field with one.)
+STORE_OPS = ("aten::stack", "index_put", "bitwise_and", "bitwise_or",
+             "aten::__and__", "aten::__or__")
+
+
+def _store_ops(names):
+    return {k: n for k, n in names.items() if any(o in k for o in STORE_OPS)}
 
 
 @contextlib.contextmanager
@@ -1154,7 +1486,7 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev):
     return {"full": full, "continuous": cont}
 
 
-def slice_phase(dev):
+def slice_phase(dev, cases):
     from repro_torch.configs import get
     from repro_torch.core.plan import PrecisionPlan
     from repro_torch.models import TransformerLM
@@ -1211,8 +1543,21 @@ def slice_phase(dev):
         per_tick = {k: sum(c.values()) for k, c in tick_shapes.items()}
         check(all(n > 0 for n in per_tick.values()),
               f"({tag}) a kernel was not launched in a full tick: {per_tick}")
+        # the store: one launch a layer, and no separate quantize launch
+        rows_launches = _counts(("kv_quantize_rows",))["kv_quantize_rows"]
+        check(per_tick["kv_quantize_store"] == cfg.n_layers
+              and rows_launches == 0,
+              f"({tag}) {per_tick['kv_quantize_store']} kv_quantize_store "
+              f"launches in a full tick for {cfg.n_layers} layers, "
+              f"{rows_launches} kv_quantize_rows launches while serving")
         if tag == "a":
             tick_shapes_a = tick_shapes
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 8)
+        for key in tick_shapes["kv_quantize_store"]:
+            if key not in cases["kv_quantize_store"]:
+                cases["kv_quantize_store"][key] = kv_store_case(
+                    key, cfg.window is not None, dev, g)
         check(all(r.done and len(r.out) == max_new for r in reqs),
               f"({tag}) not every request finished")
         check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
@@ -1264,9 +1609,12 @@ def slice_phase(dev):
         del eng
     # profiled only now, after every timed run
     for tag, desc, pl, kv_bits in configs:
-        ops, busy, grids = _profile_full_tick(
+        ops, busy, grids, names = _profile_full_tick(
             Engine, Request, TransformerLM, params, qstate, cfg, pl, kv_bits,
             prompts, dev)
+        stray = _store_ops(names)
+        check(not stray, f"({tag}) the profiled tick holds operations of a "
+                         f"KV store outside its kernel: {stray}")
         med = report[tag]["decode_tick_ms_median"]
         blocks = sorted({math.prod(gr) for gr in grids})
         check(len(grids) == cfg.n_layers and min(blocks) >= 128,
@@ -1276,7 +1624,10 @@ def slice_phase(dev):
         report[tag]["profiled_full_tick"] = {
             "device_ops": ops, "device_busy_ms": busy,
             "idle_share_of_median_tick": 1.0 - busy / med,
-            "attention_grids": sorted(set(grids))}
+            "attention_grids": sorted(set(grids)),
+            "kv_store_kernels": sum(n for k, n in names.items()
+                                    if "kv_store_kernel" in k),
+            "stack_index_put_bitwise_ops": stray}
         print(f"[slice] ({tag}) profiled full tick: {ops} device operations, "
               f"device busy {busy:.2f} ms, idle {1.0 - busy / med:.1%} of the "
               f"median tick; kv_attention_rows grids {sorted(set(grids))}",
@@ -1289,7 +1640,22 @@ def slice_phase(dev):
 # ---------------------------------------------------------------------------
 
 QUICKSTART = dict(steps=300, lr=3e-3, beta0=1e-6, beta1=1e-3, gamma=2e-6)
-HGQ_PER_STEP = 12          # quantizers of one jet-tagger step, each way
+# launches of one jet-tagger step: the 8 weight and bias quantizers' forward
+# in one grouped launch, the 4 activation quantizers' one launch each, and
+# one backward launch a quantizer
+HGQ_PER_STEP = {"hgq_quantize_fwd": 4, "hgq_quantize_fwd_group": 1,
+                "hgq_quantize_bwd": 12}
+# the layouts each of them takes
+HGQ_LAYOUTS = {"hgq_quantize_fwd": {"per_tensor", "per_channel"},
+               "hgq_quantize_fwd_group": {"per_parameter"},
+               "hgq_quantize_bwd": {"per_tensor", "per_channel",
+                                    "per_parameter"}}
+
+
+def _layouts(name, key):
+    """The layouts of one tally key: a member's, or a group's members'."""
+    return {m[0] for m in key} if name == "hgq_quantize_fwd_group" \
+        else {key[0]}
 # The card's loss and ~EBOPs against the CPU's, at every one of 20 steps.
 # The forward lands on exact grids on both, so only the backward's
 # summation order differs.  The limit lies between that sound reading and
@@ -1356,10 +1722,11 @@ def _quickstart(dev):
         per_step[name] = collections.Counter(
             {k: c // steps for k, c in by_shape.items()})
         n = sum(per_step[name].values())
-        check(n == HGQ_PER_STEP, f"{name}: {n} launches a step, not "
-                                 f"{HGQ_PER_STEP}: {dict(per_step[name])}")
-        lays = {k[0] for k in per_step[name]}
-        check(lays == {"per_tensor", "per_channel", "per_parameter"},
+        check(n == HGQ_PER_STEP[name],
+              f"{name}: {n} launches a step, not {HGQ_PER_STEP[name]}: "
+              f"{dict(per_step[name])}")
+        lays = set().union(*(_layouts(name, k) for k in per_step[name]))
+        check(lays == HGQ_LAYOUTS[name],
               f"{name}: layouts on the path {lays}")
     with torch.no_grad():
         batch = pipe(10 ** 6)                 # held out
@@ -1400,8 +1767,8 @@ def _quickstart(dev):
           f"layer-0 mean f {report['layer0_f']['mean']} >= 2")
     check(fits, "calibration input overflows its calibrated type")
     check(report["eval_repeatable"], "two EVAL forwards differ")
-    check(counts["hgq_quantize_fwd"] == counts["hgq_quantize_bwd"]
-          == HGQ_PER_STEP * steps, f"launches {counts}")
+    check(counts == {k: n * steps for k, n in HGQ_PER_STEP.items()},
+          f"launches {counts}, not {HGQ_PER_STEP} a step over {steps} steps")
     return trainer, report, per_step
 
 
@@ -1452,14 +1819,17 @@ def _df_without_last_block():
 
 @contextlib.contextmanager
 def _rounding_down():
-    """Control: the forward rounds f with floor(f), not floor(f + 1/2)."""
+    """Control: the forward rounds f with floor(f), not floor(f + 1/2)
+    (single and grouped quantizers)."""
     import repro_torch.core.hgq as hgq_mod
-    real = hgq_mod.quantize
+    real, real_group = hgq_mod.quantize, hgq_mod.quantize_group
     hgq_mod.quantize = lambda x, f: real(x, f - 0.5)
+    hgq_mod.quantize_group = lambda xs, fs: real_group(
+        xs, [f - 0.5 for f in fs])
     try:
         yield
     finally:
-        hgq_mod.quantize = real
+        hgq_mod.quantize, hgq_mod.quantize_group = real, real_group
 
 
 def _card_vs_cpu(dev):
@@ -1533,12 +1903,17 @@ def train_phase(dev):
     # profiled only now, after every timed run
     step = QUICKSTART["steps"]
     batch = trainer.pipeline(step)
-    ops, busy, grids = _profiled(lambda: trainer.step_fn(
+    ops, busy, grids, names = _profiled(lambda: trainer.step_fn(
         trainer.params, trainer.qstate, trainer.opt, batch, step),
         grids_of="hgq_bwd")
+    fwd_kernels = sum(n for k, n in names.items() if "hgq_fwd_group" in k)
+    check(fwd_kernels == HGQ_PER_STEP["hgq_quantize_fwd"]
+          + HGQ_PER_STEP["hgq_quantize_fwd_group"],
+          f"profiled step: {fwd_kernels} hgq_quantize forward kernels")
     med = report["step_ms_median"]
     report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
                                "idle_share_of_median_step": 1.0 - busy / med,
+                               "hgq_fwd_kernels": fwd_kernels,
                                **_one_kernel_a_bwd(grids, per_step,
                                                    "profiled step")}
     print(f"[train] profiled step: {ops} device operations, device busy "
@@ -1697,8 +2072,9 @@ def _dp_jet(dev):
             {k: c // steps for k, c in by_shape.items()})
     for name in TRAINING:
         n = sum(per_step[name].values())
-        check(n == HGQ_PER_STEP * WIRE_N,
-              f"{name}: {n} launches a step, not {HGQ_PER_STEP * WIRE_N}")
+        check(n == HGQ_PER_STEP[name] * WIRE_N,
+              f"{name}: {n} launches a step, not "
+              f"{HGQ_PER_STEP[name] * WIRE_N}")
     for name in WIRE[1:]:
         check(counts[name] > 0, f"{name} was never launched: {counts}")
     check(counts["wire_quantize_rows"] == 0,
@@ -1790,7 +2166,7 @@ def _dp_jet(dev):
     # profiled only now, after every timed run
     b = pipe(steps)
     step_fn = _profile_step_fn(dev, p_c, q_c, plan)
-    ops, busy, grids = _profiled(lambda: step_fn(b), grids_of="hgq_bwd")
+    ops, busy, grids, _ = _profiled(lambda: step_fn(b), grids_of="hgq_bwd")
     med = report["step_ms_median"]
     report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
                                "idle_share_of_median_step": 1.0 - busy / med,
@@ -1995,8 +2371,8 @@ def _dp_qwen2(dev):
     report["elements_per_shard"] = n_elem
     # profiled only now, after every timed run
     widths = configs[1][1]
-    ops, busy, _ = _profiled(lambda: ef_wire_pmean(tree, mesh, "int8",
-                                                widths=widths))
+    ops, busy, _, _ = _profiled(lambda: ef_wire_pmean(tree, mesh, "int8",
+                                                   widths=widths))
     med = report["mixed_w4w8"]["reduce_ms_median"]
     report["profiled_mixed_reduce"] = {
         "device_ops": ops, "device_busy_ms": busy,
@@ -2007,6 +2383,11 @@ def _dp_qwen2(dev):
           flush=True)
     del tree
     return report, counts, units["mixed_w4w8"]
+
+
+def _fshape(lay, shape):
+    return {"per_tensor": (), "per_channel": shape[-1:],
+            "per_parameter": shape}[lay]
 
 
 def wire_phase(dev, cases):
@@ -2031,11 +2412,15 @@ def wire_phase(dev, cases):
         if key in cases["hgq_quantize_fwd"] \
                 and key in cases["hgq_quantize_bwd"]:
             continue
-        fshape = {"per_tensor": (), "per_channel": shape[-1:],
-                  "per_parameter": shape}[lay]
-        _, fwd, bwd = hgq_quantize_case(shape, fshape, dtypes[dt], dev, g)
+        _, fwd, bwd = hgq_quantize_case(shape, _fshape(lay, shape),
+                                        dtypes[dt], dev, g)
         cases["hgq_quantize_fwd"][key] = fwd
         cases["hgq_quantize_bwd"][key] = bwd
+    for key in per_step["hgq_quantize_fwd_group"]:
+        if key not in cases["hgq_quantize_fwd_group"]:
+            members = [(s, _fshape(lay, s), dtypes[dt]) for lay, s, dt in key]
+            cases["hgq_quantize_fwd_group"][key] = hgq_group_case(
+                members, dev, g)[1]
     print_cases(cases, WIRE + TRAINING)
     launches = collections.Counter(counts_a) + collections.Counter(counts_b)
     per_a = ("one compressed data-parallel step of the jet tagger (batch "
@@ -2099,7 +2484,7 @@ def main(argv=None) -> int:
     launches = collections.Counter()
     slice_report = train_report = wire_report = None
     if args.phase == "all":
-        total, slice_report, tick_shapes = slice_phase(dev)
+        total, slice_report, tick_shapes = slice_phase(dev, cases)
         launches.update(total)
         per = ("one full decode tick of serving configuration (a), calls by "
                "shape as counted on the main path")

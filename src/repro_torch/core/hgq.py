@@ -17,12 +17,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import ebops as ebops_lib
-from .quantizer import grad_scale, quantize, quantize_inference, train_bits
+from .quantizer import (grad_scale, quantize, quantize_group,
+                        quantize_inference, train_bits)
 
 TRAIN, CALIB, EVAL = "train", "calib", "eval"
 
@@ -109,6 +110,11 @@ def _bits_f(f: torch.Tensor, value_shape, mode: str) -> torch.Tensor:
     return grad_scale(f, 1.0 / math.sqrt(_gsize(value_shape, f.shape)))
 
 
+def _weight_bits(w: torch.Tensor, f: torch.Tensor, mode: str) -> torch.Tensor:
+    vmin, vmax = _feature_extremes(w, f.shape)
+    return train_bits(_bits_f(f, w.shape, mode), vmin, vmax, signed_bit=False)
+
+
 def quant_weight(w: torch.Tensor, f: Optional[torch.Tensor],
                  mode: str = TRAIN) -> QTensor:
     """Quantize a weight on its 2^-f grid; bits from Eq. 3 on the
@@ -116,9 +122,23 @@ def quant_weight(w: torch.Tensor, f: Optional[torch.Tensor],
     if f is None:
         return QTensor(w, None)
     wq = quantize(w, f) if mode == TRAIN else quantize_inference(w, f)
-    vmin, vmax = _feature_extremes(w, f.shape)
-    return QTensor(wq, train_bits(_bits_f(f, w.shape, mode), vmin, vmax,
-                                  signed_bit=False))
+    return QTensor(wq, _weight_bits(w, f, mode))
+
+
+def quant_weights(ws: Sequence[torch.Tensor],
+                  fs: Sequence[Optional[torch.Tensor]],
+                  mode: str = TRAIN) -> List[QTensor]:
+    """:func:`quant_weight` of each (w, f) pair, the same values, bits and
+    gradients; in TRAIN the quantizers of every pair with an f run as one
+    group (``quantize_group``: one kernel launch on the card)."""
+    if mode != TRAIN:
+        return [quant_weight(w, f, mode) for w, f in zip(ws, fs)]
+    idx = [i for i, f in enumerate(fs) if f is not None]
+    wqs = quantize_group([ws[i] for i in idx], [fs[i] for i in idx])
+    out = [QTensor(w, None) for w in ws]
+    for i, wq in zip(idx, wqs):
+        out[i] = QTensor(wq, _weight_bits(ws[i], fs[i], mode))
+    return out
 
 
 def quant_act(x: torch.Tensor, f: Optional[torch.Tensor],

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -96,6 +96,14 @@ def quantize(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     on it.)"""
     from ..kernels.hgq_quantize.ops import hgq_quantize
     return hgq_quantize(x, f)
+
+
+def quantize_group(xs: Sequence[torch.Tensor],
+                   fs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`quantize` of each (x, f) pair, the same values and gradients;
+    on the card the forwards are one ``hgq_quantize`` launch."""
+    from ..kernels.hgq_quantize.ops import hgq_quantize_group
+    return hgq_quantize_group(xs, fs)
 
 
 def f_shape_for(shape: Sequence[int], granularity: str,

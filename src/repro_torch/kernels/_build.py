@@ -100,12 +100,14 @@ def build_all(names: Optional[Iterable[str]] = None,
 
 def ptxas_report(name: str) -> str:
     """The compiler's register / shared-memory / spill lines for a built
-    source (empty if it was built by another process and left no log)."""
+    source, each kernel's after the line that names it (empty if it was
+    built by another process and left no log)."""
     log = _target(name).with_suffix(".log")
     if not log.exists():
         return ""
     return "\n".join(line for line in log.read_text().splitlines()
-                     if "registers" in line or "spill" in line)
+                     if "registers" in line or "spill" in line
+                     or "Compiling entry function" in line)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,18 +1,36 @@
 // HGQ quantizer (Eq. 4) forward, and its Algorithm-1 backward in f.
 //
-// hgq_quantize_fwd replaces src/repro/kernels/hgq_quantize/kernel.py:59
-// (`hgq_quantize_2d`, bodies _kernel_per_tensor :42, _kernel_per_channel :47,
-// _kernel_per_param :52).  hgq_quantize_bwd replaces the custom_vjp backward of
-// that kernel, src/repro/kernels/hgq_quantize/ops.py:164 (`_bwd`).
+// hgq_quantize_fwd and hgq_quantize_fwd_group replace
+// src/repro/kernels/hgq_quantize/kernel.py:59 (`hgq_quantize_2d`, bodies
+// _kernel_per_tensor :42, _kernel_per_channel :47, _kernel_per_param :52).
+// hgq_quantize_bwd replaces the custom_vjp backward of that kernel,
+// src/repro/kernels/hgq_quantize/ops.py:164 (`_bwd`).
 //
 // Forward: out = floor(x * 2^fi + 1/2) / 2^fi with fi = floor(f + 1/2), in
-// float32, written in x's dtype (float32 or bfloat16).  2^fi is built in the
-// exponent field after the clamp to -126..127, the products and sums are rounded
-// one by one (__fmul_rn / __fadd_rn: no FMA contraction) and the division is
-// IEEE, so the grid is bit-exact against the plain version.  One grid-stride
-// elementwise kernel per layout: f is one value (per tensor), one value per
-// column (per channel, x viewed as [rows, cols]) or one value per element (per
-// parameter).  Any cols works: no lane alignment as the TPU kernel needed.
+// float32, written in x's dtype (float32 or bfloat16).  2^fi and 2^-fi are built
+// in the exponent field after the clamp to -126..127, the products and sums are
+// rounded one by one (__fmul_rn / __fadd_rn: no FMA contraction), and the
+// quotient is taken as the product with the exact 2^-fi, which rounds the same
+// real number (see Grid): the grid is bit-exact against the plain version.  f is
+// one value (per tensor), one value per column (per channel, x viewed as [rows,
+// cols]) or one value per element (per parameter).  Any cols works: no lane
+// alignment as the TPU kernel needed.
+//
+// The forward is one kernel for a group of independent tensors: a table in the
+// kernel's parameter space (__grid_constant__, no copy to the device) holds each
+// member's x, f and out, its [rows, cols], layout and dtype, and its first block;
+// a block finds its member by a binary search over those first blocks, which
+// follow from the shapes alone.  A training step's weight and bias quantizers
+// (none depends on an activation) are one launch; a single tensor is a group of
+// one.  Work comes in units of one 16-byte vector of x (4 float32 or 8 bfloat16
+// values): per tensor and per parameter over the flat elements, per channel a 2-D
+// map in which a thread keeps one column vector (its grid steps computed once)
+// and walks the rows by a fixed stride, with no division or modulo per element.
+// A member takes a block for every FWD_THREADS units up to FWD_MAX_BLOCKS; past
+// that, a thread loads FWD_UNROLL units before it computes and stores them.  Members
+// whose x and out (per parameter also f) are 16-byte aligned, and per channel
+// whose rows are whole vectors, load and store 16 bytes at a time; others take
+// the same units element by element, and so does a ragged last unit.
 //
 // Backward: dx = g needs no kernel.  df = sum of g * ln2 * (x - xq) over the
 // axes f is broadcast along, with xq recomputed from x and f and rounded to x's
@@ -44,7 +62,8 @@
 //   GPC that holds 16 blocks, which H100 PCIe parts and MIG slices may not; on
 //   the H100 SXM it saves ~0.7 us at the 16-block training shape (1024, 64).
 //   HGQ_CLUSTER and HGQ_ONE_CLUSTER_BATCHES below set the geometry at build
-//   time; torch_kernel_sweep.py builds and times other values.
+//   time; torch_kernel_sweep.py builds and times other values (and the
+//   forward's HGQ_FWD_*).
 //
 // Where the line falls.  One cluster (8 SMs) cannot stream a large shape: a qwen2
 // activation (8192, 896) float32 is 58.7 MB of g and x.  Past 8 blocks of two
@@ -56,14 +75,16 @@
 //
 // Bound: bytes.  Forward reads x and f and writes out; backward reads g, x and f
 // and writes df (a few flops per element either way).  On the training slice's
-// shapes (a few thousand elements) every launch is latency-bound.
-// Later work: fusing the quantizer into its neighbours.
+// shapes (a few thousand elements) every launch is latency-bound: there the
+// grouped forward saves launches, and the 16-byte body serves large shapes.
+// Later work: fusing the quantizer into its neighbours; a grouped backward.
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -87,6 +108,27 @@ constexpr int BATCH = 4;              // 16-byte steps a thread loads before it 
 #endif
 constexpr int CLUSTER = HGQ_CLUSTER;
 constexpr int ONE_CLUSTER_BATCHES = HGQ_ONE_CLUSTER_BATCHES;
+// forward: threads a block (a power of two, at least 32), units a thread loads
+// before it computes (once a member has its most blocks), and a member's
+// blocks at most this many an SM
+#ifndef HGQ_FWD_THREADS
+#define HGQ_FWD_THREADS 256
+#endif
+#ifndef HGQ_FWD_UNROLL
+#define HGQ_FWD_UNROLL 2
+#endif
+#ifndef HGQ_FWD_BLOCKS_PER_SM
+#define HGQ_FWD_BLOCKS_PER_SM 8
+#endif
+constexpr int FWD_THREADS = HGQ_FWD_THREADS;
+constexpr int FWD_UNROLL = HGQ_FWD_UNROLL;
+constexpr int FWD_MAX_BLOCKS = 132 * HGQ_FWD_BLOCKS_PER_SM;
+static_assert(FWD_THREADS >= 32 && FWD_THREADS <= 1024 &&
+                  (FWD_THREADS & (FWD_THREADS - 1)) == 0,
+              "forward threads: a power of two");
+// members of one grouped forward launch (the table fits the 4 KB of
+// parameter space every CUDA version takes)
+constexpr int FWD_MAX_MEMBERS = 64;
 
 enum Layout { PER_TENSOR = 0, PER_CHANNEL = 1, PER_PARAM = 2 };
 
@@ -131,23 +173,6 @@ template <typename T>
 __device__ __forceinline__ float df_term(const T* g, const T* x, float f,
                                          long long i) {
   return term<T>(load(g, i), load(x, i), f);
-}
-
-template <int L>
-__device__ __forceinline__ float f_at(const float* f, long long i, int cols) {
-  if (L == PER_TENSOR) return f[0];
-  if (L == PER_CHANNEL) return f[i % cols];
-  return f[i];
-}
-
-template <typename T, int L>
-__global__ void fwd_kernel(const T* __restrict__ x, const float* __restrict__ f,
-                           T* __restrict__ out, long long n, int cols) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride)
-    store(out, i, quant(load(x, i), f_at<L>(f, i, cols)));
 }
 
 template <typename T>
@@ -333,10 +358,15 @@ __device__ __forceinline__ Grid grid_of(float f) {
           e == 127 ? __int_as_float(0x00400000) : __int_as_float((127 - e) << 23)};
 }
 
+// Eq. 4 on the grid q: floor(x * 2^fi + 1/2) * 2^-fi, the bits of quant()
+__device__ __forceinline__ float quant_on(float x, Grid q) {
+  return __fmul_rn(floorf(__fadd_rn(__fmul_rn(x, q.s), 0.5f)), q.rs);
+}
+
 // term() with the grid given
 template <typename T>
 __device__ __forceinline__ float term_on(float gv, float xv, Grid q) {
-  const float xq = __fmul_rn(floorf(__fadd_rn(__fmul_rn(xv, q.s), 0.5f)), q.rs);
+  const float xq = quant_on(xv, q);
   const float delta = __fsub_rn(xv, as_stored(xq, static_cast<const T*>(nullptr)));
   return __fmul_rn(__fmul_rn(gv, LN2F), delta);
 }
@@ -353,6 +383,216 @@ __device__ __forceinline__ float tree_sum(const float* v) {
     for (int i = 0; i + w < N; i += 2 * w) s[i] = __fadd_rn(s[i], s[i + w]);
   }
   return s[0];
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one launch for a group of tensors
+// ---------------------------------------------------------------------------
+
+// One member of a grouped forward launch, as the kernel reads it from its
+// parameter space.
+struct FwdMember {
+  const void* x;
+  const float* f;
+  void* out;
+  long long rows;   // x and out as [rows, cols], contiguous
+  int cols;
+  int block0;       // the member's first block in the grid
+  int blocks;       // its blocks; per channel column tiles x row chunks
+  int ctiles;       // per channel: tiles of 2^tpr_log2 column vectors, else 1
+  unsigned char layout, bf16, vec, tpr_log2;
+};
+
+struct FwdTable {
+  FwdMember m[FWD_MAX_MEMBERS];
+  int count;
+};
+static_assert(sizeof(FwdTable) <= 4096, "the table fits the parameter space");
+
+// V float32 values as 16 bytes of x's dtype (the inverse of widen)
+__device__ __forceinline__ uint4 narrow(const float* v, const float*) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 narrow(const float* v, const __nv_bfloat16*) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = static_cast<uint32_t>(
+               __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]))) |
+           (static_cast<uint32_t>(
+                __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])))
+            << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// K units of the flat elements, u0, u0 + step, ..., all below the member's end:
+// every load issued before the first is used.  Per tensor f0 is the one f.
+template <typename T, int L, bool VEC, int K>
+__device__ __forceinline__ void flat_round(const T* __restrict__ x,
+                                           T* __restrict__ out,
+                                           const float* __restrict__ f, float f0,
+                                           long long u0, long long step,
+                                           long long n) {
+  constexpr int V = vec_of<T>();
+  uint4 xv[K];
+  float fv[K][L == PER_PARAM ? V : 1];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long e = (u0 + k * step) * V;
+    if (VEC && e + V <= n) {
+      xv[k] = *reinterpret_cast<const uint4*>(x + e);
+      if constexpr (L == PER_PARAM) {
+#pragma unroll
+        for (int h = 0; h < V; h += 4) {
+          const float4 f4 = *reinterpret_cast<const float4*>(f + e + h);
+          fv[k][h] = f4.x;
+          fv[k][h + 1] = f4.y;
+          fv[k][h + 2] = f4.z;
+          fv[k][h + 3] = f4.w;
+        }
+      }
+    }
+  }
+  const Grid qt = L == PER_TENSOR ? grid_of(f0) : Grid{0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long e = (u0 + k * step) * V;
+    if (VEC && e + V <= n) {
+      float v[V];
+      widen(xv[k], x, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if constexpr (L == PER_PARAM) v[j] = quant_on(v[j], grid_of(fv[k][j]));
+        else v[j] = quant_on(v[j], qt);
+      }
+      *reinterpret_cast<uint4*>(out + e) = narrow(v, out);
+    } else {
+      const long long cnt = n - e;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (j < cnt)
+          store(out, e + j,
+                quant_on(load(x, e + j),
+                         L == PER_PARAM ? grid_of(f[e + j]) : qt));
+      }
+    }
+  }
+}
+
+// Per tensor and per parameter: unit u covers the flat elements [u V, u V + V).
+// Block b of the member's `blocks` takes units b T + t, then every blocks x T
+// further (past FWD_MAX_BLOCKS blocks): FWD_UNROLL at a time while a thread has
+// that many left, then one at a time.  Per tensor f is read before the loads
+// and its grid made after them, so the two latencies overlap.
+template <typename T, int L, bool VEC>
+__device__ __forceinline__ void fwd_flat(const FwdMember& m, int b) {
+  constexpr int V = vec_of<T>();
+  const T* x = static_cast<const T*>(m.x);
+  T* out = static_cast<T*>(m.out);
+  const long long n = m.rows * m.cols;
+  const long long units = (n + V - 1) / V;
+  const long long step = static_cast<long long>(m.blocks) * FWD_THREADS;
+  const float f0 = L == PER_TENSOR ? m.f[0] : 0.f;
+  long long u = static_cast<long long>(b) * FWD_THREADS + threadIdx.x;
+  for (; u + (FWD_UNROLL - 1) * step < units; u += FWD_UNROLL * step)
+    flat_round<T, L, VEC, FWD_UNROLL>(x, out, m.f, f0, u, step, n);
+  for (; u < units; u += step) flat_round<T, L, VEC, 1>(x, out, m.f, f0, u, step, n);
+}
+
+// K rows r0, r0 + rstep, ..., all below the member's end, at the thread's column
+// vector c0 (width columns, grid f values fc): every load issued before the
+// grid steps are made and the first load is used.
+template <typename T, bool VEC, int K>
+__device__ __forceinline__ void channel_round(const T* __restrict__ x,
+                                              T* __restrict__ out, long long r0,
+                                              long long rstep, long long cols,
+                                              int c0, int width, const float* fc) {
+  constexpr int V = vec_of<T>();
+  uint4 xv[K];
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      xv[k] = *reinterpret_cast<const uint4*>(x + (r0 + k * rstep) * cols + c0);
+  }
+  Grid q[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) q[j] = grid_of(fc[j]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long e = (r0 + k * rstep) * cols + c0;
+    if (VEC) {
+      float v[V];
+      widen(xv[k], x, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = quant_on(v[j], q[j]);
+      *reinterpret_cast<uint4*>(out + e) = narrow(v, out);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (j < width) store(out, e + j, quant_on(load(x, e + j), q[j]));
+      }
+    }
+  }
+}
+
+// Per channel: unit (r, c) covers columns [c V, c V + V) of row r.  A block is
+// one tile of tpr = 2^tpr_log2 column vectors by one chunk of row phases: thread
+// t keeps column vector tile * tpr + t % tpr, whose f it reads once, and row
+// phase t / tpr, and walks rows phase + chunk * rp, then every chunks x rp
+// further (rp = T / tpr), FWD_UNROLL rows at a time while it has that many
+// left, then one at a time: no division or modulo per element.
+template <typename T, bool VEC>
+__device__ __forceinline__ void fwd_channel(const FwdMember& m, int b) {
+  constexpr int V = vec_of<T>();
+  const int sh = m.tpr_log2;
+  const int rp = FWD_THREADS >> sh;
+  const int chunks = m.blocks / m.ctiles;
+  const int tile = b % m.ctiles, chunk = b / m.ctiles;
+  const int c0 = ((tile << sh) + (static_cast<int>(threadIdx.x) & ((1 << sh) - 1))) * V;
+  if (c0 >= m.cols) return;
+  const int width = m.cols - c0 < V ? m.cols - c0 : V;
+  float fc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) fc[j] = m.f[c0 + (j < width ? j : 0)];
+  const T* x = static_cast<const T*>(m.x);
+  T* out = static_cast<T*>(m.out);
+  const long long cols = m.cols, rows = m.rows;
+  const long long rstep = static_cast<long long>(chunks) * rp;
+  long long r = static_cast<long long>(chunk) * rp + (threadIdx.x >> sh);
+  for (; r + (FWD_UNROLL - 1) * rstep < rows; r += FWD_UNROLL * rstep)
+    channel_round<T, VEC, FWD_UNROLL>(x, out, r, rstep, cols, c0, width, fc);
+  for (; r < rows; r += rstep)
+    channel_round<T, VEC, 1>(x, out, r, rstep, cols, c0, width, fc);
+}
+
+template <typename T>
+__device__ __forceinline__ void fwd_member(const FwdMember& m, int b) {
+  if (m.layout == PER_CHANNEL) {
+    if (m.vec) fwd_channel<T, true>(m, b);
+    else fwd_channel<T, false>(m, b);
+  } else if (m.layout == PER_TENSOR) {
+    if (m.vec) fwd_flat<T, PER_TENSOR, true>(m, b);
+    else fwd_flat<T, PER_TENSOR, false>(m, b);
+  } else {
+    if (m.vec) fwd_flat<T, PER_PARAM, true>(m, b);
+    else fwd_flat<T, PER_PARAM, false>(m, b);
+  }
+}
+
+// Block b serves the last member whose first block is at or before b.
+__global__ void __launch_bounds__(FWD_THREADS)
+hgq_fwd_group_kernel(const __grid_constant__ FwdTable t) {
+  const int blk = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = t.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.m[mid].block0 <= blk) lo = mid;
+    else hi = mid - 1;
+  }
+  const FwdMember& m = t.m[lo];
+  if (m.bf16) fwd_member<__nv_bfloat16>(m, blk - m.block0);
+  else fwd_member<float>(m, blk - m.block0);
 }
 
 // Per channel.  grid (blocks of the clusters along the rows, 32-column tiles),
@@ -556,20 +796,6 @@ int ew_blocks(long long n) {
   return static_cast<int>(b < EW_MAX_BLOCKS ? b : EW_MAX_BLOCKS);
 }
 
-template <typename T>
-void fwd(const void* x, const float* f, void* out, long long n, int cols,
-         int layout, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  const int nb = ew_blocks(n);
-  if (layout == PER_TENSOR)
-    fwd_kernel<T, PER_TENSOR><<<nb, EW_THREADS, 0, st>>>(xt, f, ot, n, cols);
-  else if (layout == PER_CHANNEL)
-    fwd_kernel<T, PER_CHANNEL><<<nb, EW_THREADS, 0, st>>>(xt, f, ot, n, cols);
-  else
-    fwd_kernel<T, PER_PARAM><<<nb, EW_THREADS, 0, st>>>(xt, f, ot, n, cols);
-}
-
 // blocks a cluster, clusters, rows (per channel) or elements (per tensor) a block
 struct Plan {
   long long cs, nc, span;
@@ -684,6 +910,65 @@ bool valid(long long rows, int cols, int layout) {
   return rows > 0 && cols > 0 && layout >= PER_TENSOR && layout <= PER_PARAM;
 }
 
+// One member of the forward from (x, f, out, rows, cols, layout, bf16) as the
+// entry points take them; its blocks follow from rows, cols, layout and dtype.
+bool plan_member(const long long* d, long long block0, FwdMember* m) {
+  const long long rows = d[3], cols = d[4], layout = d[5], bf16 = d[6];
+  if (cols > INT_MAX || !valid(rows, static_cast<int>(cols),
+                               static_cast<int>(layout)) ||
+      (bf16 != 0 && bf16 != 1) || block0 > INT_MAX)
+    return false;
+  m->x = reinterpret_cast<const void*>(d[0]);
+  m->f = reinterpret_cast<const float*>(d[1]);
+  m->out = reinterpret_cast<void*>(d[2]);
+  m->rows = rows;
+  m->cols = static_cast<int>(cols);
+  m->layout = static_cast<unsigned char>(layout);
+  m->bf16 = static_cast<unsigned char>(bf16);
+  const long long v = bf16 ? 8 : 4;
+  bool vec = aligned16(m->x) && aligned16(m->out);
+  long long blocks;
+  m->ctiles = 1;
+  m->tpr_log2 = 0;
+  if (layout == PER_CHANNEL) {
+    vec = vec && cols % v == 0;
+    const long long cvecs = cdiv(cols, v);
+    int sh = 0;  // lanes across a row: the column vectors, up to a warp
+    while ((1LL << sh) < cvecs && sh < 5) ++sh;
+    m->tpr_log2 = static_cast<unsigned char>(sh);
+    const long long ctiles = cdiv(cvecs, 1LL << sh);
+    const long long rp = FWD_THREADS >> sh;
+    const long long chunks = std::min(
+        cdiv(rows, rp), std::max<long long>(1, FWD_MAX_BLOCKS / ctiles));
+    m->ctiles = static_cast<int>(ctiles);
+    blocks = ctiles * chunks;
+  } else {
+    if (layout == PER_PARAM) vec = vec && aligned16(m->f);
+    blocks = std::min<long long>(cdiv(cdiv(rows * cols, v), FWD_THREADS),
+                                 FWD_MAX_BLOCKS);
+  }
+  if (blocks > INT_MAX) return false;
+  m->vec = vec;
+  m->block0 = static_cast<int>(block0);
+  m->blocks = static_cast<int>(blocks);
+  return true;
+}
+
+// desc: count rows of (x, f, out, rows, cols, layout, bf16)
+cudaError_t fwd_group(const long long* desc, int count, cudaStream_t st) {
+  if (count < 1 || count > FWD_MAX_MEMBERS) return cudaErrorInvalidValue;
+  FwdTable t = {};
+  t.count = count;
+  long long total = 0;
+  for (int i = 0; i < count; ++i) {
+    if (!plan_member(desc + 7 * i, total, &t.m[i])) return cudaErrorInvalidValue;
+    total += t.m[i].blocks;
+  }
+  if (total > INT_MAX) return cudaErrorInvalidValue;
+  hgq_fwd_group_kernel<<<static_cast<unsigned>(total), FWD_THREADS, 0, st>>>(t);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The backward's geometry for [rows, cols] at a per-channel or per-tensor layout
@@ -701,18 +986,27 @@ extern "C" long long hgq_quantize_bwd_plan(long long rows, int cols, int layout,
 }
 
 // x, out: [rows, cols] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1);
-// f: float32, 1 value, [cols] or [rows, cols] by layout.
+// f: float32, 1 value, [cols] or [rows, cols] by layout.  A group of one.
 extern "C" int hgq_quantize_fwd_launch(const void* x, const float* f, void* out,
                                        long long rows, int cols, int layout,
                                        int bf16, void* stream) {
-  if (!valid(rows, cols, layout)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    fwd<__nv_bfloat16>(x, f, out, rows * cols, cols, layout, st);
-  else
-    fwd<float>(x, f, out, rows * cols, cols, layout, st);
-  return static_cast<int>(cudaGetLastError());
+  const long long d[7] = {reinterpret_cast<long long>(x),
+                          reinterpret_cast<long long>(f),
+                          reinterpret_cast<long long>(out), rows, cols, layout,
+                          bf16};
+  return static_cast<int>(fwd_group(d, 1, static_cast<cudaStream_t>(stream)));
 }
+
+// The members of one launch: desc holds, for each of `count` (1..64) members,
+// x, f and out (device pointers), rows, cols, layout and bf16, each as above.
+extern "C" int hgq_quantize_fwd_group_launch(const long long* desc, int count,
+                                             void* stream) {
+  return static_cast<int>(
+      fwd_group(desc, count, static_cast<cudaStream_t>(stream)));
+}
+
+// The most members one grouped launch takes.
+extern "C" int hgq_quantize_fwd_group_max() { return FWD_MAX_MEMBERS; }
 
 // g, x: [rows, cols] contiguous in x's dtype; df: float32 in f's layout;
 // scratch: the floats hgq_quantize_bwd_plan returns (null if 0).

@@ -1,21 +1,38 @@
 // Quantized KV cache kernels for the serving decode path.
 //
-// kv_quantize_rows replaces src/repro/kernels/kv_dequant/kernel.py:104
-// (`kv_quantize_rows`, body `_kv_quantize_kernel` :58).
+// kv_quantize_rows and kv_quantize_store replace
+// src/repro/kernels/kv_dequant/kernel.py:104 (`kv_quantize_rows`, body
+// `_kv_quantize_kernel` :58), the store with the ring write of
+// src/repro/nn/attention.py:196-203 fused in.
 // kv_dequant_rows replaces src/repro/kernels/kv_dequant/kernel.py:132
 // (`kv_dequant_rows`, body `_kv_dequant_kernel`).
 // kv_attention_rows replaces src/repro/kernels/kv_dequant/kernel.py:154
 // (`kv_attention_rows`, body `_kv_attention_kernel` :72).
 //
-// kv_quantize_rows.  Per row of hd values: amax -> the capped grid exponent f
-// (largest f with amax * 2^f inside +-qmax, one lower where rounding would still
-// saturate) -> q = clip(rint(x * 2^f), +-qmax).  One warp per row: a shuffle
-// amax, then each lane rounds its columns.  Bound: bytes (each row is read twice
-// from L1, written once as int8); at decode it moves a few KB and the launch
-// dominates, so k and v rows share one launch.  Rounding is rintf (half to even,
-// the semantics of jnp.round); 2^f is built in the exponent field after the clamp
-// to -126..127 and floor(log2) is read from the exponent bits, so the grid is
-// bit-exact against the reference.
+// kv_quantize_rows and kv_quantize_store.  Per row of hd values: amax -> the
+// capped grid exponent f (largest f with amax * 2^f inside +-qmax, one lower where
+// rounding would still saturate) -> q = clip(rint(x * 2^f), +-qmax).  Rounding is
+// rintf (half to even, the semantics of jnp.round); 2^f is built in the exponent
+// field after the clamp to -126..127 and floor(log2) is read from the exponent
+// bits, so the grid is bit-exact against the reference.  One kernel serves both
+// entry points: the serving store (kv_store_launch) reads the new k and v rows
+// of a layer as they lie ([B, S, KV, hd] float32 or bfloat16 views, through
+// strides), and writes the int8 mantissas -- or nibble pairs, the even column in
+// the low nibble, when the ring holds hd / 2 bytes a row -- and the int8
+// exponents straight into the four ring buffers at slot[b, s], dropping slots
+// outside the ring (the reference's .at[b, slot].set(mode="drop")); rows to a
+// contiguous destination (kv_quantize_launch) are the case S = KV = W = 1.  The
+// stack, the cast copy, the nibble pack and the four scatter writes that
+// surrounded the kernel are gone, and with them the boolean mask (and its host
+// sync) of a chunk longer than the ring.  One warp per row: a shuffle amax, then
+// each lane rounds adjacent columns, 16 bytes of the row at a time where the row
+// is 16-byte aligned and hd a whole number of vectors (else two columns at a
+// time), and writes its mantissas or nibble pairs with one store where the
+// destination is aligned for it (else byte by byte).  A lane issues its row loads
+// before it reads the row's slot, so the two latencies overlap, and keeps the
+// values in registers for the second pass (hd up to 256 float32 values).  Bound:
+// bytes (each row read once, written once as int8); at decode it moves a few KB
+// and the launch dominates, so k and v rows share one launch.
 //
 // kv_dequant_rows.  fp32 q * 2^-f per row, 2^-f built in the exponent field, so
 // the product is exact and bit-equal to the reference.  Bound: bytes, 5 R hd + R
@@ -54,6 +71,7 @@
 // memory in rank order (each block combines every C-th output), divides, and
 // writes each output once.  No atomics; every sum's order is set by W and hd, never
 // by B or S, so a request's rows are bit-identical in a batch of 8 and alone.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <algorithm>
@@ -84,26 +102,179 @@ __device__ __forceinline__ float grid_exponent(float amax, float qmax) {
   return floorf(amax * exact_exp2(fcap) + 0.5f) > qmax ? fcap - 1.f : fcap;
 }
 
-__global__ void kv_quantize_kernel(const float* __restrict__ x,
-                                   int8_t* __restrict__ q, int8_t* __restrict__ f,
-                                   int R, int hd, float qmax) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= R) return;  // whole warps leave together
-  const float* xr = x + static_cast<size_t>(row) * hd;
+// One side (k or v) of the store: the rows to read and the ring to write.
+struct StoreSide {
+  const void* src;           // rows [B, S, KV, hd], the last axis contiguous
+  long long s_b, s_s, s_kv;  // their strides, in elements
+  int8_t* m;                 // mantissas [B, W, KV, hdm], the last contiguous
+  long long m_b, m_w, m_kv;  // strides in bytes
+  int8_t* e;                 // exponents [B, W, KV]
+  long long e_b, e_w, e_kv;
+};
+
+struct StoreArgs {
+  StoreSide side[2];
+  const long long* slot;  // [B, S] ring slots, or null: slot s
+  int B, S, KV, hd, W, nibble;
+  float qmax;
+};
+
+constexpr int STORE_WARPS = 8;  // rows a block
+
+__device__ __forceinline__ float row_value(const float* p, int i) { return p[i]; }
+__device__ __forceinline__ float row_value(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+
+// 16 bytes of a row as float32 values: four float32, or eight bfloat16 widened
+__device__ __forceinline__ void widen16(const float* p, float* v) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ int mantissa(float x, float sc, float qmax) {
+  return static_cast<int>(fminf(fmaxf(rintf(x * sc), -qmax), qmax));
+}
+
+// n (2, 4 or 8) bytes, byte i in bits 8i.. of w, to p: one store where p is
+// aligned for it, else byte by byte
+__device__ __forceinline__ void put_bytes(int8_t* p, unsigned long long w, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (a % n == 0) {
+    if (n == 8) *reinterpret_cast<unsigned long long*>(p) = w;
+    else if (n == 4) *reinterpret_cast<uint32_t*>(p) = static_cast<uint32_t>(w);
+    else *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(w);
+  } else {
+    for (int i = 0; i < n; ++i) p[i] = static_cast<int8_t>((w >> (8 * i)) & 0xFFu);
+  }
+}
+
+// a nibble pair: the even column in the low nibble (pack_nibbles)
+__device__ __forceinline__ unsigned nibble_pair(int lo, int hi) {
+  return (static_cast<unsigned>(lo) & 0xFu) | ((static_cast<unsigned>(hi) & 0xFu) << 4);
+}
+
+// 16-byte chunks of a row a lane keeps in registers from the first pass to the
+// second (hd up to 32 x STORE_CHUNKS x V values; chunks beyond are read again)
+constexpr int STORE_CHUNKS = 2;
+
+// One row: its loads are issued before the slot is read (the slot's load and
+// the row's overlap), then a dropped row leaves, the warp's amax, the grid,
+// the mantissas (or nibble pairs) and the exponent into the ring.
+template <typename T>
+__device__ __forceinline__ void store_row(const StoreArgs& a, const StoreSide& sd,
+                                          int b, int s, int kv, int lane) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int hd = a.hd;
+  const T* row = static_cast<const T*>(sd.src) + b * sd.s_b + s * sd.s_s + kv * sd.s_kv;
+  const bool vec = hd % V == 0 && reinterpret_cast<uintptr_t>(row) % 16 == 0;
+  const int nch = vec ? hd / V : 0;
+  float held[STORE_CHUNKS][V];
+#pragma unroll
+  for (int k = 0; k < STORE_CHUNKS; ++k)
+    if (lane + 32 * k < nch) widen16(row + (lane + 32 * k) * V, held[k]);
+  const long long slot = a.slot ? a.slot[static_cast<long long>(b) * a.S + s] : s;
+  if (slot < 0 || slot >= a.W) return;  // dropped, as the reference drops it
   float amax = 0.f;
-  for (int i = lane; i < hd; i += 32) amax = fmaxf(amax, fabsf(xr[i]));
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < STORE_CHUNKS; ++k)
+      if (lane + 32 * k < nch) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) amax = fmaxf(amax, fabsf(held[k][j]));
+      }
+    for (int c = lane + 32 * STORE_CHUNKS; c < nch; c += 32) {
+      float v[V];
+      widen16(row + c * V, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) amax = fmaxf(amax, fabsf(v[j]));
+    }
+  } else {
+    for (int i = lane; i < hd; i += 32) amax = fmaxf(amax, fabsf(row_value(row, i)));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float fe = grid_exponent(amax, qmax);
+  const float fe = grid_exponent(amax, a.qmax);
   const float sc = exact_exp2(fe);
-  int8_t* qr = q + static_cast<size_t>(row) * hd;
-  for (int i = lane; i < hd; i += 32) {
-    const float v = fminf(fmaxf(rintf(xr[i] * sc), -qmax), qmax);
-    qr[i] = static_cast<int8_t>(static_cast<int>(v));
+  int8_t* mrow = sd.m + b * sd.m_b + slot * sd.m_w + kv * sd.m_kv;
+  // the mantissas, or nibble pairs, of chunk c of the row
+  auto emit = [&](int c, const float* v) {
+    unsigned long long w = 0;
+    if (a.nibble) {
+#pragma unroll
+      for (int j = 0; j < V; j += 2)
+        w |= static_cast<unsigned long long>(nibble_pair(
+                 mantissa(v[j], sc, a.qmax), mantissa(v[j + 1], sc, a.qmax)))
+             << (4 * j);
+      put_bytes(mrow + c * (V / 2), w, V / 2);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        w |= static_cast<unsigned long long>(
+                 static_cast<uint8_t>(mantissa(v[j], sc, a.qmax)))
+             << (8 * j);
+      put_bytes(mrow + c * V, w, V);
+    }
+  };
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < STORE_CHUNKS; ++k)
+      if (lane + 32 * k < nch) emit(lane + 32 * k, held[k]);
+    for (int c = lane + 32 * STORE_CHUNKS; c < nch; c += 32) {
+      float v[V];
+      widen16(row + c * V, v);
+      emit(c, v);
+    }
+  } else {
+    // two adjacent columns a lane (the last pair of an odd row has one)
+    for (int p = lane; 2 * p < hd; p += 32) {
+      const int q0 = mantissa(row_value(row, 2 * p), sc, a.qmax);
+      const int q1 = 2 * p + 1 < hd ? mantissa(row_value(row, 2 * p + 1), sc, a.qmax) : 0;
+      if (a.nibble) {
+        mrow[p] = static_cast<int8_t>(nibble_pair(q0, q1));
+      } else {
+        mrow[2 * p] = static_cast<int8_t>(q0);
+        if (2 * p + 1 < hd) mrow[2 * p + 1] = static_cast<int8_t>(q1);
+      }
+    }
   }
-  if (lane == 0) f[row] = static_cast<int8_t>(static_cast<int>(fe));
+  if (lane == 0)
+    sd.e[b * sd.e_b + slot * sd.e_w + kv * sd.e_kv] = static_cast<int8_t>(static_cast<int>(fe));
+}
+
+// grid (row groups of STORE_WARPS, sides); warp w of block x serves row
+// x * STORE_WARPS + w of the B x S x KV rows of side blockIdx.y
+template <typename T>
+__global__ void __launch_bounds__(STORE_WARPS * 32)
+kv_store_kernel(const __grid_constant__ StoreArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * STORE_WARPS + (threadIdx.x >> 5);
+  if (r >= a.B * a.S * a.KV) return;  // whole warps leave together
+  const int kv = r % a.KV, bs = r / a.KV;
+  store_row<T>(a, a.side[blockIdx.y], bs / a.S, bs % a.S, kv, lane);
+}
+
+int launch_store(const StoreArgs& a, int sides, int bf16, cudaStream_t st) {
+  const long long rows = static_cast<long long>(a.B) * a.S * a.KV;
+  if (rows <= 0 || rows > (1LL << 30) || a.hd <= 0 || a.W <= 0 || a.KV <= 0 ||
+      (a.nibble && a.hd % 2) || sides < 1 || sides > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((rows + STORE_WARPS - 1) / STORE_WARPS), sides);
+  if (bf16)
+    kv_store_kernel<__nv_bfloat16><<<grid, STORE_WARPS * 32, 0, st>>>(a);
+  else
+    kv_store_kernel<float><<<grid, STORE_WARPS * 32, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ uint32_t nibble_pair_bytes(uint32_t b2) {
@@ -575,16 +746,50 @@ int launch_attention(const float* qh, const int8_t* km, const int8_t* vm, long l
 
 }  // namespace
 
-// x [R, hd] fp32 contiguous -> q [R, hd] int8, f [R] int8.
-extern "C" int kv_quantize_launch(const float* x, int8_t* q, int8_t* f, int R,
-                                  int hd, int bits, void* stream) {
+// x [R, hd] float32 (bf16 = 0) or bfloat16 (bf16 = 1), rows ldx elements apart,
+// the last axis contiguous -> q [R, hd] int8 contiguous, f [R] int8.
+extern "C" int kv_quantize_launch(const void* x, long long ldx, int8_t* q, int8_t* f,
+                                  int R, int hd, int bits, int bf16, void* stream) {
   if (R <= 0 || hd <= 0 || bits < 2 || bits > 8) return cudaErrorInvalidValue;
-  const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
-  constexpr int kWarps = 8;
-  const int blocks = (R + kWarps - 1) / kWarps;
-  kv_quantize_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, q, f, R, hd, qmax);
-  return static_cast<int>(cudaGetLastError());
+  StoreArgs a = {};
+  a.side[0] = {x, ldx, 0, 0, q, hd, 0, 0, f, 1, 0, 0};
+  a.slot = nullptr;
+  a.B = R;
+  a.S = a.KV = a.W = 1;
+  a.hd = hd;
+  a.nibble = 0;
+  a.qmax = static_cast<float>((1 << (bits - 1)) - 1);
+  return launch_store(a, 1, bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The serving store of one layer.  k, v: rows [B, S, KV, hd] float32 (bf16 = 0)
+// or bfloat16 (bf16 = 1), through strides (k_sb, k_ss, k_skv) and (v_sb, v_ss,
+// v_skv) in elements, the last axis contiguous; slot: [B, S] int64 contiguous;
+// mk, mv: the mantissa rings [B, W, KV, hdm] (hdm = hd, or hd / 2 nibble pairs
+// when nibble = 1), one set of byte strides (m_sb, m_sw, m_skv), the last axis
+// contiguous; ek, ev: the exponent rings [B, W, KV], strides (e_sb, e_sw, e_skv).
+// Rows whose slot lies outside 0..W-1 are dropped.
+extern "C" int kv_store_launch(const void* k, long long k_sb, long long k_ss,
+                               long long k_skv, const void* v, long long v_sb,
+                               long long v_ss, long long v_skv, const long long* slot,
+                               int8_t* mk, int8_t* mv, long long m_sb, long long m_sw,
+                               long long m_skv, int8_t* ek, int8_t* ev, long long e_sb,
+                               long long e_sw, long long e_skv, int B, int S, int KV,
+                               int hd, int W, int nibble, int bits, int bf16,
+                               void* stream) {
+  if (bits < 2 || bits > 8 || slot == nullptr) return cudaErrorInvalidValue;
+  StoreArgs a = {};
+  a.side[0] = {k, k_sb, k_ss, k_skv, mk, m_sb, m_sw, m_skv, ek, e_sb, e_sw, e_skv};
+  a.side[1] = {v, v_sb, v_ss, v_skv, mv, m_sb, m_sw, m_skv, ev, e_sb, e_sw, e_skv};
+  a.slot = slot;
+  a.B = B;
+  a.S = S;
+  a.KV = KV;
+  a.hd = hd;
+  a.W = W;
+  a.nibble = nibble != 0;
+  a.qmax = static_cast<float>((1 << (bits - 1)) - 1);
+  return launch_store(a, 2, bf16, static_cast<cudaStream_t>(stream));
 }
 
 // q [R, hd] int8 contiguous, f [R] int8 -> out [R, hd] fp32 contiguous.  vec = 1

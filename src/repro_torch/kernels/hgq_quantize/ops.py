@@ -13,12 +13,17 @@ Three layouts of f reach the kernels, x viewed as [rows, cols] over its
 last axis: per tensor (``f.ndim == 0``), per channel (``f`` of shape
 ``(N,)`` or ``(1, ..., 1, N)``, N the last axis) and per parameter
 (``f.shape == x.shape``).  On CUDA any other broadcast raises.
+
+``hgq_quantize_group(xs, fs)`` quantizes a list of independent tensors,
+each in its own layout and dtype, in one forward launch (a training
+step's weight and bias quantizers); its backward is each member's
+``hgq_quantize_bwd``.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +62,10 @@ def _lib() -> ctypes.CDLL:
         lib.hgq_quantize_fwd_launch.argtypes = [vp, vp, vp, ll, ci, ci, ci,
                                                 vp]
         lib.hgq_quantize_fwd_launch.restype = ci
+        lib.hgq_quantize_fwd_group_launch.argtypes = [vp, ci, vp]
+        lib.hgq_quantize_fwd_group_launch.restype = ci
+        lib.hgq_quantize_fwd_group_max.argtypes = []
+        lib.hgq_quantize_fwd_group_max.restype = ci
         lib.hgq_quantize_bwd_launch.argtypes = [vp, vp, vp, vp, vp, ll, ci,
                                                 ci, ci, vp]
         lib.hgq_quantize_bwd_launch.restype = ci
@@ -112,6 +121,53 @@ def hgq_quantize_fwd(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 # launches of the kernel, in all and by (layout, x shape, dtype)
 hgq_quantize_fwd.launches = 0
 hgq_quantize_fwd.shapes = collections.Counter()
+
+
+def _member(x: torch.Tensor, f: torch.Tensor, out: torch.Tensor,
+            lay: str) -> Tuple[int, ...]:
+    rows, cols = _rows_cols(x)
+    return (x.data_ptr(), f.data_ptr(), out.data_ptr(), rows, cols,
+            LAYOUTS.index(lay), int(x.dtype == torch.bfloat16))
+
+
+def hgq_quantize_fwd_group(xs: Sequence[torch.Tensor],
+                           fs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The forward kernel over a group: Eq. 4 of each contiguous CUDA x
+    (float32 or bfloat16) at its contiguous float32 f, every member in
+    its own layout, in one launch (of 64 members at most).  Returns the
+    outputs in order."""
+    if len(xs) != len(fs):
+        raise ValueError(f"hgq_quantize_fwd_group: {len(xs)} x, {len(fs)} f")
+    outs, members, keys = [], [], []
+    for i, (x, f) in enumerate(zip(xs, fs)):
+        lay = _check(f"hgq_quantize_fwd_group member {i}", f, x)
+        if x.device != xs[0].device:
+            raise ValueError("hgq_quantize_fwd_group needs one CUDA device")
+        out = torch.empty_like(x)
+        outs.append(out)
+        if x.numel():
+            members.append(_member(x, f, out, lay))
+            keys.append(_key(lay, x))
+    if not members:
+        return outs
+    lib = _lib()
+    if len(members) > lib.hgq_quantize_fwd_group_max():
+        raise ValueError(f"hgq_quantize_fwd_group: {len(members)} members, "
+                         f"more than one launch takes")
+    desc = (ctypes.c_longlong * (7 * len(members)))(
+        *(v for m in members for v in m))
+    _build.check(lib.hgq_quantize_fwd_group_launch(
+        desc, len(members), _build.stream_ptr(xs[0].device)),
+        "hgq_quantize_fwd_group")
+    hgq_quantize_fwd_group.launches += 1
+    hgq_quantize_fwd_group.shapes[tuple(keys)] += 1
+    return outs
+
+
+# launches of the kernel, in all and by the members' (layout, x shape,
+# dtype) in order
+hgq_quantize_fwd_group.launches = 0
+hgq_quantize_fwd_group.shapes = collections.Counter()
 
 
 def bwd_plan(rows: int, cols: int, layout: str, dtype: torch.dtype
@@ -181,6 +237,56 @@ class _HGQQuantize(torch.autograd.Function):
             else:
                 df = ref.hgq_quantize_grad_ref(g, x, f)
         return (g if ctx.needs_input_grad[0] else None), df
+
+
+class _HGQQuantizeGroup(torch.autograd.Function):
+    """Inputs: the n x, then the n f; outputs: the n quantized x."""
+
+    @staticmethod
+    def forward(ctx, *xf):
+        n = len(xf) // 2
+        xs, fs = list(xf[:n]), list(xf[n:])
+        if xs[0].is_cuda:
+            xs = [x.contiguous() for x in xs]
+            fs = [f.contiguous() for f in fs]
+            outs = hgq_quantize_fwd_group(xs, fs)
+        else:
+            outs = ref.hgq_quantize_group_ref(xs, fs)
+        ctx.save_for_backward(*xs, *fs)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        n = len(saved) // 2
+        dxs, dfs = [], []
+        for i, g in enumerate(gs):
+            x, f = saved[i], saved[n + i]
+            dxs.append(g if ctx.needs_input_grad[i] else None)
+            df = None
+            if ctx.needs_input_grad[n + i]:
+                if x.is_cuda:
+                    df = hgq_quantize_bwd(g.contiguous(), x, f)
+                else:
+                    df = ref.hgq_quantize_grad_ref(g, x, f)
+            dfs.append(df)
+        return (*dxs, *dfs)
+
+
+def hgq_quantize_group(xs: Sequence[torch.Tensor],
+                       fs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`hgq_quantize` of each (x, f) pair, member by member the same
+    values and gradients; on CUDA the forwards are one launch
+    (``hgq_quantize_fwd_group``) and each backward one
+    ``hgq_quantize_bwd``.  All members lie on one device."""
+    if len(xs) != len(fs):
+        raise ValueError(f"hgq_quantize_group: {len(xs)} x, {len(fs)} f")
+    if not xs:
+        return []
+    dev = xs[0].device
+    if any(t.device != dev for t in (*xs, *fs)):
+        raise ValueError("hgq_quantize_group needs its tensors on one device")
+    return list(_HGQQuantizeGroup.apply(*xs, *fs))
 
 
 def hgq_quantize(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,8 @@
 ``repro/kernels/hgq_quantize/ops.py``)."""
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 from ...core.quantizer import quantize_inference
@@ -27,3 +29,10 @@ def hgq_quantize_grad_ref(g: torch.Tensor, x: torch.Tensor,
     delta = x.to(torch.float32) - xq.to(torch.float32)
     df = g.to(torch.float32) * LN2 * delta
     return df.sum_to_size(f.shape).to(torch.float32)
+
+
+def hgq_quantize_group_ref(xs: Sequence[torch.Tensor],
+                           fs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The grouped forward's plain version: ``hgq_quantize_ref`` member by
+    member."""
+    return [hgq_quantize_ref(x, f) for x, f in zip(xs, fs)]

@@ -3,13 +3,14 @@
 
 Entry points take the cache-native layouts (``[B, W, KV, hdm]``
 mantissas, ``[B, W, KV]`` exponents).  On CUDA tensors ``kv_quantize``,
-``kv_dequant`` and ``kv_attention_decode`` launch the hand-written
-kernels of ``csrc/kv_dequant.cu`` (no fallback); on CPU tensors they take
-the plain versions in ``ref.py``.  ``kv_pack`` and ``kv_unpack`` are
-plain PyTorch everywhere: the packed rows the serving path writes per
-tick are tiny.  (The serving path never dequantizes the cache: its
-attention read folds the dequant in; ``kv_dequant`` is the op's public
-entry point, as in the JAX package.)
+``kv_quantize_store``, ``kv_dequant`` and ``kv_attention_decode`` launch
+the hand-written kernels of ``csrc/kv_dequant.cu`` (no fallback); on CPU
+tensors they take the plain versions in ``ref.py``.  The serving path
+stores a layer's new k and v rows with ``kv_quantize_store``: quantize,
+nibble-pack and ring write in one launch.  ``kv_pack`` and ``kv_unpack``
+are plain PyTorch everywhere.  (The serving path never dequantizes the
+cache: its attention read folds the dequant in; ``kv_quantize`` and
+``kv_dequant`` are the op's public entry points, as in the JAX package.)
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from . import ref
 
 __all__ = ["attention_cluster", "kv_attention_decode", "kv_attention_rows",
            "kv_dequant", "kv_dequant_rows", "kv_pack", "kv_quantize",
-           "kv_quantize_rows", "kv_unpack"]
+           "kv_quantize_rows", "kv_quantize_store", "kv_unpack"]
 
 
 def _lib() -> ctypes.CDLL:
@@ -32,8 +33,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("kv_dequant")
     if not getattr(lib, "typed", False):
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.kv_quantize_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        lib.kv_quantize_launch.argtypes = [vp, ll, vp, vp, ci, ci, ci, ci,
+                                           vp]
         lib.kv_quantize_launch.restype = ci
+        lib.kv_store_launch.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp,
+                                        vp, vp, ll, ll, ll, vp, vp, ll, ll,
+                                        ll, ci, ci, ci, ci, ci, ci, ci, ci,
+                                        vp]
+        lib.kv_store_launch.restype = ci
         lib.kv_dequant_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.kv_dequant_launch.restype = ci
         lib.kv_attention_launch.argtypes = [
@@ -44,21 +51,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def kv_quantize_rows(rows: torch.Tensor, bits: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel: [R, hd] fp32 contiguous rows -> (int8 mantissas
-    [R, hd], int8 grid exponents [R])."""
-    if not rows.is_cuda or rows.dtype != torch.float32 \
-            or rows.ndim != 2 or not rows.is_contiguous():
-        raise ValueError("kv_quantize_rows takes contiguous fp32 [R, hd] "
-                         "CUDA rows")
+    """The CUDA kernel: [R, hd] float32 or bfloat16 rows, the last axis
+    contiguous -> (int8 mantissas [R, hd], int8 grid exponents [R])."""
+    if not rows.is_cuda or rows.dtype not in _ROW_DTYPES \
+            or rows.ndim != 2 or (rows.shape[1] > 1 and rows.stride(1) != 1):
+        raise ValueError("kv_quantize_rows takes float32 or bfloat16 [R, hd] "
+                         "CUDA rows, the last axis contiguous")
     R, hd = rows.shape
     q = torch.empty((R, hd), dtype=torch.int8, device=rows.device)
     f = torch.empty((R,), dtype=torch.int8, device=rows.device)
-    if R == 0:
+    if R == 0 or hd == 0:
         return q, f
     _build.check(_lib().kv_quantize_launch(
-        rows.data_ptr(), q.data_ptr(), f.data_ptr(), R, hd, bits,
+        rows.data_ptr(), rows.stride(0), q.data_ptr(), f.data_ptr(), R, hd,
+        bits, int(rows.dtype == torch.bfloat16),
         _build.stream_ptr(rows.device)), "kv_quantize_rows")
     kv_quantize_rows.launches += 1
     kv_quantize_rows.shapes[R, hd, bits] += 1
@@ -77,9 +88,76 @@ def kv_quantize(x: torch.Tensor, bits: int = 8
     if not x.is_cuda:
         return ref.kv_quantize_ref(x, bits)
     lead, hd = x.shape[:-1], x.shape[-1]
-    q, f = kv_quantize_rows(x.reshape(-1, hd).to(torch.float32).contiguous(),
-                            bits)
+    if x.dtype not in _ROW_DTYPES:
+        x = x.to(torch.float32)
+    rows = x.reshape(-1, hd)
+    if hd > 1 and rows.stride(1) != 1:
+        rows = rows.contiguous()
+    q, f = kv_quantize_rows(rows, bits)
     return q.reshape(lead + (hd,)), f.reshape(lead)
+
+
+def kv_quantize_store(kh: torch.Tensor, vh: torch.Tensor,
+                      slot: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, cache_kf: torch.Tensor,
+                      cache_vf: torch.Tensor, bits: int) -> None:
+    """Store a layer's new k and v rows into its quantized ring, in place:
+    ``kh``/``vh`` [B, S, KV, hd] (float32 or bfloat16, any strides with
+    the last axis contiguous) are quantized per row (``kv_quantize``),
+    nibble-packed where the ring holds ``hd // 2`` bytes a row, and written
+    with their exponents to ``cache_*[b, slot[b, s]]``; slots outside the
+    ring (``>= W``) are dropped, as the reference's ``mode="drop"``
+    scatter drops them.  On CUDA one launch of the store kernel, on the
+    CPU the plain version."""
+    if not kh.is_cuda:
+        ref.kv_quantize_store_ref(kh, vh, slot, cache_k, cache_v, cache_kf,
+                                  cache_vf, bits)
+        return
+    B, S, KV, hd = kh.shape
+    W, hdm = cache_k.shape[1], cache_k.shape[3]
+    tensors = (kh, vh, slot, cache_k, cache_v, cache_kf, cache_vf)
+    if not all(t.is_cuda and t.device == kh.device for t in tensors):
+        raise ValueError("kv_quantize_store needs its tensors on one CUDA "
+                         "device")
+    if kh.dtype not in _ROW_DTYPES or vh.dtype != kh.dtype:
+        raise TypeError(f"kv_quantize_store takes float32 or bfloat16 k/v "
+                        f"rows of one dtype, got {kh.dtype}, {vh.dtype}")
+    if any(t.dtype != torch.int8 for t in tensors[3:]):
+        raise TypeError("kv_quantize_store writes int8 rings")
+    if tuple(vh.shape) != (B, S, KV, hd) or tuple(slot.shape) != (B, S) \
+            or hdm not in (hd, hd // 2) or (hdm != hd and hd % 2) \
+            or tuple(cache_k.shape) != (B, W, KV, hdm) \
+            or tuple(cache_v.shape) != (B, W, KV, hdm) \
+            or tuple(cache_kf.shape) != (B, W, KV) \
+            or tuple(cache_vf.shape) != (B, W, KV):
+        raise ValueError(f"kv_quantize_store shapes k{tuple(kh.shape)} "
+                         f"v{tuple(vh.shape)} slot{tuple(slot.shape)} ring "
+                         f"{tuple(cache_k.shape)} {tuple(cache_v.shape)} "
+                         f"{tuple(cache_kf.shape)} {tuple(cache_vf.shape)}")
+    if (hd > 1 and (kh.stride(3) != 1 or vh.stride(3) != 1)) \
+            or cache_k.stride() != cache_v.stride() \
+            or cache_kf.stride() != cache_vf.stride() \
+            or (hdm > 1 and cache_k.stride(3) != 1):
+        raise ValueError("kv_quantize_store needs contiguous rows and k and "
+                         "v rings that share strides")
+    if kh.numel() == 0:
+        return
+    slot = slot.to(torch.int64).contiguous()
+    _build.check(_lib().kv_store_launch(
+        kh.data_ptr(), *kh.stride()[:3], vh.data_ptr(), *vh.stride()[:3],
+        slot.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        *cache_k.stride()[:3], cache_kf.data_ptr(), cache_vf.data_ptr(),
+        *cache_kf.stride(), B, S, KV, hd, W, int(hdm != hd), bits,
+        int(kh.dtype == torch.bfloat16), _build.stream_ptr(kh.device)),
+        "kv_quantize_store")
+    kv_quantize_store.launches += 1
+    kv_quantize_store.shapes[B, S, KV, hd, W, hdm, bits,
+                             str(kh.dtype).replace("torch.", "")] += 1
+
+
+# launches of the kernel, in all and by (B, S, KV, hd, W, hdm, bits, dtype)
+kv_quantize_store.launches = 0
+kv_quantize_store.shapes = collections.Counter()
 
 
 def kv_dequant_rows(q: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

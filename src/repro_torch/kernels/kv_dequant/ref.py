@@ -1,7 +1,8 @@
 """Plain PyTorch semantics of the quantized KV cache (counterpart of
 ``repro/kernels/kv_dequant/ref.py``).
 
-``kv_quantize_ref`` is the per-row (token x kv head) 2^-f grid store;
+``kv_quantize_ref`` is the per-row (token x kv head) 2^-f grid store,
+``kv_quantize_store_ref`` that store written into the ring;
 ``kv_attention_ref`` is the decode attention read over the dequantized
 mantissas, expression for expression the fp decode attention with the
 dequant in front.  They are the plain versions the CUDA kernels of
@@ -36,6 +37,42 @@ def kv_quantize_ref(rows: torch.Tensor, bits: int
     q = torch.clamp(torch.round(rows.to(torch.float32) * _exp2i(f)[..., None]),
                     -qmax, qmax).to(torch.int8)
     return q, f.to(torch.int8)
+
+
+def ring_write(buf: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
+               vals: torch.Tensor, S: int) -> None:
+    """``buf[b, slot[b, s]] = vals[b, s]`` with the reference's drop
+    semantics: slots >= W are dropped.  Valid slots never collide (the
+    ring remap sends every stale alias of a slot to W), so the write
+    order does not matter.  Out-of-range slots can only appear when a
+    chunk is longer than the ring (S > W): only then is the mask built,
+    which costs a host sync.  Positions past an unwindowed cache are
+    rejected before they get here."""
+    W = buf.shape[1]
+    if S > W:
+        keep = slot < W
+        b = bidx.expand_as(slot)
+        buf[b[keep], slot[keep]] = vals[keep]
+    else:
+        buf[bidx, slot] = vals
+
+
+def kv_quantize_store_ref(kh: torch.Tensor, vh: torch.Tensor,
+                          slot: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, cache_kf: torch.Tensor,
+                          cache_vf: torch.Tensor, bits: int) -> None:
+    """The store kernel's plain version: ``kv_quantize_ref`` of the k and v
+    rows [B, S, KV, hd], ``kv_pack_ref`` where the ring holds ``hd // 2``
+    bytes a row, then the four ring writes (``ring_write``) at ``slot``
+    [B, S], in place."""
+    B, S = slot.shape
+    m_new, f_new = kv_quantize_ref(torch.stack((kh, vh)), bits)
+    if cache_k.shape[-1] != kh.shape[-1]:
+        m_new = kv_pack_ref(m_new)
+    bidx = torch.arange(B, device=slot.device)[:, None]
+    for buf, vals in ((cache_k, m_new[0]), (cache_v, m_new[1]),
+                      (cache_kf, f_new[0]), (cache_vf, f_new[1])):
+        ring_write(buf, bidx, slot, vals, S)
 
 
 def kv_dequant_ref(q: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

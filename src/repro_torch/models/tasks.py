@@ -16,7 +16,8 @@ from ..core import hgq
 from ..core.hgq import Aux, QTensor
 from ..device import resolve_device
 from ..nn.basic import HDense
-from ..nn.common import HGQConfig, act_q_init, apply_act_q
+from ..nn.common import (HGQConfig, act_q_init, apply_act_q,
+                         quantize_weights)
 
 
 class JetTagger:
@@ -54,9 +55,20 @@ class JetTagger:
                                          aux)
         else:
             h = QTensor(x, None)
-        last = len(JetTagger.WIDTHS) - 1
-        for i in range(len(JetTagger.WIDTHS)):
-            h, newq[f"d{i}"] = HDense.apply(p[f"d{i}"], q[f"d{i}"], h,
-                                            mode=mode, aux=aux,
-                                            act="relu" if i < last else "")
+        layers = [f"d{i}" for i in range(len(JetTagger.WIDTHS))]
+        wq = {name: None for name in layers}
+        if mode == hgq.TRAIN:
+            # every weight and bias quantizer of the step in one group (one
+            # kernel launch on the card): none depends on an activation
+            keys = [(name, k) for name in layers for k in ("kernel", "bias")
+                    if k in p[name]]
+            qs = quantize_weights([p[name][k] for name, k in keys], mode)
+            wq = {name: {} for name in layers}
+            for (name, k), t in zip(keys, qs):
+                wq[name][k] = t
+        last = len(layers) - 1
+        for i, name in enumerate(layers):
+            h, newq[name] = HDense.apply(p[name], q[name], h, mode=mode,
+                                         aux=aux, wq=wq[name],
+                                         act="relu" if i < last else "")
         return h.q, newq, aux

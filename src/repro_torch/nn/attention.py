@@ -17,8 +17,8 @@ import torch
 from ..core import hgq
 from ..core.hgq import Aux, QTensor
 from ..core.quantizer import quantize_inference
-from ..kernels.kv_dequant.ops import kv_attention_decode, kv_pack, kv_quantize
-from ..kernels.kv_dequant.ref import attention_mask
+from ..kernels.kv_dequant.ops import kv_attention_decode, kv_quantize_store
+from ..kernels.kv_dequant.ref import attention_mask, ring_write
 from .basic import HDense
 from .common import HGQConfig, act_q_init, apply_act_q
 
@@ -80,24 +80,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _ring_write(buf: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
-                vals: torch.Tensor, S: int) -> None:
-    """``buf[b, slot[b, s]] = vals[b, s]`` with the reference's drop
-    semantics: slots >= W are dropped.  Valid slots never collide (the
-    ring remap sends every stale alias of a slot to W), so the write
-    order does not matter.  Out-of-range slots can only appear when a
-    chunk is longer than the ring (S > W): only then is the mask built,
-    which costs a host sync.  Positions past an unwindowed cache are
-    rejected before they get here."""
-    W = buf.shape[1]
-    if S > W:
-        keep = slot < W
-        b = bidx.expand_as(slot)
-        buf[b[keep], slot[keep]] = vals[keep]
-    else:
-        buf[bidx, slot] = vals
-
-
 class GQAAttention:
     @staticmethod
     def init(gen, cfg: AttnConfig, qcfg: HGQConfig, device=None):
@@ -152,19 +134,15 @@ class GQAAttention:
                                torch.full_like(qpos, W))
         else:
             slot = qpos
-        bidx = torch.arange(B, device=dev)[:, None]
         quantized = isinstance(cache, QKVCache)
         if quantized:
-            # k and v rows share one quantize launch
-            m_new, f_new = kv_quantize(torch.stack((kh, vh)), kv_bits or 8)
-            if cache.k.shape[-1] != hd:
-                m_new = kv_pack(m_new)
-            for buf, vals in ((cache.k, m_new[0]), (cache.v, m_new[1]),
-                              (cache.kf, f_new[0]), (cache.vf, f_new[1])):
-                _ring_write(buf, bidx, slot, vals, S)
+            # quantize, pack and ring write of k and v in one launch
+            kv_quantize_store(kh, vh, slot, cache.k, cache.v, cache.kf,
+                              cache.vf, kv_bits or 8)
         else:
-            _ring_write(cache.k, bidx, slot, kh.to(cache.k.dtype), S)
-            _ring_write(cache.v, bidx, slot, vh.to(cache.v.dtype), S)
+            bidx = torch.arange(B, device=dev)[:, None]
+            ring_write(cache.k, bidx, slot, kh.to(cache.k.dtype), S)
+            ring_write(cache.v, bidx, slot, vh.to(cache.v.dtype), S)
         if cfg.window is not None:
             # slot s holds global position last - ((last - s) % W);
             # never-written slots resolve negative and are masked

@@ -61,7 +61,11 @@ class HDense:
 
     @staticmethod
     def apply(p, q, x: QTensor, *, mode: str, aux: Optional[Aux],
-              act: str = "") -> Tuple[QTensor, Dict[str, Any]]:
+              act: str = "", wq: Optional[Dict[str, QTensor]] = None
+              ) -> Tuple[QTensor, Dict[str, Any]]:
+        """``wq``: the kernel's and the bias's quantized weights, made
+        beforehand (``common.quantize_weights``, one grouped launch for a
+        model's weights); without it they are quantized here."""
         kern = p["kernel"]
         if is_packed(kern):
             # serving hot path: the stored mantissas (int8 or nibbles)
@@ -71,12 +75,13 @@ class HDense:
                             kern["scale"].reshape(ki.shape[-1]), nib=nib
                             ).to(x.q.dtype)
         else:
-            wq = get_qw(kern, mode)
-            d_in, d_out = wq.q.shape
-            y = torch.matmul(x.q.to(wq.q.dtype), wq.q).to(x.q.dtype)
-            hgq.matmul_ebops(aux, x.bits, wq.bits, d_in, d_out)
+            kq = wq["kernel"] if wq is not None else get_qw(kern, mode)
+            d_in, d_out = kq.q.shape
+            y = torch.matmul(x.q.to(kq.q.dtype), kq.q).to(x.q.dtype)
+            hgq.matmul_ebops(aux, x.bits, kq.bits, d_in, d_out)
         if "bias" in p:
-            y = y + get_qw(p["bias"], mode).q
+            y = y + (wq["bias"] if wq is not None
+                     else get_qw(p["bias"], mode)).q
         return _out_quant(p, q, activation(act, y), mode, aux)
 
 

@@ -12,7 +12,7 @@ from).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,6 +79,14 @@ def get_qw(p: Dict[str, Any], mode: str) -> QTensor:
         return QTensor(unpack_weight(p),
                        None if f is None else torch.relu(f.float()) + 1.0)
     return hgq.quant_weight(p["w"], p.get("f"), mode)
+
+
+def quantize_weights(ps: Sequence[Dict[str, Any]], mode: str
+                     ) -> List[QTensor]:
+    """:func:`get_qw` of several stored (unpacked) weights; in TRAIN their
+    quantizers run as one group (``hgq.quant_weights``)."""
+    return hgq.quant_weights([p["w"] for p in ps], [p.get("f") for p in ps],
+                             mode)
 
 
 def apply_act_q(x: torch.Tensor, f: Optional[torch.Tensor],

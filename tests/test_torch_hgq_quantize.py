@@ -184,3 +184,125 @@ def test_reciprocal_grid_step_is_the_division(lo):
         xq = torch.floor(x * s + 0.5) * rs
         assert torch.equal(xq.view(torch.int32),
                            hgq_quantize_ref(x, f).view(torch.int32)), fi
+
+
+# groups of independent quantizers: the jet tagger's weights and biases
+# (per parameter, one grouped launch a training step on the card), and
+# mixed layouts and dtypes
+GROUPS = {
+    "jet_weights": [(s, s, "float32") for s in
+                    ((16, 64), (64,), (64, 32), (32,), (32, 32), (32,),
+                     (32, 5), (5,))],
+    "mixed": [((64, 256), (), "float32"), ((33, 130), (130,), "bfloat16"),
+              ((16, 64), (16, 64), "bfloat16"),
+              ((3, 5, 100), (1, 1, 100), "float32"), ((7,), (7,), "float32"),
+              ((2, 2, 2, 64), (), "bfloat16"),
+              ((64, 256), (1, 256), "bfloat16")],
+    "one": [((1, 128), (1, 128), "float32")],
+}
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_group_matches_jax_member_by_member(group):
+    """``hgq_quantize_group`` (and its plain version) gives each member the
+    JAX package's Eq. 4 bit for bit, and each member the value and the
+    gradients of its own ``hgq_quantize``."""
+    from repro_torch.kernels.hgq_quantize import (hgq_quantize_group,
+                                                  hgq_quantize_group_ref)
+    xs, fs, gs, js = [], [], [], []
+    for i, (shape, fshape, dtype) in enumerate(GROUPS[group]):
+        jdt, tdt = DTYPES[dtype]
+        x, f, g = _inputs(shape, fshape, jdt, seed=100 + i)
+        xj = jnp.asarray(x, jdt)
+        js.append(j_ref(xj, jnp.broadcast_to(jnp.asarray(f), xj.shape)))
+        xs.append(torch.tensor(x).to(tdt).requires_grad_(True))
+        fs.append(torch.tensor(f).requires_grad_(True))
+        gs.append(torch.tensor(g).to(tdt))
+    outs = hgq_quantize_group(xs, fs)
+    plain = hgq_quantize_group_ref([x.detach() for x in xs],
+                                   [f.detach() for f in fs])
+    grads = torch.autograd.grad(outs, xs + fs, gs)
+    for i, (x, f, g) in enumerate(zip(xs, fs, gs)):
+        assert outs[i].dtype == x.dtype and outs[i].shape == x.shape
+        _same(js[i], outs[i])
+        _same(js[i], plain[i])
+        one = hgq_quantize(x, f)
+        assert torch.equal(one, outs[i])
+        dx, df = torch.autograd.grad(one, (x, f), g)
+        assert torch.equal(grads[i], dx) and torch.equal(grads[i], g)
+        assert torch.equal(grads[len(xs) + i].view(torch.int32),
+                           df.view(torch.int32))
+
+
+def test_quant_weights_is_quant_weight_in_one_group(monkeypatch):
+    """``hgq.quant_weights`` gives each weight ``quant_weight``'s value,
+    bits and gradients (through both the loss and the bits path), and in
+    TRAIN reaches the quantizer once for the whole group; a weight
+    without f passes through."""
+    from repro_torch.core import hgq
+    from repro_torch.kernels.hgq_quantize import ref as tref
+    rng = np.random.default_rng(11)
+    shapes = [((16, 64), (16, 64)), ((64,), (64,)), ((32, 5), (1, 5)),
+              ((8,), None)]
+    ws = [torch.tensor(rng.normal(size=s).astype(np.float32),
+                       requires_grad=True) for s, _ in shapes]
+    fs = [None if fs is None else torch.tensor(
+        rng.uniform(0, 6, size=fs).astype(np.float32), requires_grad=True)
+        for _, fs in shapes]
+    calls = []
+    real = tref.hgq_quantize_group_ref
+    monkeypatch.setattr(tref, "hgq_quantize_group_ref",
+                        lambda xs, ffs: calls.append(len(xs)) or real(xs, ffs))
+    grouped = hgq.quant_weights(ws, fs, hgq.TRAIN)
+    assert calls == [3]
+    leaves = ws + [f for f in fs if f is not None]
+    for mode in (hgq.TRAIN, hgq.EVAL):
+        got = grouped if mode == hgq.TRAIN else \
+            hgq.quant_weights(ws, fs, mode)
+        one = [hgq.quant_weight(w, f, mode) for w, f in zip(ws, fs)]
+        for a, b in zip(got, one):
+            assert torch.equal(a.q, b.q)
+            assert (a.bits is None) == (b.bits is None)
+            if a.bits is not None:
+                assert torch.equal(a.bits, b.bits)
+        loss = lambda ts: sum((t.q * 1.5).sum() + (0 if t.bits is None
+                                                   else t.bits.sum())
+                              for t in ts)
+        ga = torch.autograd.grad(loss(got), leaves, allow_unused=True)
+        gb = torch.autograd.grad(loss(one), leaves, allow_unused=True)
+        for a, b in zip(ga, gb):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert calls == [3]                                # EVAL: no quantizer
+
+
+def test_jet_train_forward_groups_its_weights(monkeypatch):
+    """A TRAIN forward of the jet tagger quantizes its 8 weights and biases
+    in one group and its 4 activations one by one (on the card: one
+    grouped launch and four single launches); CALIB and EVAL quantize
+    without the training quantizer."""
+    from repro_torch.core import hgq
+    from repro_torch.kernels.hgq_quantize import ref as tref
+    from repro_torch.models import JetTagger
+    from repro_torch.nn import HGQConfig
+    cfg = HGQConfig(weight_gran="per_parameter", act_gran="per_parameter")
+    p, q = JetTagger.init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(32, 16)).astype(np.float32))
+    groups, singles = [], []
+    real = tref.hgq_quantize_ref
+    monkeypatch.setattr(tref, "hgq_quantize_group_ref",
+                        lambda xs, fs: groups.append(
+                            [tuple(t.shape) for t in xs])
+                        or [real(a, b) for a, b in zip(xs, fs)])
+    monkeypatch.setattr(tref, "hgq_quantize_ref",
+                        lambda a, b: singles.append(tuple(a.shape))
+                        or real(a, b))
+    JetTagger.forward(p, q, {"x": x}, hgq.TRAIN)
+    assert groups == [[(16, 64), (64,), (64, 32), (32,), (32, 32), (32,),
+                       (32, 5), (5,)]]
+    assert singles == [(32, 16), (32, 64), (32, 32), (32, 32)]
+    groups.clear()
+    singles.clear()
+    JetTagger.forward(p, q, {"x": x}, hgq.EVAL)
+    assert groups == [] and singles == []

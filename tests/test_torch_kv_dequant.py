@@ -182,3 +182,67 @@ def test_attention_cluster_from_w_only():
     assert list(inspect.signature(attention_cluster).parameters) == ["W"]
     assert [attention_cluster(W) for W in (1, 20, 128, 129, 1024, 2048,
                                            100000)] == [1, 1, 1, 2, 8, 8, 8]
+
+
+def _store_slots(B, S, W, window, rng):
+    """Ring slots of a chunk of S rows at per-row cache positions, as the
+    attention layer computes them: a windowed ring keeps a chunk's newest
+    W rows (stale rows get slot W, dropped); an unwindowed cache takes the
+    position itself."""
+    if window:
+        cp = rng.integers(0, 3 * W, size=B)
+        qpos = cp[:, None] + np.arange(S)
+        last = cp + S - 1
+        return np.where(qpos > last[:, None] - W, qpos % W, W)
+    cp = rng.integers(0, W - S + 1, size=B)
+    return cp[:, None] + np.arange(S)
+
+
+# (B, S, W, windowed ring, kv bits, hd): S = 1 and 16, int8 and nibble rings,
+# windowed rings, chunks longer than the ring (S > W, rows dropped)
+STORE_CASES = [(3, 1, 16, False, 8, 64), (3, 1, 16, False, 4, 64),
+               (2, 16, 32, False, 8, 64), (2, 16, 32, False, 4, 64),
+               (3, 1, 8, True, 8, 64), (2, 5, 8, True, 4, 64),
+               (2, 16, 8, True, 8, 64), (2, 16, 8, True, 4, 64),
+               (2, 3, 16, False, 8, 40)]
+
+
+@pytest.mark.parametrize("B,S,W,window,bits,hd", STORE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_quantize_store_matches_jax(B, S, W, window, bits, hd, dtype):
+    """``kv_quantize_store`` (on the CPU its plain version) writes the ring
+    buffers bit for bit as JAX's ``kv_quantize`` per tensor, ``kv_pack``
+    and ``.at[bidx, slot].set(mode="drop")`` on each of the four; slots
+    the chunk does not reach keep their old bytes."""
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    rng = _rng("store", B, S, W, window, bits, hd, dtype)
+    KV = 2
+    hdm = hd // 2 if bits <= 4 else hd
+    kh = np.array(jnp.asarray(_rows((B, S, KV, hd), bits, rng), jdt),
+                  np.float32)
+    vh = np.array(jnp.asarray((rng.normal(size=(B, S, KV, hd)) * 0.7)
+                              .astype(np.float32), jdt), np.float32)
+    slot = _store_slots(B, S, W, window, rng)
+    ring = [rng.integers(-128, 128, size=(B, W, KV, hdm), dtype=np.int8)
+            for _ in range(2)]
+    ring += [rng.integers(-128, 128, size=(B, W, KV), dtype=np.int8)
+             for _ in range(2)]
+    km, kf = jkv.kv_quantize(jnp.asarray(kh, jdt), bits)
+    vm, vf = jkv.kv_quantize(jnp.asarray(vh, jdt), bits)
+    if hdm != hd:
+        km, vm = jkv.kv_pack(km), jkv.kv_pack(vm)
+    bidx = jnp.arange(B)[:, None]
+    js = jnp.asarray(slot)
+    want = [jnp.asarray(buf).at[bidx, js].set(new, mode="drop")
+            for buf, new in zip(ring, (km, vm, kf, vf))]
+    got = [torch.from_numpy(buf.copy()) for buf in ring]
+    before = tkv.kv_quantize_store.launches
+    tkv.kv_quantize_store(torch.from_numpy(kh).to(tdt),
+                          torch.from_numpy(vh).to(tdt),
+                          torch.from_numpy(slot), *got, bits)
+    assert tkv.kv_quantize_store.launches == before   # CPU: plain version
+    for j, t in zip(want, got):
+        _eq(j, t)
+    if window and S > W:
+        assert (slot >= W).any()                       # rows were dropped

@@ -10,6 +10,7 @@ a machine with a CUDA device and no JAX:
 import ast
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -69,7 +70,8 @@ def _imports(path: Path):
 
 def test_sources_import_neither_jax_nor_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "torch_kernel_sweep.py"]
+                                         ROOT / "torch_kernel_sweep.py",
+                                         ROOT / "torch_profile_check.py"]
     assert len(files) > 20
     for f in files:
         for name in _imports(f):
@@ -403,6 +405,9 @@ def test_wire_pack_rows_unaligned_views_on_cuda(cuda_device, offset):
         assert torch.equal(out, wp.pack_chunks_ref(q)), (R, C)
 
 
+# seconds the profiler runs before the marker and after the profiled launch
+PROFILE_SETTLE_S = 0.05
+
 # the backward's per-channel and per-tensor shapes on the training slice
 # (batch 1024 on one card, 256 a slice of the compressed step)
 TRAINING_BWD = [((1024, 16), (16,)), ((1024, 64), ()), ((1024, 32), ()),
@@ -433,11 +438,19 @@ def test_hgq_bwd_is_one_launch_at_training_shapes(cuda_device, shape, fshape,
     f = torch.rand(fshape, generator=g, device=cuda_device) * 8 - 1
     hgq_quantize_bwd(gy, x, f)                                # warm up
     torch.cuda.synchronize()
+    # the trace can lack the device record of the first kernel launched
+    # after the profiler starts: launch the backward once the profiler has
+    # settled, after a marker kernel (torch.cuda._sleep's spin_kernel)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SETTLE_S)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         df = hgq_quantize_bwd(gy, x, f)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
     kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name]
     assert len(kernels) == 1 and "hgq_bwd" in kernels[0], kernels
     assert torch.equal(df, hgq_quantize_bwd(gy, x, f))
     ref = hgq_quantize_grad_ref(gy, x, f)
@@ -488,3 +501,178 @@ def test_hgq_bwd_grid_step_at_the_clamp_on_cuda(cuda_device, dtype):
                                on(fk)).cpu()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
             GRID_EDGES[k]
+
+
+# a grouped forward's members: the jet tagger's weights, activations of
+# every layout, ragged shapes (rows that are not whole 16-byte vectors, a
+# last vector cut short), bfloat16, and two qwen2-0.5b layer shapes
+GROUP_MEMBERS = [((16, 64), (16, 64), torch.float32),
+                 ((64,), (64,), torch.float32),
+                 ((1024, 16), (16,), torch.float32),
+                 ((300, 5), (5,), torch.bfloat16),
+                 ((1001, 33), (), torch.float32),
+                 ((37,), (37,), torch.bfloat16),
+                 ((1024, 40), (1, 40), torch.bfloat16),
+                 ((896, 4864), (1, 4864), torch.float32),
+                 ((8192, 896), (), torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "one_element_in"])
+def test_hgq_fwd_group_on_cuda(cuda_device, offset):
+    """The grouped forward is one launch and gives every member the bits of
+    its own ``hgq_quantize_fwd`` launch and of the plain version; views
+    one element past a 16-byte boundary (values one by one) give the same
+    bits; through the op the gradients are each member's own."""
+    from repro_torch.kernels.hgq_quantize import (hgq_quantize_fwd_group,
+                                                  hgq_quantize_group)
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    xs, fs = [], []
+    for shape, fshape, dtype in GROUP_MEMBERS:
+        n = int(np.prod(shape))
+        buf = (torch.randn(n + 1, generator=g, device=cuda_device) * 4
+               ).to(dtype)
+        xs.append(buf[offset:offset + n].view(shape))
+        nf = int(np.prod(fshape))
+        fb = torch.rand(nf + 1, generator=g, device=cuda_device) * 8 - 1
+        fs.append(fb[offset:offset + nf].view(fshape))
+    before = (hgq_quantize_fwd_group.launches, hgq_quantize_fwd.launches)
+    outs = hgq_quantize_fwd_group(xs, fs)
+    assert (hgq_quantize_fwd_group.launches, hgq_quantize_fwd.launches) == \
+        (before[0] + 1, before[1])
+    for x, f, out in zip(xs, fs, outs):
+        ref = hgq_quantize_ref(x, f)
+        assert torch.equal(_bits16(out), _bits16(ref)), (x.shape, f.shape)
+        assert torch.equal(_bits16(out), _bits16(hgq_quantize_fwd(x, f)))
+    assert all(torch.equal(_bits16(a), _bits16(b)) for a, b in
+               zip(outs, hgq_quantize_fwd_group(xs, fs)))
+    small = slice(0, 4)                                # the jet weights etc.
+    xg = [x.detach().clone().requires_grad_(True) for x in xs[small]]
+    fg = [f.detach().clone().requires_grad_(True) for f in fs[small]]
+    gy = [torch.randn(x.shape, generator=g, device=cuda_device).to(x.dtype)
+          for x in xg]
+    grads = torch.autograd.grad(hgq_quantize_group(xg, fg), xg + fg, gy)
+    for i, (x, f) in enumerate(zip(xg, fg)):
+        assert torch.equal(grads[i], gy[i])
+        want = hgq_quantize_bwd(gy[i], x.detach(), f.detach())
+        assert torch.equal(grads[len(xg) + i], want)
+
+
+def _bits16(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+# (B, S, W, windowed ring, kv bits, rows' dtype, byte offset of the ring
+# views, element offset of the k/v rows): int8 and nibble rings, a decode
+# tick and a prefill chunk, a windowed ring, a chunk longer than the ring
+# (rows dropped), bfloat16 rows, views 1-15 bytes into their buffers
+STORE_CUDA = ([(8, 1, 1024, False, 8, torch.float32, 0, 0),
+               (8, 1, 1024, False, 4, torch.float32, 0, 0),
+               (1, 16, 1024, False, 8, torch.float32, 0, 0),
+               (1, 16, 1024, False, 4, torch.float32, 0, 0),
+               (4, 1, 64, True, 8, torch.float32, 0, 0),
+               (2, 16, 8, True, 8, torch.float32, 0, 0),
+               (2, 16, 8, True, 4, torch.float32, 0, 0),
+               (8, 1, 1024, False, 8, torch.bfloat16, 0, 0),
+               (2, 16, 64, True, 4, torch.bfloat16, 0, 0)]
+              + [(2, 3, 32, True, 4 if off % 2 else 8, torch.float32, off,
+                  off % 4) for off in range(1, 16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STORE_CUDA,
+                         ids=lambda c: "-".join(str(v) for v in c))
+def test_kv_quantize_store_on_cuda(cuda_device, case):
+    """The fused store writes the four ring buffers bit for bit as its
+    plain version (quantize, pack, ring write), in one launch, leaving the
+    slots it does not reach as they were."""
+    from repro_torch.kernels.kv_dequant import kv_quantize_store
+    from repro_torch.kernels.kv_dequant.ref import kv_quantize_store_ref
+    B, S, W, window, bits, dtype, off, xoff = case
+    KV, hd = 2, 64
+    hdm = hd // 2 if bits <= 4 else hd
+    g = torch.Generator(device=cuda_device).manual_seed(W * 31 + S + off)
+    n = B * S * KV * hd
+    rows = (torch.randn(2 * n + 4, generator=g, device=cuda_device) * 3
+            ).to(dtype)
+    kh = rows[xoff:xoff + n].view(B, S, KV, hd)
+    vh = rows[n + xoff:2 * n + xoff].view(B, S, KV, hd)
+    cp = torch.randint(0, 3 * W if window else W - S + 1, (B,), generator=g,
+                       device=cuda_device)
+    qpos = cp[:, None] + torch.arange(S, device=cuda_device)
+    if window:
+        last = cp + S - 1
+        slot = torch.where(qpos > last[:, None] - W, qpos % W,
+                           torch.full_like(qpos, W))
+    else:
+        slot = qpos
+
+    def ring(shape):
+        m = int(np.prod(shape))
+        buf = torch.randint(-128, 128, (m + 16,), generator=g,
+                            device=cuda_device, dtype=torch.int8)
+        return buf[off:off + m].view(shape)
+
+    bufs = [ring((B, W, KV, hdm)), ring((B, W, KV, hdm)), ring((B, W, KV)),
+            ring((B, W, KV))]
+    want = [b.clone() for b in bufs]
+    kv_quantize_store_ref(kh, vh, slot, *want, bits)
+    before = kv_quantize_store.launches
+    kv_quantize_store(kh, vh, slot, *bufs, bits)
+    torch.cuda.synchronize()
+    assert kv_quantize_store.launches == before + 1
+    for a, b in zip(bufs, want):
+        assert torch.equal(a, b)
+    kv_quantize_store(kh, vh, slot, *bufs, bits)          # repeatable
+    assert all(torch.equal(a, b) for a, b in zip(bufs, want))
+
+
+@pytest.mark.cuda
+def test_launch_tallies_of_a_step_and_a_tick_on_cuda(cuda_device):
+    """A jet-tagger training step launches the ``hgq_quantize`` forward
+    once grouped (its 8 weights and biases) and 4 times single (its
+    activations), and the backward 12 times; a decode tick of a quantized
+    ring stores each layer's k and v rows with one ``kv_quantize_store``
+    launch and no ``kv_quantize_rows`` launch, int8 and nibble rings."""
+    from repro_torch.configs import get
+    from repro_torch.core import hgq
+    from repro_torch.kernels.hgq_quantize import hgq_quantize_fwd_group
+    from repro_torch.kernels.kv_dequant import kv_quantize_store
+    from repro_torch.models import JetTagger, TransformerLM
+    from repro_torch.nn import HGQConfig
+    from repro_torch.train import softmax_xent
+    cfg = HGQConfig(weight_gran="per_parameter", act_gran="per_parameter")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p, q = JetTagger.init(gen, cfg, device=cuda_device)
+    x = torch.randn((256, 16), generator=gen, device=cuda_device)
+    y = torch.randint(0, 5, (256,), generator=gen, device=cuda_device)
+    leaves = [t for d in p.values() for t in (
+        [d] if isinstance(d, torch.Tensor) else
+        [v for w in d.values() for v in (w.values() if isinstance(w, dict)
+                                         else [w])])]
+    for t in leaves:
+        t.requires_grad_(True)
+    counts = lambda: (hgq_quantize_fwd.launches,
+                      hgq_quantize_fwd_group.launches,
+                      hgq_quantize_bwd.launches)
+    before = counts()
+    logits, _, aux = JetTagger.forward(p, q, {"x": x}, hgq.TRAIN)
+    loss = softmax_xent(logits, y) + 1e-6 * aux.ebops
+    torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (4, 1, 12)
+
+    mcfg = get("qwen2-0.5b", smoke=True)
+    mp, mq = TransformerLM.init(torch.Generator(device=cuda_device)
+                                .manual_seed(1), mcfg, device=cuda_device)
+    for kv_bits in (8, 4):
+        caches = TransformerLM.init_cache(mcfg, 2, 32, kv_bits=kv_bits,
+                                          device=cuda_device)
+        toks = torch.randint(0, mcfg.vocab, (2, 1), device=cuda_device)
+        before = (kv_quantize_store.launches, kv_quantize_rows.launches)
+        TransformerLM.decode_step(mp, mq, caches, toks, np.array([3, 7]),
+                                  mcfg, kv_bits=kv_bits)
+        torch.cuda.synchronize()
+        assert (kv_quantize_store.launches - before[0],
+                kv_quantize_rows.launches - before[1]) == \
+            (mcfg.n_layers, 0)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Geometry sweeps behind the build-time constants of two of the PyTorch
-port's kernels, on one CUDA card.  Run from the repository root:
+"""Geometry sweeps behind the build-time constants of three of the
+PyTorch port's kernels, on one CUDA card.  Run from the repository root:
 
-    python3 torch_kernel_sweep.py [--part all|pack|bwd]
+    python3 torch_kernel_sweep.py [--part all|pack|bwd|fwd]
                                   [--out build/kernel_sweep.json]
+                                  [--src DIR] [--default-only]
 
 Each variant is the kernel's own source built with other ``-D`` values
 (``kernels._build.variant``) and called through the port's wrapper, so no
@@ -19,6 +20,18 @@ geometry is copied here:
    shapes, at per-tensor and per-channel shapes either side of that line
    and at two qwen2-layer shapes, float32 and bfloat16; each variant's
    plan from ``ops.bwd_plan`` and its ``df`` held to ``1e-5 * sum|terms|``.
+3. The ``hgq_quantize`` forward (``csrc/hgq_quantize.cu``):
+   ``HGQ_FWD_THREADS`` a block by ``HGQ_FWD_UNROLL`` (16-byte units a
+   thread loads before it computes) by ``HGQ_FWD_BLOCKS_PER_SM`` (a
+   member's blocks at most 132 times this), at four qwen2-0.5b layer
+   shapes (per tensor float32 and bfloat16, per channel, per parameter),
+   two training shapes, and the jet tagger's grouped weights (beside
+   their eight single launches); each variant checked bit for bit.
+   ``--src DIR`` times the forward of the package under ``DIR`` (another
+   tree's ``src``, e.g. the parent commit unpacked with ``git archive``)
+   with its default build: no variants, and a tree without the grouped
+   forward times the group as single launches.  ``--default-only``
+   builds no variants.
 
 Times are CUDA-event times per call from ``chip_smoke.time_ms``.  Prints
 the card, then one JSON line per reading, and writes them all to
@@ -28,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -36,7 +50,6 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 from chip_smoke import bound, n_copies, time_ms  # noqa: E402
 
@@ -56,9 +69,24 @@ BWD_SHAPES = ([("per_channel", (1024, 16)), ("per_tensor", (1024, 64)),
               + [("per_tensor", (r, 1024)) for r in (32, 64, 128, 256)]
               + [("per_channel", (r, 16)) for r in (1024, 2048, 4096, 8192)]
               + [("per_channel", (896, 4864)), ("per_tensor", (8192, 896))])
+FWD_VARIANTS = ([()] + [(f"-DHGQ_FWD_THREADS={t}", f"-DHGQ_FWD_UNROLL={u}")
+                        for t in (128, 256, 512) for u in (1, 2, 4)
+                        if (t, u) != (256, 2)]
+                + [(f"-DHGQ_FWD_BLOCKS_PER_SM={b}",) for b in (2, 4, 16)])
+# qwen2-0.5b layer shapes (a prefill's activations per tensor, the MLP
+# weight per channel and per parameter) and two training shapes
+FWD_SHAPES = [("per_tensor", (8192, 896), "float32"),
+              ("per_tensor", (8192, 896), "bfloat16"),
+              ("per_channel", (896, 4864), "float32"),
+              ("per_parameter", (896, 4864), "float32"),
+              ("per_tensor", (1024, 64), "float32"),
+              ("per_channel", (1024, 16), "float32")]
+# the jet tagger's weights and biases: one grouped launch a training step
+JET_GROUP = [(16, 64), (64,), (64, 32), (32,), (32, 32), (32,), (32, 5),
+             (5,)]
 
 
-def _build_variants(parts):
+def _build_variants(parts, fwd_variants):
     """Every variant's library, one nvcc each, all started together."""
     from repro_torch.kernels import _build
     jobs = []
@@ -66,6 +94,8 @@ def _build_variants(parts):
         jobs += [("wire_pack", d) for d in PACK_VARIANTS]
     if "bwd" in parts:
         jobs += [("hgq_quantize", d) for d in BWD_VARIANTS]
+    if "fwd" in parts:
+        jobs += [("hgq_quantize", d) for d in fwd_variants]
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda j: _build.build_all([j[0]], j[1]), jobs))
 
@@ -137,11 +167,91 @@ def _bwd_sweep(dev, g):
     return rows
 
 
+def _fwd_sweep(dev, g, variants, label):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.hgq_quantize import ops as hops
+    from repro_torch.kernels.hgq_quantize.ref import hgq_quantize_ref
+    grouped = hasattr(hops, "hgq_quantize_fwd_group")
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = []
+
+    def fshape(lay, shape):
+        return {"per_tensor": (), "per_channel": shape[-1:],
+                "per_parameter": shape}[lay]
+
+    def same(a, b):
+        v = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16
+                             else torch.int32)
+        return all(torch.equal(v(x), v(y)) for x, y in zip(a, b))
+
+    def member(shape, fsh, dtype):
+        return ((torch.randn(shape, generator=g, device=dev) * 4).to(dtype),
+                torch.rand(fsh, generator=g, device=dev) * 8 - 1)
+
+    for lay, shape, dt in FWD_SHAPES:
+        dtype = dtypes[dt]
+        n = shape[0] * shape[1]
+        fsh = fshape(lay, shape)
+        # x read, out written, f read
+        nbytes = 2 * n * (torch.finfo(dtype).bits // 8) + 4 * (
+            n if lay == "per_parameter" else shape[1] if fsh else 1)
+        sets = [member(shape, fsh, dtype) for _ in range(n_copies(nbytes))]
+        want = hgq_quantize_ref(*sets[0])
+        for defines in variants:
+            with _build.variant("hgq_quantize", defines):
+                exact = same([hops.hgq_quantize_fwd(*sets[0])], [want])
+                ms = time_ms(hops.hgq_quantize_fwd, sets)
+            rows.append({"kernel": "hgq_quantize_fwd", "src": label,
+                         "layout": lay, "shape": list(shape), "dtype": dt,
+                         "defines": list(defines) or "default",
+                         "exact": exact, "ms": ms,
+                         "bound_ms": bound(nbytes, 0)[0]})
+            print(json.dumps(rows[-1]), flush=True)
+        del sets
+    nbytes = sum(2 * 4 * math.prod(s) + 4 * math.prod(s) for s in JET_GROUP)
+    sets = []
+    for _ in range(n_copies(nbytes)):
+        ms_ = [member(s, s, torch.float32) for s in JET_GROUP]
+        sets.append(([x for x, _ in ms_], [f for _, f in ms_]))
+    want = [hgq_quantize_ref(x, f) for x, f in zip(*sets[0])]
+
+    def singles(xs, fs):
+        return [hops.hgq_quantize_fwd(x, f) for x, f in zip(xs, fs)]
+
+    for defines in variants:
+        with _build.variant("hgq_quantize", defines):
+            kinds = [("single launches", singles)]
+            if grouped:
+                kinds.append(("one grouped launch",
+                              hops.hgq_quantize_fwd_group))
+            for kind, fn in kinds:
+                exact = same(fn(*sets[0]), want)
+                ms = time_ms(fn, sets)
+                rows.append({"kernel": "hgq_quantize_fwd", "src": label,
+                             "layout": "per_parameter",
+                             "shape": "jet tagger weights and biases, "
+                                      + kind, "dtype": "float32",
+                             "defines": list(defines) or "default",
+                             "exact": exact, "ms": ms,
+                             "bound_ms": bound(nbytes, 0)[0]})
+                print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/kernel_sweep.json")
-    ap.add_argument("--part", choices=("all", "pack", "bwd"), default="all")
+    ap.add_argument("--part", choices=("all", "pack", "bwd", "fwd"),
+                    default="all")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the tree whose repro_torch is timed (fwd only "
+                         "unless it is this repository's)")
+    ap.add_argument("--default-only", action="store_true",
+                    help="build and time no geometry variants")
     args = ap.parse_args()
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    other = src != (ROOT / "src").resolve()
     if not torch.cuda.is_available():
         print("torch_kernel_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -151,20 +261,32 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip()
     print(smi, flush=True)
-    parts = ("pack", "bwd") if args.part == "all" else (args.part,)
-    _build_variants(parts)
+    parts = ("pack", "bwd", "fwd") if args.part == "all" else (args.part,)
+    if other and parts != ("fwd",):
+        print("torch_kernel_sweep: --src times the forward only (--part "
+              "fwd)", file=sys.stderr)
+        return 2
+    fwd_variants = [()] if other or args.default_only else FWD_VARIANTS
+    if args.default_only:
+        global PACK_VARIANTS, BWD_VARIANTS
+        PACK_VARIANTS, BWD_VARIANTS = [()], [()]
+    _build_variants(parts, fwd_variants)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    readings = {"card": smi}
+    readings = {"card": smi, "src": str(src)}
     if "pack" in parts:
         readings["wire_pack_rows"] = _pack_sweep(dev, g)
     if "bwd" in parts:
         readings["hgq_quantize_bwd"] = _bwd_sweep(dev, g)
+    if "fwd" in parts:
+        readings["hgq_quantize_fwd"] = _fwd_sweep(
+            dev, g, fwd_variants, "other tree" if other else "this tree")
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(readings, indent=1))
-    bad = [r for k in ("wire_pack_rows", "hgq_quantize_bwd")
+    bad = [r for k in ("wire_pack_rows", "hgq_quantize_bwd",
+                       "hgq_quantize_fwd")
            for r in readings.get(k, ()) if not r.get("exact", r.get("df_ok"))]
     for r in bad:
         print("wrong result:", json.dumps(r), file=sys.stderr)
