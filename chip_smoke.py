@@ -29,7 +29,12 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    dtypes, unaligned views), and the fused KV store ``kv_quantize_store``
    against its plain version on int8 and nibble rings, S = 1 and 16, a
    windowed ring, a chunk longer than the ring, bfloat16 rows and views
-   1-15 bytes into their buffers;
+   1-15 bytes into their buffers; holds the fused reduce's bucket kernels
+   ``wire_quantize_bucket`` and ``wire_dequant_bucket`` against their
+   plain versions at every rank index on int8 and nibble buckets, odd C,
+   ragged T, stacked and bfloat16 leaves, leaves and residuals off a
+   16-byte boundary, -0.0 and subnormal residuals, and a bucket of 65
+   members (two launches of each);
 4. slice phase: serves qwen2-0.5b at full width (random weights from a
    seed) through the port's ``Engine`` in two configurations, holds the
    tokens against ``generate()`` and the logits against the CPU's plain
@@ -65,14 +70,19 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    layer-0 bits against the same code's uncompressed run from one init;
    runs 20 compressed steps on the card and on the CPU from one init (a
    limit that two faulty wires must exceed) and twice on the card
-   (bit-identical), and traces one step as the train phase does; (b)
+   (bit-identical), and traces one step as the train phase does, which
+   must hold no ``aten::constant_pad_nd`` (the bucket kernels build the
+   chunk layout; one launch of each a bucket a rank, none of the
+   per-position kernels); (b)
    reduces qwen2-0.5b's full-width gradient tree
    (4 shards of seeded values) over the wire, uniform int8 and
    ``plan_mixed_w4w8``, and holds the fused path, the per-leaf path and
    ``simulate_wire_pmean`` equal bit for bit, the card equal to the CPU
-   on two leaves, the recorded bytes equal to the byte model; then holds
-   every ``wire_pack`` kernel shape those paths launched against its
-   plain version and times it;
+   on two leaves, the recorded bytes equal to the byte model, reads the
+   fused reduce's own peak memory (its timed calls alone) beside the
+   phase's, and traces one mixed reduce (no ``aten::constant_pad_nd``;
+   its events counted by name); then holds every ``wire_pack`` kernel
+   shape those paths launched against its plain version and times it;
 7. prints one JSON line with every kernel's numbers, its times per unit
    of its main path (a full decode tick, a training step, a compressed
    data-parallel step, a qwen2 gradient reduce) weighted by those
@@ -81,12 +91,16 @@ only the port under ``src/repro_torch``, never JAX.  In order it
 
 Kernel groups: ``SERVING`` (``qmatmul``, ``kv_quantize_store``,
 ``kv_attention_rows``), ``TRAINING`` (``hgq_quantize`` forward, single
-and grouped, and backward), ``WIRE`` (``wire_quantize_rows``,
-``wire_quantize_sflat``, ``wire_pack_rows``, ``wire_dequant_rows``);
-``kv_dequant_rows`` and ``kv_quantize_rows`` are on no main path (the
-entry points of the ops ``kv_dequant`` and ``kv_quantize``; the serving
-store runs the latter's body as ``kv_quantize_store``) and are held and
-timed in the kernel phase only.
+and grouped, and backward), ``WIRE`` (``wire_quantize_rows`` on the
+per-leaf path, ``wire_quantize_bucket``, ``wire_pack_rows`` and
+``wire_dequant_bucket`` on the fused path, ``wire_quantize_sflat`` and
+``wire_dequant_rows``); ``kv_dequant_rows``, ``kv_quantize_rows``,
+``wire_quantize_sflat`` and ``wire_dequant_rows`` are on no main path
+(the entry points of the ops ``kv_dequant``, ``kv_quantize``,
+``quantize_chunks`` and ``dequant_sum``; the serving store runs
+``kv_quantize_rows``' body as ``kv_quantize_store``, the fused reduce the
+per-position kernels' as the bucket kernels) and are held and timed in
+the kernel phase only.
 
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
@@ -103,6 +117,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -146,13 +161,19 @@ KERNELS = {
     "wire_quantize_sflat": (_CSRC + "wire_pack.cu", "wire_quantize_sflat"),
     "wire_pack_rows": (_CSRC + "wire_pack.cu", "wire_pack_rows"),
     "wire_dequant_rows": (_CSRC + "wire_pack.cu", "wire_dequant_rows"),
+    "wire_quantize_bucket": (_CSRC + "wire_pack.cu", "wire_quantize_sflat"),
+    "wire_dequant_bucket": (_CSRC + "wire_pack.cu", "wire_dequant_rows"),
 }
 SERVING = ("qmatmul", "kv_quantize_store", "kv_attention_rows")
 TRAINING = ("hgq_quantize_fwd", "hgq_quantize_fwd_group", "hgq_quantize_bwd")
-# the compressed gradient reduce: the fused path launches the last three,
-# the per-leaf path and the simulator the first
+# the compressed gradient reduce: the fused path launches FUSED_WIRE, the
+# per-leaf path and the simulator wire_quantize_rows; the per-position
+# kernels (RETIRED_WIRE, for the 2D exchange) are on no main path and are
+# held and timed in the kernel phase only
 WIRE = ("wire_quantize_rows", "wire_quantize_sflat", "wire_pack_rows",
-        "wire_dequant_rows")
+        "wire_dequant_rows", "wire_quantize_bucket", "wire_dequant_bucket")
+FUSED_WIRE = ("wire_quantize_bucket", "wire_pack_rows", "wire_dequant_bucket")
+RETIRED_WIRE = ("wire_quantize_sflat", "wire_dequant_rows")
 
 
 class SmokeFailure(RuntimeError):
@@ -190,9 +211,11 @@ TIME_BATCH = 64
 
 def time_ms(fn, arg_sets, min_calls: int = 64) -> float:
     """Device milliseconds per call of ``fn`` over ``arg_sets``, from CUDA
-    events.  A sleep kernel queued first holds the device until every call
-    of a batch of ``TIME_BATCH`` is enqueued, so the events time the calls
-    back to back and not the host's launch rate."""
+    events: the median over batches of ``TIME_BATCH`` calls.  A sleep
+    kernel queued first holds the device until every call of a batch is
+    enqueued, so the events time the calls back to back and not the
+    host's launch rate; the median leaves out a batch whose host, slower
+    than the sleep allowed for, left the device waiting."""
     calls = max(min_calls, len(arg_sets))
     for args in arg_sets[:3]:
         fn(*args)                                   # warm up
@@ -204,16 +227,17 @@ def time_ms(fn, arg_sets, min_calls: int = 64) -> float:
     host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    total = 0.0
+    per_call = []
     for b0 in range(0, calls, TIME_BATCH):
         torch.cuda._sleep(int(min(host_s * 1.5 + 1e-3, 2.0) * 2e9))
         start.record()
-        for i in range(b0, min(calls, b0 + TIME_BATCH)):
+        b1 = min(calls, b0 + TIME_BATCH)
+        for i in range(b0, b1):
             fn(*arg_sets[i % len(arg_sets)])
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / calls
+        per_call.append(start.elapsed_time(end) / (b1 - b0))
+    return float(np.median(per_call))
 
 
 # ---------------------------------------------------------------------------
@@ -833,7 +857,44 @@ def _hgq_group_checks(dev):
 
 
 def _wbits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _bucket_members(members, bits, dev, g, offset=0):
+    """(leaves, steps) of a bucket's members ((shape, L, dtype), ...): seeded
+    normal values, a scale a member and per grid row (1e-3 .. 10), each leaf
+    a view ``offset`` elements into a buffer of its own; the steps are
+    ``grid_scale`` of each row's amax at ``bits``, as the reduce makes them."""
+    from repro_torch.kernels import wire_pack as wp
+    leaves, steps = [], []
+    for k, (shape, L, dt) in enumerate(members):
+        T = math.prod(shape)
+        buf = torch.randn((T + offset,), generator=g, device=dev)
+        rows = buf[offset:].view(L, -1)
+        rows *= 10.0 ** (-3 + k % 4)
+        rows *= torch.logspace(-1, 1, L, device=dev)[:, None]
+        buf = buf.to(_DTYPES[dt])
+        leaves.append(buf[offset:].view(shape))
+        amax = buf[offset:].view(L, -1).float().abs().amax(dim=1) \
+            if T else torch.zeros((L,), device=dev)
+        steps.append(wp.grid_scale(amax, bits))
+    return leaves, steps
+
+
+def _bucket_cols(members, n, nibble):
+    """Per member T, and the bucket's width W (``wire_pack.bucket_layout``
+    from the shapes alone)."""
+    Ts = [math.prod(shape) for shape, _, _ in members]
+    Cs = [-(-T // n) for T in Ts]
+    return Ts, sum(C + (C & 1) if nibble else C for C in Cs)
+
+
+def _bucket_text(n, what, nibble, members):
+    return (f"n{n} {what}{' nibble' if nibble else ''} {len(members)} "
+            f"members: " + ", ".join(f"{tuple(s)}/{L}/{dt}"
+                                     for s, L, dt in members))
 
 
 def _wire_spec(name, key, dev, g):
@@ -878,6 +939,48 @@ def _wire_spec(name, key, dev, g):
         # integer operations only: bound by bytes
         return (make, wp.wire_pack_rows, wp.pack_chunks_ref,
                 R * C + R * ((C + 1) // 2), 0.0, f"R{R} C{C}")
+    if name == "wire_quantize_bucket":
+        n, bits, nibble, members = key
+        Ts, W = _bucket_cols(members, n, nibble)
+
+        def make():
+            leaves, steps = _bucket_members(members, bits, dev, g)
+            return leaves, steps, n, bits, nibble
+
+        # the leaf read, the payload and the float32 residual written
+        nbytes = sum(T * (torch.finfo(_DTYPES[dt]).bits // 8 + 4) + 4 * L
+                     for T, (_, L, dt) in zip(Ts, members)) + n * W
+        return (make, wp.wire_quantize_bucket, wp.quantize_bucket_ref,
+                nbytes, 6.0 * sum(Ts),
+                _bucket_text(n, f"bits{bits}", nibble, members))
+    if name == "wire_dequant_bucket":
+        n, shift, nibble, members = key
+        Ts, W = _bucket_cols(members, n, nibble)
+
+        def make():
+            leaves, steps = _bucket_members(members, 4 if nibble else 8, dev,
+                                            g)
+            qmax = 7 if nibble else 127
+            q = torch.randint(-qmax, qmax + 1, (n, W), generator=g,
+                              device=dev, dtype=torch.int8)
+            if nibble:
+                q = wp.pack_chunks_ref(q)
+            err = torch.randint(-2 ** shift, 2 ** shift + 1, (W,),
+                                generator=g, device=dev).float()
+            res = [torch.randn(e.shape, generator=g, device=dev) * s.min()
+                   for e, s in zip(leaves, steps)]
+            for r in res:
+                r.view(-1)[::7] = -0.0           # +0.0 off the own chunk
+            return q, err, res, leaves, steps, n, 0, shift, nibble
+
+        # the payload and err read, the residual read and written, the
+        # delivered written
+        nbytes = (n * W // (2 if nibble else 1) + 4 * W
+                  + sum(T * (4 + 2 * torch.finfo(_DTYPES[dt]).bits // 8)
+                        + 4 * L for T, (_, L, dt) in zip(Ts, members)))
+        return (make, wp.wire_dequant_bucket, wp.dequant_bucket_ref, nbytes,
+                5.0 * sum(Ts),
+                _bucket_text(n, f"shift{shift}", nibble, members))
     R, C, shift, n = key
 
     def make():
@@ -891,18 +994,48 @@ def _wire_spec(name, key, dev, g):
             3.0 * R * C, f"R{R} C{C} shift{shift} n{n}")
 
 
+def _tensors(x):
+    """Every tensor of a result, in order (tuples and lists flattened)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _tensors(v)] \
+        if isinstance(x, (list, tuple)) else []
+
+
+def _fresh(args):
+    """The arguments with every tensor cloned: ``wire_dequant_bucket``
+    updates a float32 residual in place."""
+    if isinstance(args, torch.Tensor):
+        return args.clone()
+    if isinstance(args, (list, tuple)):
+        return type(args)(_fresh(a) for a in args)
+    return args
+
+
+def _same_bits(a, b):
+    a, b = _tensors(a), _tensors(b)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(_wbits(x), _wbits(y)) for x, y in zip(a, b))
+
+
 def wire_case(name, key, dev, g):
     """One wire kernel at one shape against its plain version, bit for bit
-    (every output, signed zeros included), twice identical, and timed."""
+    (every output, signed zeros included; the bucket decode at every rank
+    index), twice identical, and timed."""
     make, kern, plain, nbytes, flops, shape = _wire_spec(name, key, dev, g)
     sets = [make() for _ in range(n_copies(nbytes))]
-    tup = lambda x: x if isinstance(x, tuple) else (x,)
-    out, ref = tup(kern(*sets[0])), tup(plain(*sets[0]))
-    check(all(torch.equal(_wbits(a), _wbits(b)) for a, b in zip(out, ref)),
-          f"{name} {shape}: not bit-exact against the plain version")
-    again = tup(kern(*sets[0]))
-    check(all(torch.equal(_wbits(a), _wbits(b)) for a, b in zip(out, again)),
-          f"{name} {shape}: not repeatable")
+    checks = [sets[0]]
+    if name == "wire_dequant_bucket":
+        checks = [sets[0][:6] + (i,) + sets[0][7:] for i in range(key[0])]
+    for args in checks:
+        ref = plain(*args)
+        out = kern(*_fresh(args))
+        check(_same_bits(out, ref),
+              f"{name} {shape}: not bit-exact against the plain version")
+        check(_same_bits(out, kern(*_fresh(args))),
+              f"{name} {shape}: not repeatable")
+    del checks, ref, out
     b_ms, b_by = bound(nbytes, flops)
     case = {"shape": shape, "max_abs_err": 0.0,
             "ms": time_ms(kern, sets), "plain_ms": time_ms(plain, sets, 16),
@@ -912,6 +1045,17 @@ def wire_case(name, key, dev, g):
     return case
 
 
+# buckets of the fused reduce beside its main paths': a stacked leaf (L =
+# 3) with odd C, ragged T (not a multiple of n) and a scalar; bfloat16 and
+# float32 leaves in a nibble bucket at n = 3 (a true division); one member
+# of 2^22 + 3 values
+BUCKET_EDGE = [
+    (4, 8, False, (((3, 40, 7), 3, "float32"), ((1001,), 1, "float32"),
+                   ((), 1, "float32"))),
+    (3, 4, True, (((1001,), 1, "bfloat16"), ((33,), 1, "float32"),
+                  ((3, 8, 5), 3, "bfloat16"), ((24, 1000), 1, "float32"))),
+    (4, 8, False, (((2 ** 22 + 3,), 1, "float32"),)),
+]
 # edge shapes of the wire kernels, beside the shapes the wire phase takes
 # from its main paths: stacked rows at every width, odd tails, a qwen2 MLP
 # leaf (24 layers) and the embedding, n = 3 (a true division) and 4; packs
@@ -926,7 +1070,70 @@ WIRE_EDGE = {
                        (1, 64), (2, 66), (3, 2 ** 20 + 2)],
     "wire_dequant_rows": [(3, 1001, 2, 3), (4, 1001, 2, 4),
                           (4, 2 ** 20, 2, 4)],
+    "wire_quantize_bucket": [(n, 4 if nib else 8, nib, m)
+                             for n, _, nib, m in BUCKET_EDGE],
+    "wire_dequant_bucket": [(n, (n - 1).bit_length(), nib, m)
+                            for n, _, nib, m in BUCKET_EDGE],
 }
+
+
+def _bucket_edge_checks(dev):
+    """The bucket kernels against their plain versions, bit for bit, where
+    the timed keys cannot reach: leaves 1-7 elements past a 16-byte
+    boundary (bfloat16 2-14 bytes, float32 4-28), residuals handed to the
+    decode off the leaves' group grid (element by element), -0.0 and
+    subnormal residuals on and off the own chunk (-0.0 + 0.0 is +0.0), every
+    rank index, n = 3 and 4, int8 and nibble; and a bucket of 65 members,
+    two launches of each kernel, equal to the plain bucket."""
+    from repro_torch.kernels import wire_pack as wp
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 8)
+    mixed = (((3, 8, 5), 3, "float32"), ((17,), 1, "bfloat16"),
+             ((), 1, "float32"), ((2, 3, 7), 1, "float32"),
+             ((5,), 1, "bfloat16"), ((4099,), 1, "float32"))
+    many = tuple(((k % 37 + 1,), 1, "bfloat16" if k % 3 == 0 else "float32")
+                 for k in range(65))
+    cases = [(mixed, n, nib, off) for n in (3, 4) for nib in (False, True)
+             for off in range(8)] + [(many, 4, False, 0), (many, 3, True, 5)]
+    for members, n, nib, off in cases:
+        bits = 4 if nib else 8
+        what = (f"{_bucket_text(n, f'bits{bits}', nib, members)[:60]} at "
+                f"offset {off}")
+        leaves, steps = _bucket_members(members, bits, dev, g, off)
+        launches = [wp.wire_quantize_bucket.launches,
+                    wp.wire_dequant_bucket.launches]
+        q, res = wp.wire_quantize_bucket(leaves, steps, n, bits, nib)
+        check(_same_bits((q, res), wp.quantize_bucket_ref(leaves, steps, n,
+                                                          bits, nib)),
+              f"wire_quantize_bucket {what}: not the plain version's bits")
+        _, W = _bucket_cols(members, n, nib)
+        gath = torch.randint(-7, 8, (n, W), generator=g, device=dev,
+                             dtype=torch.int8)
+        if nib:
+            gath = wp.pack_chunks_ref(gath)
+        err = torch.randint(-8, 9, (W,), generator=g, device=dev).float()
+        for r in res:
+            r.view(-1)[::3] = -0.0
+            r.view(-1)[1::5] = 1e-40
+        # copies of the residuals 0, 1 and 3 elements past a 16-byte
+        # boundary (the decode's outputs follow them; the float32 residual
+        # is updated in place, so each call takes new copies)
+        for k in (0, 1, 3):
+            for idx in range(n):
+                rs = []
+                for r in res:
+                    buf = torch.empty((r.numel() + k,), device=dev)
+                    rs.append(buf[k:].view(r.shape).copy_(r))
+                args = (gath, err, rs, leaves, steps, n, idx,
+                        (n - 1).bit_length(), nib)
+                want = wp.dequant_bucket_ref(*args)
+                check(_same_bits(wp.wire_dequant_bucket(*args), want),
+                      f"wire_dequant_bucket {what}, rank {idx}, residual "
+                      f"{k} past a boundary: not the plain version's bits")
+        moved = [wp.wire_quantize_bucket.launches - launches[0],
+                 wp.wire_dequant_bucket.launches - launches[1]]
+        want = [-(-len(members) // 64), -(-len(members) // 64) * 3 * n]
+        check(moved == want, f"bucket launches {moved}, not {want}: {what}")
 
 
 def _hgq_alignment_check(dev):
@@ -1062,6 +1269,7 @@ def kernel_phase(dev):
     _hgq_group_checks(dev)
     _hgq_alignment_check(dev)
     _pack_offset_check(dev)
+    _bucket_edge_checks(dev)
     _subnormal_check(dev)
     _division_check(dev)
     for name, keys in WIRE_EDGE.items():
@@ -1145,6 +1353,16 @@ def kernels_line(cases, tallies):
         if name in WIRE:
             entry["note"] = ("library_ms null: no single PyTorch call "
                              "computes this function")
+        if name in RETIRED_WIRE:
+            entry["note"] += ("; no main path launches it (the fused reduce "
+                              "runs its bucket form; the 2D exchange, not "
+                              "ported, calls it), so its per-unit fields are "
+                              "null; per-call numbers under shapes")
+        if name in ("wire_quantize_bucket", "wire_dequant_bucket"):
+            entry["note"] += ("; one launch a bucket a rank, the members read "
+                              "and written where they lie (a member table in "
+                              "the kernel's parameter space, the chunk "
+                              "layout as index arithmetic)")
         if name == "wire_pack_rows":
             entry["note"] += ("; even C packs the flat bytes in 16-byte "
                               "vectors (two 16-byte loads, prmt, one 16-byte "
@@ -1227,17 +1445,32 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 MARKER = "spin_kernel"                   # torch.cuda._sleep's kernel
 
 
-def _trace_once(fn, args, settle=PROFILE_SETTLE_S, n_markers=PROFILE_MARKERS):
+def _all_threads_config():
+    """The profiler option that records host operations on every thread (a
+    LocalMesh's ranks are threads; by default only the profiling thread's
+    are recorded), or None where this PyTorch lacks it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
+def _trace_once(fn, args, settle=PROFILE_SETTLE_S, n_markers=PROFILE_MARKERS,
+                all_threads=False):
     """``fn(*args)`` under ``torch.profiler``, after ``settle`` seconds and
     ``n_markers`` marker kernels: (the profiler, the chrome trace's device
     kernels but the markers', where the launches of ``fn`` whose device
     kernel the trace lacks were made, the launches of ``fn``, the markers'
-    device kernels the trace kept)."""
+    device kernels the trace kept).  ``all_threads``: host operations of
+    every thread recorded, where the profiler can."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
+    config = _all_threads_config() if all_threads else None
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **({} if config is None else
+                    {"experimental_config": config})) as prof:
         time.sleep(settle)
         for _ in range(n_markers):
             torch.cuda._sleep(100)
@@ -1281,18 +1514,20 @@ def _launch_site(events, calls, i):
     return f"{c['name']} in {op} (launch {i + 1} of {len(calls)})"
 
 
-def _profiled(fn, grids_of=None, prepare=None):
+def _profiled(fn, grids_of=None, prepare=None, all_threads=False):
     """``fn()`` (or ``fn(prepare())``, ``prepare`` run before the profiler
     starts) under ``torch.profiler``: (device operations, ms the device
     was busy, the launch grids of the device kernels whose name holds
     ``grids_of``, as CUPTI recorded them, and the names of every event,
-    device kernels and host operators, counted), the markers left out.
-    Only a whole trace is read: one with a device kernel for every kernel
-    launch of ``fn``."""
+    device kernels and host operators -- of every thread with
+    ``all_threads``, where the profiler can -- counted), the markers left
+    out.  Only a whole trace is read: one with a device kernel for every
+    kernel launch of ``fn``."""
     from torch.autograd import DeviceType
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         args = () if prepare is None else (prepare(),)
-        prof, kernels, lost, launched, marked = _trace_once(fn, args)
+        prof, kernels, lost, launched, marked = _trace_once(
+            fn, args, all_threads=all_threads)
         if marked < PROFILE_MARKERS:
             print(f"[profile] the trace kept {marked} of the "
                   f"{PROFILE_MARKERS} marker kernels", flush=True)
@@ -2007,15 +2242,20 @@ def _calib_report(dev, params, qstate, pipe):
 @contextlib.contextmanager
 def _no_phase2_feedback():
     """Control: the chunk owner drops the phase-2 shift remainder instead
-    of keeping it in its residual."""
+    of keeping it in its residual (the requantize hands on a zero
+    remainder)."""
     import repro_torch.dist.collectives as coll
-    real = coll._own_chunk
-    coll._own_chunk = lambda vals, idx, n, C, T: torch.zeros(
-        (T,), dtype=torch.float32, device=vals.device)
+    real = coll._phase2_requantize
+
+    def dropped(chunk_sum, n, kind):
+        q2, err = real(chunk_sum, n, kind)
+        return q2, torch.zeros_like(err)
+
+    coll._phase2_requantize = dropped
     try:
         yield
     finally:
-        coll._own_chunk = real
+        coll._phase2_requantize = real
 
 
 @contextlib.contextmanager
@@ -2029,6 +2269,45 @@ def _finer_wire_grid():
         yield
     finally:
         wp.grid_scale = real
+
+
+# the fused reduce's chunk layout built in PyTorch (F.pad) -- the bucket
+# kernels make it index arithmetic, and no other op of the compressed step
+# or the reduce pads
+PAD_OP = "aten::constant_pad_nd"
+
+
+@contextlib.contextmanager
+def _counting_pads(calls):
+    """Count in ``calls[0]`` every ``torch.nn.functional.pad`` call, on any
+    thread: the LocalMesh ranks are threads, whose host operations the
+    profiler records only with its all-threads option."""
+    real = torch.nn.functional.pad
+    lock = threading.Lock()
+
+    def counted(*a, **k):
+        with lock:
+            calls[0] += 1
+        return real(*a, **k)
+
+    torch.nn.functional.pad = counted
+    try:
+        yield
+    finally:
+        torch.nn.functional.pad = real
+
+
+def _profiled_without_pads(fn, what, **kw):
+    """``_profiled(fn, all_threads=True, **kw)``, checked to have run no
+    ``F.pad`` call and no ``aten::constant_pad_nd`` event; also returns
+    whether the trace holds the ranks' host operations."""
+    pads = [0]
+    with _counting_pads(pads):
+        ops, busy, grids, names = _profiled(fn, all_threads=True, **kw)
+    check(pads[0] == 0 and names.get(PAD_OP, 0) == 0,
+          f"{what} ran {pads[0]} F.pad calls, {names.get(PAD_OP, 0)} "
+          f"{PAD_OP} events")
+    return ops, busy, grids, names, _all_threads_config() is not None
 
 
 def _dp_jet(dev):
@@ -2075,10 +2354,16 @@ def _dp_jet(dev):
         check(n == HGQ_PER_STEP[name] * WIRE_N,
               f"{name}: {n} launches a step, not "
               f"{HGQ_PER_STEP[name] * WIRE_N}")
-    for name in WIRE[1:]:
+    for name in FUSED_WIRE:
         check(counts[name] > 0, f"{name} was never launched: {counts}")
-    check(counts["wire_quantize_rows"] == 0,
-          f"the fused path launched wire_quantize_rows: {counts}")
+    for name in ("wire_quantize_rows",) + RETIRED_WIRE:
+        check(counts[name] == 0, f"the fused path launched {name}: {counts}")
+    # one bucket a width (4 and 8 bits) on each of the ranks, one launch of
+    # each bucket kernel a bucket a rank
+    for name in ("wire_quantize_bucket", "wire_dequant_bucket"):
+        n = sum(per_step[name].values())
+        check(n == 2 * WIRE_N, f"{name}: {n} launches a step, not "
+                               f"{2 * WIRE_N}")
     step_ms = np.diff(starts + [t1]) * 1e3
     rep_c = _calib_report(dev, p_c, q_c, pipe)
     hist_u, p_u, q_u = _dp_run(dev, params, qstate, pipe, compressed=False,
@@ -2166,16 +2451,21 @@ def _dp_jet(dev):
     # profiled only now, after every timed run
     b = pipe(steps)
     step_fn = _profile_step_fn(dev, p_c, q_c, plan)
-    ops, busy, grids, _ = _profiled(lambda: step_fn(b), grids_of="hgq_bwd")
+    ops, busy, grids, names, threads = _profiled_without_pads(
+        lambda: step_fn(b), "the profiled compressed step",
+        grids_of="hgq_bwd")
     med = report["step_ms_median"]
     report["profiled_step"] = {"device_ops": ops, "device_busy_ms": busy,
                                "idle_share_of_median_step": 1.0 - busy / med,
                                **_one_kernel_a_bwd(grids, per_step,
-                                                   "profiled compressed step")}
+                                                   "profiled compressed step"),
+                               "host_ops_of_every_thread": threads,
+                               "events_by_name": dict(names.most_common())}
     print(f"[wire] (a) profiled compressed step: {ops} device operations, "
           f"device busy {busy:.3f} ms, idle {1.0 - busy / med:.1%} of the "
           f"median step ({med:.3f} ms); {len(grids)} hgq_bwd kernels, one a "
-          f"reducing backward", flush=True)
+          f"reducing backward; events by name: "
+          f"{json.dumps(dict(names.most_common()))}", flush=True)
     return report, counts, per_step
 
 
@@ -2296,6 +2586,7 @@ def _dp_qwen2(dev):
     configs = (("int8", None), ("mixed_w4w8", plan.wire_bits_tree(tree)))
     report, units = {}, {}
     torch.cuda.reset_peak_memory_stats()
+    phase_peak = 0                            # over the phase, in bytes
     _sync(dev)
     _reset_counts()                           # the main path starts here
     for tag, widths in configs:
@@ -2306,6 +2597,11 @@ def _dp_qwen2(dev):
             n_scale_rows=x.shape[1] if (st and x.ndim >= 4) else 1, bits=w)
             for x, st, w in zip(tree_leaves(tree), flags, wflags))
         times = []
+        # the fused reduce's own peak: the timed calls alone (the tree, and
+        # the previous call's outputs while the next runs)
+        _sync(dev)
+        phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
         for i in range(3):
             before = _shapes(WIRE)
             _sync(dev)
@@ -2319,6 +2615,7 @@ def _dp_qwen2(dev):
                 fused_unit = {k: after[k] - before[k] for k in after}
             check(abs(rec.total() - want) <= 1e-9 * want,
                   f"({tag}) recorded {rec.total()} B, model {want} B")
+        fused_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         before = _shapes(WIRE)
         d_l, r_l = ef_wire_pmean(tree, mesh, "int8", widths=widths,
                                  fused=False)
@@ -2344,12 +2641,14 @@ def _dp_qwen2(dev):
             and torch.equal(_wbits(card[k][1].cpu()), _wbits(r))
             for k, (d, r) in zip(keep, zip(tree_leaves(d_c),
                                            tree_leaves(r_c))))
-        del d_c, r_c, sub, d_f, r_f
+        # card holds the outputs too: none may outlive the next timed calls
+        del d_c, r_c, sub, d_f, r_f, card
         report[tag] = {
             "reduce_ms_median": float(np.median(times)), "reduce_ms": times,
             "bytes_per_element": want / n_elem,
             "fp32_ring_bytes_per_element":
                 coll.fp32_allreduce_bytes(n_elem, WIRE_N) / n_elem,
+            "fused_peak_mem_gib": fused_peak,
             "fused_eq_per_leaf": same_leaf, "fused_eq_simulate": same_sim,
             "card_eq_cpu_on": list(keep) if cpu_same else [],
             "launches_fused": {k: sum(v.values())
@@ -2363,24 +2662,33 @@ def _dp_qwen2(dev):
         check(same_sim, f"({tag}) fused != simulate on the card")
         check(cpu_same, f"({tag}) card != CPU on {keep}")
     counts = _counts(WIRE)                    # ... and ends here
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(all(c > 0 for c in counts.values()),
+    peak = max(phase_peak, torch.cuda.max_memory_allocated()) / 2 ** 30
+    check(all(counts[k] > 0 for k in FUSED_WIRE + ("wire_quantize_rows",)),
           f"(b) a wire kernel was never launched: {counts}")
+    check(all(counts[k] == 0 for k in RETIRED_WIRE),
+          f"(b) a per-position wire kernel was launched: {counts}")
     report["launches"] = counts
     report["peak_mem_gib"] = peak
     report["elements_per_shard"] = n_elem
     # profiled only now, after every timed run
     widths = configs[1][1]
-    ops, busy, _, _ = _profiled(lambda: ef_wire_pmean(tree, mesh, "int8",
-                                                   widths=widths))
+    ops, busy, _, names, threads = _profiled_without_pads(
+        lambda: ef_wire_pmean(tree, mesh, "int8", widths=widths),
+        "the profiled mixed reduce")
     med = report["mixed_w4w8"]["reduce_ms_median"]
     report["profiled_mixed_reduce"] = {
         "device_ops": ops, "device_busy_ms": busy,
-        "idle_share_of_median_reduce": 1.0 - busy / med}
-    print(f"[wire] (b) peak memory {peak:.2f} GiB; profiled mixed reduce: "
-          f"{ops} device operations, device busy {busy:.2f} ms, idle "
-          f"{1.0 - busy / med:.1%} of the median reduce ({med:.2f} ms)",
-          flush=True)
+        "idle_share_of_median_reduce": 1.0 - busy / med,
+        "host_ops_of_every_thread": threads,
+        "events_by_name": dict(names.most_common())}
+    print(f"[wire] (b) peak memory {peak:.2f} GiB over the phase, of the "
+          f"fused reduce's timed calls "
+          f"{report['mixed_w4w8']['fused_peak_mem_gib']:.2f} (mixed_w4w8), "
+          f"{report['int8']['fused_peak_mem_gib']:.2f} (int8); profiled "
+          f"mixed reduce: {ops} device operations, device busy {busy:.2f} "
+          f"ms, idle {1.0 - busy / med:.1%} of the median reduce "
+          f"({med:.2f} ms); events by name: "
+          f"{json.dumps(dict(names.most_common()))}", flush=True)
     del tree
     return report, counts, units["mixed_w4w8"]
 
@@ -2429,7 +2737,7 @@ def wire_phase(dev, cases):
     per_b = ("one qwen2-0.5b gradient reduce over 4 shards (plan_mixed_w4w8)"
              ", {} path, calls by shape as counted on the main path")
     tallies = {k: [(per_step[k], per_a + " (4 slices)")] for k in TRAINING}
-    for k in WIRE[1:]:
+    for k in FUSED_WIRE:
         tallies[k] = [(per_step[k], per_a), (fused_unit[k],
                                              per_b.format("fused"))]
     tallies["wire_quantize_rows"] = [(leaf_unit["wire_quantize_rows"],

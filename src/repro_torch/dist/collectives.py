@@ -28,9 +28,11 @@ fused (default)
     One amax ``pmax`` for the whole tree; leaves grouped into
     width-homogeneous, size-bucketed buffers of column-concatenated chunks
     (nibble leaves pre-padded to even columns), each bucket quantized by
-    ``wire_quantize_sflat``, packed by ``wire_pack_rows`` and decoded by
-    ``wire_dequant_rows`` in one launch; bucket k's exchange is issued
-    before bucket k+1 is built.
+    ``wire_quantize_bucket``, packed by ``wire_pack_rows`` and decoded by
+    ``wire_dequant_bucket``, one launch each a bucket: the bucket kernels
+    read and write the leaves where they lie, the chunk layout is their
+    index arithmetic; bucket k's exchange is issued before bucket k+1 is
+    built.  The ``bf16`` kind builds the layout in PyTorch.
 per-leaf (``fused=False``)
     One set of collectives per leaf, phase 1 through ``wire_quantize_rows``
     and the rest plain PyTorch: the executable reference of the fused
@@ -51,6 +53,7 @@ from ..core.plan import NIBBLE_BITS
 from ..kernels import wire_pack as wp
 from ..kernels.qmatmul.ops import pack_nibbles, unpack_nibbles
 from ..kernels.wire_pack.ref import dequant_sum_ref, true_div
+from ..kernels.wire_pack.ref import own_chunk as _own_chunk
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .scope import Scoped
 from .sharding import stacked_tree
@@ -181,15 +184,6 @@ def _phase2_shift(n: int) -> int:
     """``ceil(log2 n)``: the requantized sum stays inside the phase-1 width
     for any width, so mixed int4/int8 leaves share it."""
     return max((n - 1).bit_length(), 0)
-
-
-def _own_chunk(vals: torch.Tensor, idx: int, n: int, C: int,
-               T: int) -> torch.Tensor:
-    """A flat [T] tensor holding ``vals`` in chunk ``idx`` of ``n`` and
-    zeros elsewhere: the phase-2 error the chunk owner keeps."""
-    out = torch.zeros((n * C,), dtype=torch.float32, device=vals.device)
-    out[idx * C:(idx + 1) * C] = vals
-    return out[:T]
 
 
 # ---------------------------------------------------------------------------
@@ -342,33 +336,25 @@ def _wire_tree_fused(flat: List[torch.Tensor], rank, n: int, kind: str,
             _rec(rank, "pmax.scale", _ring_allreduce_bytes(L * 4, n))
 
     def chunked(i):
-        """One leaf's (values, scales) in padded chunk layout [n, ceven]:
-        chunk row d is the slice rank d will own."""
-        L, Pn, T, C = dims[i]
+        """One leaf's values in padded chunk layout [n, ceven] (the bf16
+        kind): chunk row d is the slice rank d will own."""
+        _, _, T, C = dims[i]
         e = F.pad(rows[i].reshape(-1), (0, n * C - T)).reshape(n, C)
-        if ceven[i] != C:
-            e = F.pad(e, (0, ceven[i] - C))
-        if kind == "bf16":
-            return e, None
-        s = F.pad(steps[i][:, None].expand(L, Pn).reshape(-1),
-                  (0, n * C - T), value=1.0).reshape(n, C)
-        if ceven[i] != C:
-            s = F.pad(s, (0, ceven[i] - C), value=1.0)
-        return e, s
+        return F.pad(e, (0, ceven[i] - C)) if ceven[i] != C else e
 
+    # per bucket: the residuals (bf16: the bucket's [n, W] residual)
     bstate: List[Any] = [None] * len(buckets)
 
     def compress(b):
         idxs = buckets[b]
-        pieces = [chunked(i) for i in idxs]
-        E = torch.cat([p[0] for p in pieces], dim=1)
         if kind == "bf16":
+            E = torch.cat([chunked(i) for i in idxs], dim=1)
             payload = E.to(torch.bfloat16)
-            S, R = None, E - payload.to(torch.float32)
+            bstate[b] = E - payload.to(torch.float32)
         else:
-            S = torch.cat([p[1] for p in pieces], dim=1)
-            payload, R = wp.quantize_chunks(E, S, widths[idxs[0]])
-        bstate[b] = (S, R)
+            payload, bstate[b] = wp.quantize_bucket(
+                [flat[i] for i in idxs], [steps[i] for i in idxs], n,
+                widths[idxs[0]], nibs[idxs[0]])
         for i in idxs:
             _rec(rank, f"all_to_all.{'int4' if nibs[i] else kind}",
                  (n - 1) / n * (n * cols[i]) * item)
@@ -398,17 +384,16 @@ def _wire_tree_fused(flat: List[torch.Tensor], rank, n: int, kind: str,
     idx = rank.index
     out: List[Any] = [None] * N
     for b, idxs in enumerate(buckets):
-        f = gath[b]
-        if nibs[idxs[0]]:
-            f = unpack_nibbles(f, sum(ceven[i] for i in idxs), axis=-1)
-        S, R = bstate[b]
-        if kind == "bf16":
-            dcat = true_div(f.to(torch.float32), n)
-            ecat = err2c[b]
-        else:
-            dcat = wp.dequant_sum(f, S, _phase2_shift(n), n)
-            ecat = err2c[b] * S[idx]
-        off = 0
+        if kind != "bf16":
+            pairs = wp.dequant_bucket(
+                gath[b], err2c[b], bstate[b], [flat[i] for i in idxs],
+                [steps[i] for i in idxs], n, idx, _phase2_shift(n),
+                nibs[idxs[0]])
+            for i, pair in zip(idxs, pairs):
+                out[i] = pair
+            continue
+        dcat = true_div(gath[b].to(torch.float32), n)
+        R, off = bstate[b], 0
         for i in idxs:
             _, _, T, C = dims[i]
             e = flat[i]
@@ -417,7 +402,7 @@ def _wire_tree_fused(flat: List[torch.Tensor], rank, n: int, kind: str,
                 .reshape(e.shape).to(e.dtype)
             residual = R[:, off:off + ce][:, :C].reshape(-1)[:T] \
                 .reshape(e.shape)
-            scatter = _own_chunk(ecat[off:off + ce][:C], idx, n, C, T)
+            scatter = _own_chunk(err2c[b][off:off + ce][:C], idx, n, C, T)
             out[i] = (delivered,
                       (residual + scatter.reshape(e.shape)).to(e.dtype))
             off += ce

@@ -98,11 +98,12 @@ def build_all(names: Optional[Iterable[str]] = None,
     return seconds
 
 
-def ptxas_report(name: str) -> str:
+def ptxas_report(name: str, defines: Sequence[str] = ()) -> str:
     """The compiler's register / shared-memory / spill lines for a built
-    source, each kernel's after the line that names it (empty if it was
-    built by another process and left no log)."""
-    log = _target(name).with_suffix(".log")
+    source (with ``defines`` added), each kernel's after the line that
+    names it (empty if it was built by another process and left no
+    log)."""
+    log = _target(name, defines).with_suffix(".log")
     if not log.exists():
         return ""
     return "\n".join(line for line in log.read_text().splitlines()

@@ -5,7 +5,11 @@ Entry points take any shape, as the JAX package's do: ``quantize_leaf``
 ([L, P] rows and their amax), ``quantize_chunks`` (a scale per position),
 ``pack_chunks`` (two mantissas a byte along the last axis, a zero nibble
 on an odd tail) and ``dequant_sum`` (``s`` of ``q``'s shape or one row of
-scales).  The CUDA kernels of ``csrc/wire_pack.cu`` need no lane
+scales).  ``quantize_bucket`` and ``dequant_bucket`` are the fused
+reduce's per-bucket phase 1 and decode: they take the bucket's leaves
+where they lie (float32 or bfloat16, any shape) with their [L] grid
+steps, and the chunk layout (``ref.bucket_layout``) is the kernels' index
+arithmetic.  The CUDA kernels of ``csrc/wire_pack.cu`` need no lane
 alignment, so nothing is padded.  On CUDA tensors every entry point
 launches its kernel (no fallback); on CPU tensors it takes the plain
 version in ``ref.py``.  ``grid_scale`` stays plain PyTorch: it runs on
@@ -19,7 +23,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import threading
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -27,9 +31,11 @@ from .. import _build
 from . import ref
 from .ref import grid_scale
 
-__all__ = ["dequant_sum", "grid_scale", "pack_chunks", "quantize_chunks",
-           "quantize_leaf", "wire_dequant_rows", "wire_pack_rows",
-           "wire_quantize_rows", "wire_quantize_sflat"]
+__all__ = ["dequant_bucket", "dequant_sum", "grid_scale", "pack_chunks",
+           "quantize_bucket", "quantize_chunks", "quantize_leaf",
+           "wire_dequant_bucket", "wire_dequant_rows", "wire_pack_rows",
+           "wire_quantize_bucket", "wire_quantize_rows",
+           "wire_quantize_sflat"]
 
 _TALLY = threading.Lock()
 
@@ -49,6 +55,12 @@ def _lib() -> ctypes.CDLL:
         lib.wire_dequant_rows_launch.argtypes = [vp, vp, vp, ll, ll, ll,
                                                  ctypes.c_float, ci, vp]
         lib.wire_dequant_rows_launch.restype = ci
+        lib.wire_quantize_bucket_launch.argtypes = [vp, ci, vp, ll, ll, ci,
+                                                    ci, vp]
+        lib.wire_quantize_bucket_launch.restype = ci
+        lib.wire_dequant_bucket_launch.argtypes = [vp, ci, vp, vp, ll, ll,
+                                                   ci, ctypes.c_float, ci, vp]
+        lib.wire_dequant_bucket_launch.restype = ci
         lib.typed = True
     return lib
 
@@ -144,9 +156,153 @@ def wire_dequant_rows(q: torch.Tensor, s: torch.Tensor, shift: int,
     return out
 
 
-# launches of each kernel, in all and by shape (and width, shift, n)
+# the most members one bucket launch takes (BUCKET_MAX_MEMBERS in
+# csrc/wire_pack.cu: the table fits the 4 KB of parameter space)
+BUCKET_MAX_MEMBERS = 64
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _launch_groups(count: int) -> List[range]:
+    """A bucket's members, in order, in launches of at most 64."""
+    return [range(i, min(i + BUCKET_MAX_MEMBERS, count))
+            for i in range(0, count, BUCKET_MAX_MEMBERS)]
+
+
+def _bucket_key(leaves, steps, idxs) -> tuple:
+    """A launch's members as the tallies key them: (shape, L, dtype)."""
+    return tuple((tuple(leaves[i].shape), steps[i].numel(),
+                  str(leaves[i].dtype)[6:]) for i in idxs)
+
+
+def _check_members(what: str, leaves, steps, dev, read: bool) -> None:
+    """Leaves of float32 or bfloat16 (contiguous where ``read``) with
+    contiguous float32 [L] steps, L dividing the leaf, all on ``dev``."""
+    _need(f"{what}: {len(leaves)} leaves, {len(steps)} steps",
+          len(leaves) == len(steps))
+    for e, s in zip(leaves, steps):
+        _need(f"{what} takes float32 or bfloat16 CUDA leaves on one device "
+              f"with contiguous float32 [L] steps, L dividing the leaf",
+              _cuda_contig(s) and s.device == dev and e.device == dev
+              and (e.is_contiguous() or not read) and e.dtype in _DTYPES
+              and s.dtype == torch.float32 and s.ndim == 1
+              and s.numel() >= 1 and e.numel() % s.numel() == 0)
+
+
+def _on_grid(numel: int, dtype: torch.dtype, a: int,
+             device) -> torch.Tensor:
+    """An uninitialized contiguous [numel] tensor whose element 0 sits ``a``
+    elements past a 16-byte boundary (a < 16 / element size)."""
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    buf = torch.empty((numel + v - 1,), dtype=dtype, device=device)
+    k = (a - buf.data_ptr() // buf.element_size()) % v
+    return buf[k:k + numel]
+
+
+def _grid_shift(t: torch.Tensor) -> int:
+    """Elements from t's first element back to a 16-byte boundary."""
+    return t.data_ptr() // t.element_size() % (16 // t.element_size())
+
+
+def wire_quantize_bucket(leaves: Sequence[torch.Tensor],
+                         steps: Sequence[torch.Tensor], n: int,
+                         bits: int = 8, nibble: bool = False
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The CUDA kernel over a bucket: contiguous float32 or bfloat16 leaves
+    and their [L] float32 grid steps -> (the int8 payload [n, W] in the
+    chunk layout of ``ref.bucket_layout``, each leaf's float32 residual in
+    its shape: views of one buffer, each on its leaf's 16-byte grid).  One
+    launch per 64 members."""
+    _need("wire_quantize_bucket needs leaves", len(leaves) > 0)
+    dev = leaves[0].device
+    _check_members("wire_quantize_bucket", leaves, steps, dev, True)
+    dims, W = ref.bucket_layout(leaves, steps, n, nibble)
+    q = torch.empty((n, W), dtype=torch.int8, device=dev)
+    # one residual buffer; member i's view starts where its leaf's group
+    # grid puts it (at most 3 elements of gap)
+    buf = torch.empty((sum(d[2] + 3 for d in dims),), dtype=torch.float32,
+                      device=dev)
+    base, at, res = buf.data_ptr() // 4, 0, []
+    for e, (_, _, T, _, _, _) in zip(leaves, dims):
+        at += (_grid_shift(e) - base - at) % 4
+        res.append(buf[at:at + T])
+        at += T
+    lib = _lib()
+    stream = _build.stream_ptr(dev)
+    for grp in _launch_groups(len(leaves)):
+        if not any(dims[i][2] for i in grp):
+            continue
+        desc = (ctypes.c_longlong * (7 * len(grp)))(*(
+            v for i in grp for v in (
+                leaves[i].data_ptr(), steps[i].data_ptr(), res[i].data_ptr(),
+                dims[i][2], dims[i][0], dims[i][5],
+                int(leaves[i].dtype == torch.bfloat16))))
+        _build.check(lib.wire_quantize_bucket_launch(
+            desc, len(grp), q.data_ptr(), n, W, bits, int(nibble), stream),
+            "wire_quantize_bucket")
+        _count(wire_quantize_bucket,
+               (n, bits, bool(nibble), _bucket_key(leaves, steps, grp)))
+    return q, [r.view(e.shape) for r, e in zip(res, leaves)]
+
+
+def wire_dequant_bucket(q: torch.Tensor, err2c: torch.Tensor,
+                        residuals: Sequence[torch.Tensor],
+                        leaves: Sequence[torch.Tensor],
+                        steps: Sequence[torch.Tensor], n: int, idx: int,
+                        shift: int, nibble: bool = False
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The CUDA kernel over a bucket: the gathered payload (contiguous int8
+    [n, W], or nibble pairs [n, W / 2]), rank ``idx``'s remainder ``err2c``
+    (float32 [W]) and each leaf's float32 residual -> per leaf (delivered
+    mean, new residual) in its shape and dtype.  A float32 leaf's new
+    residual is its residual tensor, updated in place.  ``leaves`` give
+    the shapes and dtypes (their values are not read).  One launch per 64
+    members."""
+    _need("wire_dequant_bucket needs leaves", len(leaves) > 0)
+    dev = leaves[0].device
+    _check_members("wire_dequant_bucket", leaves, steps, dev, False)
+    dims, W = ref.bucket_layout(leaves, steps, n, nibble)
+    _need("wire_dequant_bucket takes a contiguous int8 [n, W] (nibble: "
+          "[n, W / 2]) payload, float32 [W] err2c and contiguous float32 "
+          "residuals of the leaves' sizes on the leaves' device",
+          _cuda_contig(q, err2c, *residuals) and q.device == dev
+          and q.dtype == torch.int8 and err2c.dtype == torch.float32
+          and tuple(q.shape) == (n, W // 2 if nibble else W)
+          and tuple(err2c.shape) == (W,) and 0 <= idx < n
+          and len(residuals) == len(leaves)
+          and all(r.dtype == torch.float32 and r.numel() == e.numel()
+                  for r, e in zip(residuals, leaves)))
+    out = []
+    for e, r in zip(leaves, residuals):
+        # the delivered (and a bfloat16 residual) on the residual's grid
+        a = _grid_shift(r)
+        dlv = _on_grid(e.numel(), e.dtype, a, dev)
+        rout = r if e.dtype == torch.float32 else _on_grid(e.numel(),
+                                                           e.dtype, a, dev)
+        out.append((dlv, rout))
+    lib = _lib()
+    stream = _build.stream_ptr(dev)
+    for grp in _launch_groups(len(leaves)):
+        if not any(dims[i][2] for i in grp):
+            continue
+        desc = (ctypes.c_longlong * (8 * len(grp)))(*(
+            v for i in grp for v in (
+                out[i][0].data_ptr(), residuals[i].data_ptr(),
+                out[i][1].data_ptr(), steps[i].data_ptr(), dims[i][2],
+                dims[i][0], dims[i][5],
+                int(leaves[i].dtype == torch.bfloat16))))
+        _build.check(lib.wire_dequant_bucket_launch(
+            desc, len(grp), q.data_ptr(), err2c.data_ptr(), n, W, idx,
+            float(2 ** shift), int(nibble), stream), "wire_dequant_bucket")
+        _count(wire_dequant_bucket,
+               (n, shift, bool(nibble), _bucket_key(leaves, steps, grp)))
+    return [(d.view(e.shape), r.view(e.shape)) for (d, r), e in
+            zip(out, leaves)]
+
+
+# launches of each kernel, in all and by shape (and width, shift, n; a
+# bucket launch by n, width or shift, the nibble flag and its members)
 for _fn in (wire_quantize_rows, wire_quantize_sflat, wire_pack_rows,
-            wire_dequant_rows):
+            wire_dequant_rows, wire_quantize_bucket, wire_dequant_bucket):
     _fn.launches = 0
     _fn.shapes = collections.Counter()
 
@@ -202,3 +358,39 @@ def dequant_sum(q: torch.Tensor, s: torch.Tensor, shift: int,
     out = wire_dequant_rows(q.to(torch.int8).reshape(-1, C).contiguous(), s2,
                             shift, n)
     return out.reshape(shape)
+
+
+def quantize_bucket(leaves: Sequence[torch.Tensor],
+                    steps: Sequence[torch.Tensor], n: int, bits: int = 8,
+                    nibble: bool = False
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Phase 1 of one bucket of the fused reduce: its leaves (float32 or
+    bfloat16, any shape) and their [L] grid steps -> (the int8 payload
+    [n, W] in chunk layout, each leaf's float32 residual in its shape)."""
+    if not leaves[0].is_cuda:
+        return ref.quantize_bucket_ref(leaves, steps, n, bits, nibble)
+    return wire_quantize_bucket([e.contiguous() for e in leaves],
+                                [s.to(torch.float32).contiguous()
+                                 for s in steps], n, bits, nibble)
+
+
+def dequant_bucket(q: torch.Tensor, err2c: torch.Tensor,
+                   residuals: Sequence[torch.Tensor],
+                   leaves: Sequence[torch.Tensor],
+                   steps: Sequence[torch.Tensor], n: int, idx: int,
+                   shift: int, nibble: bool = False
+                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Phase-2 decode of one bucket on rank ``idx``: the gathered payload
+    as it arrived (int8 [n, W], or nibble pairs [n, W / 2]), this rank's
+    own-chunk remainder [W] and the leaves' residuals from
+    :func:`quantize_bucket` -> per leaf (delivered mean, new residual) in
+    its shape and dtype.  On the card a float32 leaf's residual is
+    updated in place."""
+    if not q.is_cuda:
+        return ref.dequant_bucket_ref(q, err2c, residuals, leaves, steps, n,
+                                      idx, shift, nibble)
+    return wire_dequant_bucket(
+        q.contiguous(), err2c.to(torch.float32).contiguous(),
+        [r.contiguous() for r in residuals], leaves,
+        [s.to(torch.float32).contiguous() for s in steps], n, idx, shift,
+        nibble)

@@ -100,6 +100,38 @@ def test_wire_reduce_matches_jax_simulator(n, kind, mixed):
         _same_tree(r, jr)
 
 
+@pytest.mark.parametrize("n", [3, 4])
+def test_fused_bucket_reduce_of_bfloat16_leaves_matches_jax(n):
+    """The fused reduce through the bucket entry points on a tree with
+    bfloat16 leaves (a stacked one among them) and float32 leaves with
+    -0.0 values, mixed 4/8 widths, n = 3 (a true division) and 4, one
+    bucket and one leaf a bucket: the bits of JAX's simulator and of the
+    per-leaf path, delivered and residual, in each leaf's dtype."""
+    tree = _tree(n, seed=50 + n)
+    tree["vec"][:, ::4] = -0.0
+    t = _torch(tree)
+    t["layers"] = t["layers"].to(torch.bfloat16)
+    t["w3d"] = t["w3d"].to(torch.bfloat16)
+    jt = {k: jnp.asarray(v.float().numpy()).astype(
+        jnp.bfloat16 if v.dtype == torch.bfloat16 else jnp.float32)
+        for k, v in t.items()}
+    jd, jr = jcoll.simulate_wire_pmean(jt, "int8", widths=MIXED)
+    mesh = LocalMesh(n, "cpu")
+    leaf_d, leaf_r = ef_wire_pmean(t, mesh, "int8", widths=MIXED,
+                                   fused=False)
+    for bb in (None, 1):
+        d, r = ef_wire_pmean(t, mesh, "int8", widths=MIXED, bucket_bytes=bb)
+        for k in tree:
+            for got, per_leaf, want in ((d[k], leaf_d[k], jd[k]),
+                                        (r[k], leaf_r[k], jr[k])):
+                assert got.dtype == t[k].dtype, k
+                a = got.float().numpy()
+                b = np.asarray(want).astype(np.float32)
+                np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=k)
+                np.testing.assert_array_equal(
+                    _bits(a), _bits(per_leaf.float().numpy()), err_msg=k)
+
+
 def test_fused_multi_bucket_schedule_matches_jax():
     """A 256-byte budget mixes leaves and splits others across buckets:
     the bucket lists equal JAX's, and the result stays JAX's bits."""

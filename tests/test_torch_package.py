@@ -274,6 +274,99 @@ def test_wire_pack_launches_the_kernels_on_cuda(cuda_device):
                                _bits(wp.dequant_sum_ref(q, ss, shift, n)))
 
 
+# buckets of the fused reduce: (members ((shape, L, dtype), ...), n, bits)
+BUCKETS = [
+    ((((3, 8, 5), 3, torch.float32), ((17,), 1, torch.float32),
+      ((), 1, torch.float32), ((2, 3, 7), 1, torch.float32)), 4, 8),
+    ((((3, 41, 7), 3, torch.float32), ((1001,), 1, torch.bfloat16),
+      ((33,), 1, torch.float32)), 3, 4),
+    ((((5,), 1, torch.bfloat16), ((4099,), 1, torch.float32),
+      ((24, 1000), 1, torch.bfloat16)), 4, 4),
+    (tuple(((k % 37 + 1,), 1, torch.bfloat16 if k % 3 == 0
+            else torch.float32) for k in range(65)), 4, 8),
+]
+
+
+def _wbits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else _bits(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("case", range(len(BUCKETS)))
+def test_wire_bucket_kernels_on_cuda(cuda_device, case, offset):
+    """The fused reduce's bucket kernels on leaves ``offset`` elements past
+    a 16-byte boundary: the plain versions' bits (payload, residuals; at
+    every rank index the delivered mean and the new residual, -0.0 off
+    the own chunk turned +0.0, subnormals kept), one launch of each per
+    64 members (two for the 65-member bucket)."""
+    members, n, bits = BUCKETS[case]
+    nib = bits <= 4
+    g = torch.Generator(device=cuda_device).manual_seed(6 + case)
+    leaves, steps = [], []
+    for shape, L, dtype in members:
+        T = int(np.prod(shape))
+        buf = torch.randn((T + offset,), generator=g, device=cuda_device)
+        leaves.append(buf.to(dtype)[offset:].view(shape))
+        rows = leaves[-1].float().reshape(L, -1)
+        steps.append(wp.grid_scale(rows.abs().amax(dim=1), bits))
+    launches = -(-len(members) // 64)
+    before = wp.wire_quantize_bucket.launches
+    q, res = wp.wire_quantize_bucket(leaves, steps, n, bits, nib)
+    torch.cuda.synchronize()
+    assert wp.wire_quantize_bucket.launches == before + launches
+    qr, rr = wp.quantize_bucket_ref(leaves, steps, n, bits, nib)
+    assert torch.equal(q, qr)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(res, rr))
+    W = q.shape[1]
+    full = torch.randint(-7, 8, (n, W), generator=g, device=cuda_device,
+                         dtype=torch.int8)
+    gath = wp.pack_chunks_ref(full) if nib else full
+    err = torch.randint(-8, 9, (W,), generator=g, device=cuda_device).float()
+    for r in res:
+        r.view(-1)[::3] = -0.0
+        r.view(-1)[1::5] = 1e-40
+    for idx in range(n):
+        args = (gath, err, res, leaves, steps, n, idx, (n - 1).bit_length(),
+                nib)
+        want = wp.dequant_bucket_ref(*args)
+        mine = [r.clone() for r in res]
+        before = wp.wire_dequant_bucket.launches
+        got = wp.wire_dequant_bucket(*args[:2], mine, *args[3:])
+        torch.cuda.synchronize()
+        assert wp.wire_dequant_bucket.launches == before + launches
+        for (d, r), (dw, rw) in zip(got, want):
+            assert d.dtype == dw.dtype and r.dtype == rw.dtype
+            assert torch.equal(_wbits(d), _wbits(dw))
+            assert torch.equal(_wbits(r), _wbits(rw))
+
+
+@pytest.mark.cuda
+def test_fused_reduce_launches_the_bucket_kernels_on_cuda(cuda_device):
+    """A fused reduce over LocalMesh(4) (mixed 4/8 widths: two buckets)
+    launches each bucket kernel once a bucket a rank and no per-position
+    kernel, and delivers the per-leaf path's bits."""
+    from repro_torch.dist import LocalMesh, ef_wire_pmean
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    tree = {"layers": torch.randn((4, 3, 8, 5), generator=g,
+                                  device=cuda_device),
+            "vec": torch.randn((4, 17), generator=g, device=cuda_device),
+            "w3d": torch.randn((4, 2, 3, 7), generator=g,
+                               device=cuda_device)}
+    widths = {"layers": 4, "vec": 8, "w3d": 4}
+    mesh = LocalMesh(4, cuda_device)
+    kernels = (wp.wire_quantize_bucket, wp.wire_dequant_bucket,
+               wp.wire_quantize_sflat, wp.wire_dequant_rows)
+    before = [k.launches for k in kernels]
+    d, r = ef_wire_pmean(tree, mesh, "int8", widths=widths)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [8, 8, 0, 0]
+    dl, rl = ef_wire_pmean(tree, mesh, "int8", widths=widths, fused=False)
+    for k in tree:
+        assert torch.equal(_bits(d[k]), _bits(dl[k]))
+        assert torch.equal(_bits(r[k]), _bits(rl[k]))
+
+
 @pytest.mark.cuda
 def test_kv_dequant_launches_its_kernel_on_cuda(cuda_device):
     """``kv_dequant`` on CUDA tensors moves the ``kv_dequant_rows`` counter

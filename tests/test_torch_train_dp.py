@@ -187,8 +187,14 @@ def test_wire_faults_move_the_trajectory(monkeypatch):
         return max(max(_rel(a[0], b[0]), _rel(a[1], b[1]))
                    for a, b in zip(run, sound))
 
+    real_requant = coll._phase2_requantize
+
+    def dropped(chunk_sum, n, kind):           # a zero remainder handed on
+        q2, err = real_requant(chunk_sum, n, kind)
+        return q2, torch.zeros_like(err)
+
     with monkeypatch.context() as mp:
-        mp.setattr(coll, "_own_chunk", lambda v, i, n, C, T: torch.zeros(T))
+        mp.setattr(coll, "_phase2_requantize", dropped)
         no_ef = gap(_wire_run(p, q, batches, plan))
     real = wp.grid_scale
     with monkeypatch.context() as mp:

@@ -250,3 +250,238 @@ def test_random_rows_match_jax(seed):
     _same(tq, jq)
     _same(ts, js)
     _same(tr, jr)
+
+
+# ---------------------------------------------------------------------------
+# the fused reduce's bucket kernels: plain versions against the JAX package
+# ---------------------------------------------------------------------------
+
+# (members ((shape, L, dtype), ...), n, bits): stacked L = 3 with odd C,
+# T not a multiple of n, a scalar, bfloat16 leaves, int8 and nibble buckets
+# (bits <= 4), n = 3 and 4
+BUCKETS = [
+    ((((3, 8, 5), 3, "float32"), ((17,), 1, "float32"), ((), 1, "float32"),
+      ((2, 3, 7), 1, "float32")), 4, 8),
+    ((((3, 8, 5), 3, "float32"), ((17,), 1, "float32"), ((), 1, "float32"),
+      ((2, 3, 7), 1, "float32")), 4, 4),
+    ((((3, 41, 7), 3, "float32"), ((1001,), 1, "float32"),
+      ((33,), 1, "float32")), 3, 8),
+    ((((1001,), 1, "bfloat16"), ((3, 8, 5), 3, "bfloat16"),
+      ((17,), 1, "float32")), 3, 4),
+    ((((5,), 1, "float32"), ((64,), 1, "bfloat16"),
+      ((16, 64), 1, "float32")), 4, 3),
+]
+KERNEL = dict(use_kernel=True, interpret=True)
+
+
+def _bucket(members, bits, seed):
+    """Seeded leaves (numpy float32, and their torch tensors in the member's
+    dtype) and their grid steps ``grid_scale(row amax)``: a scale a member
+    and a row, a zero, and values on rounding ties of the first row's
+    grid."""
+    rng = np.random.default_rng(seed)
+    vals, leaves, steps = [], [], []
+    for k, (shape, L, dt) in enumerate(members):
+        T = int(np.prod(shape))
+        x = (rng.normal(size=(L, T // L)) * 10.0 ** (k % 3 - 2)
+             * np.logspace(-1, 1, L)[:, None]).astype(np.float32)
+        if T > 3:
+            x.reshape(-1)[0] = 0.0
+        t = torch.from_numpy(x.reshape(shape).copy())
+        if dt == "bfloat16":
+            t = t.to(torch.bfloat16)
+        x = t.float().numpy().reshape(L, -1)
+        s = tref.grid_scale(torch.from_numpy(np.abs(x).max(axis=1)), bits)
+        if T > 6:
+            # the second to fourth values on ties (m + 1/2) * step
+            x32 = t.float().reshape(-1)
+            x32[1:4] = (torch.arange(3.0) - 1.5) * s[0]
+            t = x32.reshape(shape).to(t.dtype)
+            x = t.float().numpy().reshape(L, -1)
+        vals.append(x)
+        leaves.append(t)
+        steps.append(s)
+    return vals, leaves, steps
+
+
+def _np_layout(vals, steps, n, nibble):
+    """The JAX package's chunk layout built in numpy: E and S [n, W] and
+    per member (T, C, ceven, off)."""
+    es, ss, dims, off = [], [], [], 0
+    for x, s in zip(vals, steps):
+        L, P = x.shape
+        T = L * P
+        C = -(-T // n)
+        ce = -(-C // 2) * 2 if nibble else C
+        e = np.zeros(n * C, np.float32)
+        e[:T] = x.reshape(-1)
+        sc = np.ones(n * C, np.float32)
+        sc[:T] = np.repeat(s.numpy(), P)
+        e = np.pad(e.reshape(n, C), ((0, 0), (0, ce - C)))
+        sc = np.pad(sc.reshape(n, C), ((0, 0), (0, ce - C)),
+                    constant_values=1.0)
+        es.append(e)
+        ss.append(sc)
+        dims.append((T, C, ce, off))
+        off += ce
+    return np.concatenate(es, axis=1), np.concatenate(ss, axis=1), dims
+
+
+def _np_member(buf, dim):
+    T, C, ce, off = dim
+    return np.ascontiguousarray(buf[:, off:off + ce][:, :C]).reshape(-1)[:T]
+
+
+def _bucket_bits_t(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _bucket_bits(a) -> np.ndarray:
+    a = a.detach()
+    if a.dtype == torch.bfloat16:
+        return a.view(torch.int16).numpy()
+    return _bits(a.numpy())
+
+
+@pytest.mark.parametrize("case", range(len(BUCKETS)))
+def test_quantize_bucket_ref_matches_jax(case):
+    """The bucket's payload and each leaf's residual: JAX's
+    ``quantize_chunks`` (its Pallas kernel, interpreted) on the chunk layout
+    built in numpy, bit for bit; the CPU entry point returns the same."""
+    members, n, bits = BUCKETS[case]
+    nibble = bits <= 4
+    vals, leaves, steps = _bucket(members, bits, seed=case)
+    E, S, dims = _np_layout(vals, steps, n, nibble)
+    jq, jr = jwp.quantize_chunks(jnp.asarray(E), jnp.asarray(S), bits,
+                                 **KERNEL)
+    q, res = tref.quantize_bucket_ref(leaves, steps, n, bits, nibble)
+    _same(q, jq)
+    for r, e, dim in zip(res, leaves, dims):
+        assert r.shape == e.shape and r.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(r.numpy().reshape(-1)),
+                                      _bits(_np_member(np.asarray(jr), dim)))
+    q2, res2 = twp.quantize_bucket(leaves, steps, n, bits, nibble)
+    assert torch.equal(q2, q)
+    assert all(torch.equal(_bucket_bits_t(a), _bucket_bits_t(b))
+               for a, b in zip(res2, res))
+
+
+@pytest.mark.parametrize("case", range(len(BUCKETS)))
+def test_dequant_bucket_ref_matches_jax(case):
+    """Each leaf's delivered mean and new residual at every rank index:
+    JAX's ``dequant_sum`` (eager reference, a true division; the Pallas
+    kernel too where n is a power of two) on the gathered payload, the
+    owner's remainder ``err2c * S[idx]`` on its chunk and ``residual +
+    that`` (a zero elsewhere), bit for bit, cast to the leaf's dtype.  A
+    -0.0 residual off the own chunk comes out +0.0; a subnormal stays."""
+    members, n, bits = BUCKETS[case]
+    nibble = bits <= 4
+    shift = (n - 1).bit_length()
+    vals, leaves, steps = _bucket(members, bits, seed=10 + case)
+    E, S, dims = _np_layout(vals, steps, n, nibble)
+    W = E.shape[1]
+    rng = np.random.default_rng(20 + case)
+    qmax = 2 ** (bits - 1) - 1
+    full = rng.integers(-qmax, qmax + 1, (n, W)).astype(np.int8)
+    gath = (j_pack_nibbles(jnp.asarray(full), axis=-1) if nibble
+            else jnp.asarray(full))
+    err = rng.integers(-2 ** shift, 2 ** shift + 1, W).astype(np.float32)
+    _, res = tref.quantize_bucket_ref(leaves, steps, n, bits, nibble)
+    for r in res:
+        r.view(-1)[::3] = -0.0
+        r.view(-1)[1::5] = 1e-40
+    want_d = np.asarray(jref.dequant_sum_ref(jnp.asarray(full),
+                                             jnp.asarray(S), shift, n))
+    if n & (n - 1) == 0:
+        np.testing.assert_array_equal(
+            _bits(want_d), _bits(jwp.dequant_sum(jnp.asarray(full),
+                                                 jnp.asarray(S), shift, n,
+                                                 **KERNEL)))
+    for idx in range(n):
+        out = tref.dequant_bucket_ref(torch.from_numpy(np.array(gath)),
+                                      torch.from_numpy(err), res, leaves,
+                                      steps, n, idx, shift, nibble)
+        ecat = err * S[idx]
+        for (d, r), e, r0, dim in zip(out, leaves, res, dims):
+            T, C, ce, off = dim
+            scatter = np.zeros(n * C, np.float32)
+            scatter[idx * C:(idx + 1) * C] = ecat[off:off + ce][:C]
+            new = r0.numpy().reshape(-1) + scatter[:T]
+            for got, want in ((d, _np_member(want_d, dim)), (r, new)):
+                assert got.shape == e.shape and got.dtype == e.dtype
+                want = torch.from_numpy(np.ascontiguousarray(want)).to(
+                    e.dtype).reshape(e.shape)
+                np.testing.assert_array_equal(_bucket_bits(got),
+                                              _bucket_bits(want))
+            own = slice(idx * C, min((idx + 1) * C, T))
+            off_own = np.ones(T, bool)
+            off_own[own] = False
+            rr = r.float().numpy().reshape(-1)
+            r0f = r0.numpy().reshape(-1)
+            # -0.0 off the own chunk became +0.0
+            z = off_own & (r0f == 0) & np.signbit(r0f)
+            assert z.any() or T < 4
+            assert not np.signbit(rr[z]).any()
+            if e.dtype == torch.float32:
+                sub = off_own & (r0f == np.float32(1e-40))
+                np.testing.assert_array_equal(_bits(rr[sub]),
+                                              _bits(r0f[sub]))
+
+
+def test_bucket_of_65_members_equals_two_launches_of_plain_members():
+    """A bucket past the 64 members a launch takes: its payload, residuals
+    and decode equal the plain versions over its first 64 members and its
+    last one, side by side (the columns of the second from the first's
+    width)."""
+    members = tuple(((k % 37 + 1,), 1, "bfloat16" if k % 3 == 0
+                     else "float32") for k in range(65))
+    n, bits = 4, 8
+    _, leaves, steps = _bucket(members, bits, seed=65)
+    assert [len(g) for g in twp.ops._launch_groups(65)] == [64, 1]
+    q, res = tref.quantize_bucket_ref(leaves, steps, n, bits)
+    qa, ra = tref.quantize_bucket_ref(leaves[:64], steps[:64], n, bits)
+    qb, rb = tref.quantize_bucket_ref(leaves[64:], steps[64:], n, bits)
+    assert torch.equal(q, torch.cat([qa, qb], dim=1))
+    assert all(torch.equal(_bucket_bits_t(a), _bucket_bits_t(b))
+               for a, b in zip(res, ra + rb))
+    rng = np.random.default_rng(66)
+    gath = torch.from_numpy(rng.integers(-127, 128, q.shape).astype(np.int8))
+    err = torch.from_numpy(rng.integers(-4, 5, q.shape[1])
+                           .astype(np.float32))
+    Wa = qa.shape[1]
+    for idx in range(n):
+        whole = tref.dequant_bucket_ref(gath, err, res, leaves, steps, n,
+                                        idx, 2)
+        parts = (tref.dequant_bucket_ref(gath[:, :Wa], err[:Wa], ra,
+                                         leaves[:64], steps[:64], n, idx, 2)
+                 + tref.dequant_bucket_ref(gath[:, Wa:], err[Wa:], rb,
+                                           leaves[64:], steps[64:], n, idx,
+                                           2))
+        for (d, r), (d2, r2) in zip(whole, parts):
+            assert torch.equal(_bucket_bits_t(d), _bucket_bits_t(d2))
+            assert torch.equal(_bucket_bits_t(r), _bucket_bits_t(r2))
+
+
+def test_bucket_wrappers_take_the_plain_version_on_cpu():
+    """On CPU tensors the bucket entry points return the plain versions'
+    bits and launch nothing; the kernels themselves refuse CPU tensors."""
+    members, n, bits = BUCKETS[1]
+    _, leaves, steps = _bucket(members, bits, seed=3)
+    kernels = (twp.wire_quantize_bucket, twp.wire_dequant_bucket)
+    before = [k.launches for k in kernels]
+    q, res = twp.quantize_bucket(leaves, steps, n, bits, True)
+    qr, rr = tref.quantize_bucket_ref(leaves, steps, n, bits, True)
+    assert torch.equal(q, qr)
+    gath = tref.pack_chunks_ref(q)
+    err = torch.ones((q.shape[1],))
+    got = twp.dequant_bucket(gath, err, res, leaves, steps, n, 1, 2, True)
+    want = tref.dequant_bucket_ref(gath, err, rr, leaves, steps, n, 1, 2,
+                                   True)
+    for (a, b), (c, d) in zip(got, want):
+        assert torch.equal(_bucket_bits_t(a), _bucket_bits_t(c))
+        assert torch.equal(_bucket_bits_t(b), _bucket_bits_t(d))
+    assert [k.launches for k in kernels] == before
+    with pytest.raises(ValueError):
+        twp.wire_quantize_bucket(leaves, steps, n, bits, True)
+    with pytest.raises(ValueError):
+        twp.wire_dequant_bucket(gath, err, res, leaves, steps, n, 1, 2, True)

@@ -2,7 +2,7 @@
 """Geometry sweeps behind the build-time constants of three of the
 PyTorch port's kernels, on one CUDA card.  Run from the repository root:
 
-    python3 torch_kernel_sweep.py [--part all|pack|bwd|fwd]
+    python3 torch_kernel_sweep.py [--part all|pack|bwd|fwd|bucket|reduce]
                                   [--out build/kernel_sweep.json]
                                   [--src DIR] [--default-only]
 
@@ -32,6 +32,23 @@ geometry is copied here:
    with its default build: no variants, and a tree without the grouped
    forward times the group as single launches.  ``--default-only``
    builds no variants.
+4. The fused reduce's bucket kernels (``csrc/wire_pack.cu``):
+   ``WIRE_BUCKET_QUANT_GROUPS`` and ``WIRE_BUCKET_DEQUANT_GROUPS``
+   (16-byte groups a thread loads before it computes) with
+   ``WIRE_BUCKET_QUANT_MIN_BLOCKS`` and ``WIRE_BUCKET_DEQUANT_MIN_BLOCKS``
+   (blocks an SM each build asks for),
+   ``wire_quantize_bucket`` and ``wire_dequant_bucket`` at the
+   qwen2 reduce's two largest buckets (the embedding alone at 8 bits, a
+   stacked MLP leaf in nibbles), each variant checked bit for bit against
+   the plain version (at rank 0 for the decode).
+5. ``reduce`` (not in ``all``): the fused reduce of qwen2-0.5b's gradient
+   tree over ``LocalMesh(4)`` (``chip_smoke._qwen2_grads``), uniform int8
+   and ``plan_mixed_w4w8``, of the package under ``--src``: the peak
+   memory of three calls after one warm-up (the tree, and the previous
+   call's outputs while the next runs), their host-clock median, and one
+   call traced with ``chip_smoke._profiled`` (device operations, busy ms,
+   ``aten::constant_pad_nd`` events of every thread, ``F.pad`` calls).  Run it on the parent's tree and
+   this one in one chip call, parent, change, change, parent.
 
 Times are CUDA-event times per call from ``chip_smoke.time_ms``.  Prints
 the card, then one JSON line per reading, and writes them all to
@@ -44,6 +61,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -81,6 +99,15 @@ FWD_SHAPES = [("per_tensor", (8192, 896), "float32"),
               ("per_parameter", (896, 4864), "float32"),
               ("per_tensor", (1024, 64), "float32"),
               ("per_channel", (1024, 16), "float32")]
+BUCKET_VARIANTS = [()] + [
+    (f"-DWIRE_BUCKET_QUANT_GROUPS={q}", f"-DWIRE_BUCKET_QUANT_MIN_BLOCKS={qb}",
+     f"-DWIRE_BUCKET_DEQUANT_GROUPS={d}",
+     f"-DWIRE_BUCKET_DEQUANT_MIN_BLOCKS={db}")
+    for q, qb, d, db in ((2, 1, 1, 1), (8, 1, 1, 4), (4, 3, 4, 4),
+                         (4, 1, 2, 3), (4, 1, 2, 1))]
+# the qwen2 reduce's two largest buckets, as the tallies key them
+BUCKET_SHAPES = [(4, 8, False, (((151936, 896), 1, "float32"),)),
+                 (4, 4, True, (((24, 4864, 896), 24, "float32"),))]
 # the jet tagger's weights and biases: one grouped launch a training step
 JET_GROUP = [(16, 64), (64,), (64, 32), (32,), (32, 32), (32,), (32, 5),
              (5,)]
@@ -96,6 +123,10 @@ def _build_variants(parts, fwd_variants):
         jobs += [("hgq_quantize", d) for d in BWD_VARIANTS]
     if "fwd" in parts:
         jobs += [("hgq_quantize", d) for d in fwd_variants]
+    if "bucket" in parts:
+        jobs += [("wire_pack", d) for d in BUCKET_VARIANTS]
+    if "reduce" in parts:
+        jobs += [("wire_pack", ())]
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda j: _build.build_all([j[0]], j[1]), jobs))
 
@@ -238,14 +269,97 @@ def _fwd_sweep(dev, g, variants, label):
     return rows
 
 
+def _registers(name, defines):
+    """(registers, spill stores) ptxas reported for a bucket kernel's build
+    (``wire_quantize_bucket`` -> ``quantize_bucket_kernel``)."""
+    from repro_torch.kernels import _build
+    kernel = name.replace("wire_", "") + "_kernel"
+    lines = _build.ptxas_report("wire_pack", defines).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            spill = int(lines[i + 1].split("bytes spill stores")[0]
+                        .split(",")[-1])
+            regs = int(lines[i + 2].split("Used ")[1].split(" registers")[0])
+            return regs, spill
+    return None
+
+
+def _bucket_sweep(dev, g):
+    from chip_smoke import _fresh, _same_bits, _wire_spec
+    from repro_torch.kernels import _build
+    rows = []
+    for n, bits, nib, members in BUCKET_SHAPES:
+        keys = [("wire_quantize_bucket", (n, bits, nib, members)),
+                ("wire_dequant_bucket", (n, (n - 1).bit_length(), nib,
+                                         members))]
+        for name, key in keys:
+            make, kern, plain, nbytes, _, shape = _wire_spec(name, key, dev,
+                                                            g)
+            sets = [make() for _ in range(n_copies(nbytes))]
+            for defines in BUCKET_VARIANTS:
+                # the decode updates float32 residuals in place: the plain
+                # version reads them as the last timing left them
+                want = plain(*sets[0])
+                with _build.variant("wire_pack", defines):
+                    exact = _same_bits(kern(*_fresh(sets[0])), want)
+                    ms = time_ms(kern, sets)
+                rows.append({"kernel": name, "shape": shape,
+                             "defines": list(defines) or "default",
+                             "registers": _registers(name, defines),
+                             "exact": exact, "ms": ms,
+                             "bound_ms": bound(nbytes, 0)[0]})
+                print(json.dumps(rows[-1]), flush=True)
+            del sets, want
+    return rows
+
+
+def _reduce_reading(dev, label):
+    from chip_smoke import (PAD_OP, QWEN_PLAN, WIRE_N, _all_threads_config,
+                            _counting_pads, _profiled, _qwen2_grads)
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.dist import LocalMesh, ef_wire_pmean
+    tree = _qwen2_grads(dev)
+    mesh = LocalMesh(WIRE_N, dev)
+    plan = PrecisionPlan.from_file(str(ROOT / QWEN_PLAN))
+    rows = []
+    for tag, widths in (("int8", None),
+                        ("mixed_w4w8", plan.wire_bits_tree(tree))):
+        run = lambda: ef_wire_pmean(tree, mesh, "int8", widths=widths)
+        out = run()                                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del out
+        pads = [0]
+        with _counting_pads(pads):
+            ops, busy, _, names = _profiled(run, all_threads=True)
+        rows.append({"reduce": tag, "src": label,
+                     "fused_peak_mem_gib": peak,
+                     "host_ms_median": sorted(times)[1],
+                     "device_ops": ops, "device_busy_ms": busy,
+                     "host_ops_of_every_thread":
+                         _all_threads_config() is not None,
+                     "constant_pad_nd": names.get(PAD_OP, 0),
+                     "pad_calls": pads[0]})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/kernel_sweep.json")
-    ap.add_argument("--part", choices=("all", "pack", "bwd", "fwd"),
+    ap.add_argument("--part", choices=("all", "pack", "bwd", "fwd",
+                                       "bucket", "reduce"),
                     default="all")
     ap.add_argument("--src", default=str(ROOT / "src"),
-                    help="the tree whose repro_torch is timed (fwd only "
-                         "unless it is this repository's)")
+                    help="the tree whose repro_torch is timed (fwd or "
+                         "reduce only unless it is this repository's)")
     ap.add_argument("--default-only", action="store_true",
                     help="build and time no geometry variants")
     args = ap.parse_args()
@@ -261,15 +375,16 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip()
     print(smi, flush=True)
-    parts = ("pack", "bwd", "fwd") if args.part == "all" else (args.part,)
-    if other and parts != ("fwd",):
-        print("torch_kernel_sweep: --src times the forward only (--part "
-              "fwd)", file=sys.stderr)
+    parts = (("pack", "bwd", "fwd", "bucket") if args.part == "all"
+             else (args.part,))
+    if other and parts not in (("fwd",), ("reduce",)):
+        print("torch_kernel_sweep: --src times the forward or the reduce "
+              "only (--part fwd, reduce)", file=sys.stderr)
         return 2
     fwd_variants = [()] if other or args.default_only else FWD_VARIANTS
     if args.default_only:
-        global PACK_VARIANTS, BWD_VARIANTS
-        PACK_VARIANTS, BWD_VARIANTS = [()], [()]
+        global PACK_VARIANTS, BWD_VARIANTS, BUCKET_VARIANTS
+        PACK_VARIANTS, BWD_VARIANTS, BUCKET_VARIANTS = [()], [()], [()]
     _build_variants(parts, fwd_variants)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -282,11 +397,16 @@ def main() -> int:
     if "fwd" in parts:
         readings["hgq_quantize_fwd"] = _fwd_sweep(
             dev, g, fwd_variants, "other tree" if other else "this tree")
+    if "bucket" in parts:
+        readings["wire_bucket"] = _bucket_sweep(dev, g)
+    if "reduce" in parts:
+        readings["reduce"] = _reduce_reading(
+            dev, "other tree" if other else "this tree")
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(readings, indent=1))
     bad = [r for k in ("wire_pack_rows", "hgq_quantize_bwd",
-                       "hgq_quantize_fwd")
+                       "hgq_quantize_fwd", "wire_bucket")
            for r in readings.get(k, ()) if not r.get("exact", r.get("df_ok"))]
     for r in bad:
         print("wrong result:", json.dumps(r), file=sys.stderr)
