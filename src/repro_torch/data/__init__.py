@@ -1,4 +1,6 @@
 """Synthetic, (seed, step)-pure data pipelines."""
-from .synthetic import DataSpec, jet_batch, make_pipeline
+from .synthetic import (DataSpec, jet_batch, make_pipeline, muon_batch,
+                        svhn_batch)
 
-__all__ = ["DataSpec", "jet_batch", "make_pipeline"]
+__all__ = ["DataSpec", "jet_batch", "make_pipeline", "muon_batch",
+           "svhn_batch"]

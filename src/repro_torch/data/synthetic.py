@@ -1,5 +1,5 @@
 """Deterministic, resumable synthetic data (counterpart of
-``repro/data/synthetic.py``; the jet kind so far).
+``repro/data/synthetic.py``; the paper's three kinds: jet, svhn, muon).
 
 Every batch is a pure function of (seed, step), drawn on the CPU from a
 ``torch.Generator`` seeded from both and then moved to the device, so a
@@ -13,6 +13,7 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 
@@ -40,6 +41,62 @@ def jet_batch(seed: int, step: int, batch: int = 1024, d: int = 16,
     return {"x": x.to(dev), "y": y.to(dev)}
 
 
+def svhn_blob(y: torch.Tensor) -> torch.Tensor:
+    """The class mark of an SVHN-shaped image: ``exp(-d^2 / 8)`` around
+    (``4 + 3 (y % 5)``, ``8 + 12 (y // 5)``), [batch, 32, 32] float32."""
+    cx = 4 + 3 * (y % 5)
+    cy = 8 + 12 * (y // 5)
+    ii = torch.arange(32, device=y.device)
+    d2 = (ii[None, :, None] - cx[:, None, None]) ** 2 \
+        + (ii[None, None, :] - cy[:, None, None]) ** 2
+    return torch.exp(d2.to(torch.float32) / -8.0)
+
+
+def svhn_batch(seed: int, step: int, batch: int = 256, device=None
+               ) -> Dict[str, torch.Tensor]:
+    """32x32x3 images whose class is a localized bright blob: x [batch, 32,
+    32, 3] (NHWC) float32, uniform pixels plus ``2 * svhn_blob(y)`` on
+    every channel; y [batch] int64, uniform over 10 classes."""
+    dev = resolve_device(device)
+    g = _gen(seed, step)
+    y = torch.randint(0, 10, (batch,), generator=g)
+    x = torch.rand((batch, 32, 32, 3), generator=g)
+    x = x + 2.0 * svhn_blob(y)[..., None]
+    return {"x": x.to(dev), "y": y.to(dev)}
+
+
+# the muon stations' lever arms, and the strips a station layer holds
+MUON_Z = (0.3, 0.5, 0.7)
+MUON_STRIPS = 50
+
+
+def muon_strips(angle: torch.Tensor) -> torch.Tensor:
+    """The strip a straight track at ``angle`` fires in each station:
+    ``round(25 + 80 * angle * z)`` (half to even) clipped to 0..49, [B, 3]
+    int64."""
+    z = torch.tensor(MUON_Z, device=angle.device)
+    return torch.clamp(torch.round(25.0 + 80.0 * angle[:, None] * z[None, :]),
+                       0, MUON_STRIPS - 1).to(torch.int64)
+
+
+def muon_batch(seed: int, step: int, batch: int = 1024, device=None
+               ) -> Dict[str, torch.Tensor]:
+    """Three 3x50 binary hit maps of a straight track: the angle is
+    U(-0.25, 0.25); each of a station's 3 layers fires ``muon_strips``
+    moved cyclically by -1, 0 or 1 (uniform), plus noise hits
+    Bernoulli(0.005).  stations [batch, 3, 150] float32 (0 or 1), target
+    [batch] the angle in mrad."""
+    dev = resolve_device(device)
+    g = _gen(seed, step)
+    angle = torch.rand((batch,), generator=g) * 0.5 - 0.25
+    noise = torch.rand((batch, 3, 3, MUON_STRIPS), generator=g) < 0.005
+    jitter = torch.randint(-1, 2, (batch, 3, 3), generator=g)
+    fired = (muon_strips(angle)[:, :, None] + jitter) % MUON_STRIPS
+    hits = F.one_hot(fired, MUON_STRIPS).to(torch.bool) | noise
+    x = hits.to(torch.float32).reshape(batch, 3, 3 * MUON_STRIPS)
+    return {"stations": x.to(dev), "target": (angle * 1000.0).to(dev)}
+
+
 @dataclasses.dataclass(frozen=True)
 class DataSpec:
     kind: str           # jet | svhn | muon | lm | asr
@@ -52,8 +109,10 @@ class DataSpec:
 def make_pipeline(spec: DataSpec, device=None
                   ) -> Callable[[int], Dict[str, torch.Tensor]]:
     """step -> batch dict on ``device`` (the card by default)."""
-    if spec.kind != "jet":
+    kinds = {"jet": jet_batch, "svhn": svhn_batch, "muon": muon_batch}
+    if spec.kind not in kinds:
         raise NotImplementedError(f"data kind {spec.kind!r} is not ported "
-                                  f"yet (only 'jet')")
+                                  f"yet (only {', '.join(kinds)})")
     dev = resolve_device(device)
-    return lambda step: jet_batch(spec.seed, step, spec.batch, device=dev)
+    batch_fn = kinds[spec.kind]
+    return lambda step: batch_fn(spec.seed, step, spec.batch, device=dev)

@@ -35,10 +35,23 @@
 // and the launch dominates, so k and v rows share one launch.
 //
 // kv_dequant_rows.  fp32 q * 2^-f per row, 2^-f built in the exponent field, so
-// the product is exact and bit-equal to the reference.  Bound: bytes, 5 R hd + R
-// (int8 in, fp32 out).  A grid-stride loop over 16-mantissa pieces of the rows
-// (16-byte loads, four 16-byte stores) where hd % 16 == 0 and the rows are
-// aligned, else over single values: any hd, no padding.
+// the product is exact and bit-equal to the reference (__fmul_rn, no fast math).
+// Bound: bytes, 5 R hd + R (int8 in, fp32 out): 5.26 MB, 1.57 us at R = 16384,
+// hd 64 (one qwen2 layer's K ring).  Where hd % 16 == 0 and the rows are
+// 16-byte aligned the kernel walks 16-mantissa pieces a warp tile at a time:
+// each lane issues up to KV_DEQUANT_VECS 16-byte loads before any store (that
+// many loads in flight a thread, fewer where the grid would leave an SM
+// without a block), neighbouring lanes on neighbouring pieces, and
+// builds each piece's 2^-f from its row's exponent (row and column advance by
+// addition, no division a piece); warp shuffles hand every lane the four
+// mantissas of the output float4 it stores, so the stores are as contiguous as
+// the loads (a thread storing its own pieces' 64 bytes each left every store
+// instruction 64 or 256 bytes a lane apart, and ran at 14-36% of the bound at
+// R = 393216).  Indices are 32-bit where R * hd < 2^31; stores are streaming
+// (st.global.cs: written once, read by a later kernel); the grid is one wave,
+// KV_DEQUANT_BLOCKS_PER_SM blocks an SM at most, each warp striding over the
+// rest.  Other hd or unaligned rows take a grid-stride loop over single
+// values: any hd, no padding.
 //
 // kv_attention_rows.  The fused decode read: scores of the query rows against the
 // int8 (or nibble) key mantissas with 2^-kf * scale folded in per slot, the mask
@@ -363,34 +376,128 @@ __device__ __forceinline__ void stage_rows(int8_t* kdst, int8_t* vdst, int ldk,
   }
 }
 
-__global__ void kv_dequant_kernel(const int8_t* __restrict__ q,
-                                  const int8_t* __restrict__ f, float* __restrict__ out,
-                                  int R, int hd, int vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (vec) {
-    const int per = hd / 16;  // 16-mantissa pieces of a row
-    const long long n = static_cast<long long>(R) * per;
-    for (long long i = first; i < n; i += stride) {
-      const float s = exact_exp2(-static_cast<float>(f[i / per]));
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(q) + i);
-      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-      float4* o = reinterpret_cast<float4*>(out) + 4 * i;
+// The most 16-byte pieces a lane loads before it stores (the launch halves it
+// while the grid would leave an SM without a block), threads a block, and the
+// grid's blocks an SM at most (torch_kernel_sweep.py --part dequant)
+#ifndef KV_DEQUANT_VECS
+#define KV_DEQUANT_VECS 8
+#endif
+#ifndef KV_DEQUANT_THREADS
+#define KV_DEQUANT_THREADS 256
+#endif
+#ifndef KV_DEQUANT_BLOCKS_PER_SM
+#define KV_DEQUANT_BLOCKS_PER_SM 8
+#endif
+constexpr int DQ_SMS = 132;
+constexpr int DQ_VECS = KV_DEQUANT_VECS;
+constexpr int DQ_THREADS = KV_DEQUANT_THREADS;
+constexpr int DQ_WARPS = DQ_THREADS / 32;
+constexpr int DQ_MAX_BLOCKS = DQ_SMS * KV_DEQUANT_BLOCKS_PER_SM;
+static_assert(DQ_THREADS % 32 == 0 && DQ_THREADS <= 1024, "whole warps");
+static_assert(DQ_VECS == 1 || DQ_VECS == 2 || DQ_VECS == 4 || DQ_VECS == 8,
+              "1, 2, 4 or 8 pieces a lane");
+
+__device__ __forceinline__ float dequant_scale(int8_t f) {
+  return exact_exp2(-static_cast<float>(f));
+}
+
+__device__ __forceinline__ float mantissa(uint32_t w, int b) {
+  return static_cast<float>(static_cast<int8_t>((w >> (8 * b)) & 0xFFu));
+}
+
+// Rows of hd = 16 * per mantissas, 16-byte aligned; Index is 32-bit where the
+// launcher found R * hd < 2^31.  A warp takes a tile of 32 * V consecutive
+// pieces: lane l loads pieces l, l + 32, ... (each load instruction of the
+// warp reads 512 contiguous bytes), all before any store, and the 2^-f of
+// each piece's row (the row and column advance by addition, one division a
+// tile).  Output float4 k * 32 + l of the tile -- four mantissas of piece
+// 8k + l / 4 -- comes to lane l by shuffles from the lane that loaded it, so
+// every store instruction of the warp writes 512 contiguous bytes.
+template <typename Index, int V>
+__global__ void __launch_bounds__(DQ_THREADS)
+    kv_dequant_vec_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ f,
+                          float* __restrict__ out, Index R, int per) {
+  const Index n = R * static_cast<Index>(per);  // pieces
+  const Index tiles = (n + 32 * V - 1) / (32 * V);
+  const int lane = threadIdx.x & 31;
+  const uint4* qv = reinterpret_cast<const uint4*>(q);
+  float4* ov = reinterpret_cast<float4*>(out);
+  // a lane's next piece is 32 on: that many rows and columns further
+  const int row_step = 32 / per, col_step = 32 % per;
+  const Index stride = static_cast<Index>(gridDim.x) * DQ_WARPS;
+  for (Index t = static_cast<Index>(blockIdx.x) * DQ_WARPS + (threadIdx.x >> 5); t < tiles;
+       t += stride) {
+    const Index p0 = t * (32 * V);
+    uint4 v[V];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t w = words[e];
-        o[e] = make_float4(
-            __fmul_rn(static_cast<float>(static_cast<int8_t>(w & 0xFFu)), s),
-            __fmul_rn(static_cast<float>(static_cast<int8_t>((w >> 8) & 0xFFu)), s),
-            __fmul_rn(static_cast<float>(static_cast<int8_t>((w >> 16) & 0xFFu)), s),
-            __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 24)), s));
+    for (int j = 0; j < V; ++j) {
+      const Index p = p0 + 32 * j + lane;
+      v[j] = p < n ? __ldg(qv + p) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float s[V];
+    Index row = (p0 + lane) / per;
+    int col = static_cast<int>(p0 + lane - row * per);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s[j] = p0 + 32 * j + lane < n ? dequant_scale(__ldg(f + row)) : 0.f;
+      row += row_step;
+      col += col_step;
+      if (col >= per) {
+        col -= per;
+        ++row;
       }
     }
-    return;
+#pragma unroll
+    for (int k = 0; k < 4 * V; ++k) {
+      const int j = k / 4, src = 8 * (k % 4) + (lane >> 2);
+      const uint32_t w0 = __shfl_sync(0xFFFFFFFFu, v[j].x, src);
+      const uint32_t w1 = __shfl_sync(0xFFFFFFFFu, v[j].y, src);
+      const uint32_t w2 = __shfl_sync(0xFFFFFFFFu, v[j].z, src);
+      const uint32_t w3 = __shfl_sync(0xFFFFFFFFu, v[j].w, src);
+      const float sc = __shfl_sync(0xFFFFFFFFu, s[j], src);
+      const int e = lane & 3;
+      const uint32_t w = e == 0 ? w0 : e == 1 ? w1 : e == 2 ? w2 : w3;
+      const Index o = 4 * p0 + 32 * k + lane;  // float4 index
+      if (o < 4 * n) {
+        const float4 r = make_float4(__fmul_rn(mantissa(w, 0), sc),
+                                     __fmul_rn(mantissa(w, 1), sc),
+                                     __fmul_rn(mantissa(w, 2), sc),
+                                     __fmul_rn(mantissa(w, 3), sc));
+        __stcs(ov + o, r);
+      }
+    }
   }
+}
+
+// Any hd, any alignment: one value a step.
+__global__ void kv_dequant_scalar_kernel(const int8_t* __restrict__ q,
+                                         const int8_t* __restrict__ f,
+                                         float* __restrict__ out, int R, int hd) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long n = static_cast<long long>(R) * hd;
-  for (long long i = first; i < n; i += stride)
-    out[i] = __fmul_rn(static_cast<float>(q[i]), exact_exp2(-static_cast<float>(f[i / hd])));
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = __fmul_rn(static_cast<float>(q[i]), dequant_scale(f[i / hd]));
+}
+
+// Nothing: the launch floor of a kernel of this grid on this card.
+__global__ void empty_kernel() {}
+
+// The 16-byte path's blocks for R * hd values at V pieces a lane: one a
+// DQ_WARPS tiles, DQ_MAX_BLOCKS at most.
+inline int dequant_blocks(long long values, int v) {
+  const long long tiles = (values / 16 + 32 * v - 1) / (32 * v);
+  return static_cast<int>(
+      std::min<long long>((tiles + DQ_WARPS - 1) / DQ_WARPS, DQ_MAX_BLOCKS));
+}
+
+// Pieces a lane for R * hd values: DQ_VECS, halved while the grid would give
+// some SM no block (a small ring wants blocks on every SM more than loads in
+// flight: one layer's K ring runs at V = 1, all 24 layers' at V = 8).
+inline int dequant_vecs(long long values) {
+  int v = DQ_VECS;
+  while (v > 1 && dequant_blocks(values, v) < DQ_SMS) v /= 2;
+  return v;
 }
 
 __device__ __forceinline__ bool visible(int tp, int qp, int window) {
@@ -796,14 +903,50 @@ extern "C" int kv_store_launch(const void* k, long long k_sb, long long k_ss,
 // when hd % 16 == 0 and q and out are 16-byte aligned.
 extern "C" int kv_dequant_launch(const int8_t* q, const int8_t* f, float* out, int R,
                                  int hd, int vec, void* stream) {
-  if (R <= 0 || hd <= 0) return cudaErrorInvalidValue;
-  const long long work = static_cast<long long>(R) * (vec ? hd / 16 : hd);
-  constexpr int kThreads = 256;
-  const int blocks = static_cast<int>(std::min<long long>((work + kThreads - 1) / kThreads,
-                                                          132LL * 16));
-  kv_dequant_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, f, out, R, hd, vec);
+  if (R <= 0 || hd <= 0 || (vec && hd % 16)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long values = static_cast<long long>(R) * hd;
+  if (vec) {
+    const int v = dequant_vecs(values), blocks = dequant_blocks(values, v);
+    const bool narrow = values < (1LL << 31);
+#define KV_DEQUANT_VEC_LAUNCH(V)                                                       \
+  if (narrow)                                                                          \
+    kv_dequant_vec_kernel<unsigned, V><<<blocks, DQ_THREADS, 0, st>>>(                 \
+        q, f, out, static_cast<unsigned>(R), hd / 16);                                 \
+  else                                                                                 \
+    kv_dequant_vec_kernel<long long, V><<<blocks, DQ_THREADS, 0, st>>>(q, f, out, R,   \
+                                                                       hd / 16)
+    switch (v) {
+      case 8: KV_DEQUANT_VEC_LAUNCH(8); break;
+      case 4: KV_DEQUANT_VEC_LAUNCH(4); break;
+      case 2: KV_DEQUANT_VEC_LAUNCH(2); break;
+      default: KV_DEQUANT_VEC_LAUNCH(1);
+    }
+#undef KV_DEQUANT_VEC_LAUNCH
+  } else {
+    constexpr int kThreads = 256;
+    const int blocks = static_cast<int>(
+        std::min<long long>((values + kThreads - 1) / kThreads, 132LL * 16));
+    kv_dequant_scalar_kernel<<<blocks, kThreads, 0, st>>>(q, f, out, R, hd);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel on `blocks` blocks of `threads` (what kv_dequant_launch runs
+// at a shape: kv_dequant_grid), for the launch floor beside its times.
+extern "C" int kv_empty_launch(int blocks, int threads, void* stream) {
+  if (blocks <= 0 || threads <= 0 || threads > 1024) return cudaErrorInvalidValue;
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kv_dequant_launch's grid for [R, hd] on the 16-byte path: blocks, threads,
+// and the pieces a lane.
+extern "C" void kv_dequant_grid(int R, int hd, int* blocks, int* threads, int* vecs) {
+  const long long values = static_cast<long long>(R) * hd;
+  *vecs = dequant_vecs(values);
+  *blocks = dequant_blocks(values, *vecs);
+  *threads = DQ_THREADS;
 }
 
 // qh [B, S, H, hd] fp32 contiguous; km / vm int8 mantissas [B, W, KV, hdm] read

@@ -1,7 +1,8 @@
-"""Models ported so far: the dense decoder-only LM and the jet tagger."""
+"""Models ported so far: the dense decoder-only LM and the paper's three
+benchmark models."""
 from .config import ModelConfig
 from .lm import TransformerLM
-from .tasks import JetTagger
+from .tasks import JetTagger, MuonTracker, SVHNNet
 
 
 def model_for(cfg: ModelConfig):
@@ -11,4 +12,5 @@ def model_for(cfg: ModelConfig):
     return TransformerLM
 
 
-__all__ = ["JetTagger", "ModelConfig", "TransformerLM", "model_for"]
+__all__ = ["JetTagger", "ModelConfig", "MuonTracker", "SVHNNet",
+           "TransformerLM", "model_for"]

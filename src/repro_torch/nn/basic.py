@@ -1,6 +1,5 @@
-"""Basic quantized layers: dense, embedding, norms, activations
-(counterpart of ``repro/nn/basic.py``; ``HConv2D`` waits for the port
-of the SVHN model)."""
+"""Basic quantized layers: dense, conv2d, embedding, norms, activations
+(counterpart of ``repro/nn/basic.py``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -8,6 +7,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import ebops as ebops_lib
 from ..core import hgq
 from ..core.hgq import Aux, QTensor
 from ..core.quantizer import f_shape_for
@@ -79,6 +79,116 @@ class HDense:
             d_in, d_out = kq.q.shape
             y = torch.matmul(x.q.to(kq.q.dtype), kq.q).to(x.q.dtype)
             hgq.matmul_ebops(aux, x.bits, kq.bits, d_in, d_out)
+        if "bias" in p:
+            y = y + (wq["bias"] if wq is not None
+                     else get_qw(p["bias"], mode)).q
+        return _out_quant(p, q, activation(act, y), mode, aux)
+
+
+# cuDNN as the conv uses it, forward and backward: full float32 (PyTorch's
+# default lets cuDNN run float32 convs in TF32, ~10 mantissa bits, which
+# puts the card ~1e-3 off the CPU) and deterministic algorithms (two runs
+# give the same bits)
+CUDNN_FLAGS = dict(enabled=True, benchmark=False, deterministic=True,
+                   allow_tf32=False)
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` (no padding, no bias) whose forward and backward both
+    run under ``CUDNN_FLAGS``, whatever the caller set globally."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
+            y = F.conv2d(x, w, stride=stride)
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g.contiguous(memory_format=torch.channels_last), x, w, None,
+                [ctx.stride] * 2, [0, 0], [1, 1], False, [0, 0], 1,
+                [need[0], need[1], False])
+        return gx, gw, None
+
+
+def _same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: (low, high)."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                padding: str = "VALID") -> torch.Tensor:
+    """``lax.conv_general_dilated`` with NHWC x, HWIO w and NHWC output,
+    on permuted views (channels-last memory throughout), in full float32
+    on the card (``CUDNN_FLAGS``).  ``padding``: "VALID" or "SAME"."""
+    if padding == "SAME":
+        (ht, hb), (wl, wr) = (_same_pads(x.shape[1], w.shape[0], stride),
+                              _same_pads(x.shape[2], w.shape[1], stride))
+        x = F.pad(x, (0, 0, wl, wr, ht, hb))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'VALID' or 'SAME', got {padding!r}")
+    y = _Conv2d.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def _chan_bits(bits: torch.Tensor, cin: int) -> torch.Tensor:
+    """Collapse activation bits to per-input-channel for conv ~EBOPs."""
+    b = torch.as_tensor(bits, dtype=torch.float32)
+    if b.ndim == 0:
+        return b
+    if b.shape[-1] == cin:
+        return torch.amax(b.reshape(-1, b.shape[-1]), dim=0)
+    return torch.amax(b).reshape(1)
+
+
+class HConv2D:
+    """Quantized conv kernel [kh, kw, cin, cout] (HWIO, as the reference
+    keeps it) over NHWC activations, +bias, stream-IO ~EBOPs, optional
+    activation and output quantizer.  The conv (``conv2d_nhwc``) runs in
+    full float32 with deterministic cuDNN algorithms on the card, forward
+    and backward, under the layer's own ``CUDNN_FLAGS`` and not the
+    caller's global ones: PyTorch's default TF32 would put the card ~1e-3
+    off the CPU."""
+
+    @staticmethod
+    def init(gen, kh: int, kw: int, cin: int, cout: int, cfg: HGQConfig, *,
+             bias: bool = True, out_q: bool = True, device=None):
+        p: Dict[str, Any] = {"kernel": qweight_init(gen, (kh, kw, cin, cout),
+                                                    cfg, device=device)}
+        q: Dict[str, Any] = {}
+        if bias:
+            p["bias"] = {"w": torch.zeros((cout,), device=device)}
+            if cfg.enabled:
+                p["bias"]["f"] = torch.full(
+                    f_shape_for((cout,), cfg.weight_gran),
+                    cfg.init_weight_f, dtype=torch.float32, device=device)
+        if out_q:
+            f, st = act_q_init(cfg, device=device)
+            if f is not None:
+                p["out_f"] = f
+                q["out"] = st
+        return p, q
+
+    @staticmethod
+    def apply(p, q, x: QTensor, *, mode: str, aux: Optional[Aux],
+              act: str = "", stride: int = 1, padding: str = "VALID",
+              wq: Optional[Dict[str, QTensor]] = None
+              ) -> Tuple[QTensor, Dict[str, Any]]:
+        """``wq``: the quantized kernel and bias, made beforehand (as
+        ``HDense.apply`` takes them)."""
+        kq = wq["kernel"] if wq is not None else get_qw(p["kernel"], mode)
+        w_shape = tuple(p["kernel"]["w"].shape)
+        y = conv2d_nhwc(x.q, kq.q, stride, padding)
+        if aux is not None and x.bits is not None and kq.bits is not None:
+            aux.add(ebops=ebops_lib.ebops_conv2d(
+                _chan_bits(x.bits, w_shape[2]), kq.bits, w_shape))
         if "bias" in p:
             y = y + (wq["bias"] if wq is not None
                      else get_qw(p["bias"], mode)).q

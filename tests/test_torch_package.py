@@ -386,6 +386,44 @@ def test_kv_dequant_launches_its_kernel_on_cuda(cuda_device):
         assert torch.equal(out, kv_dequant_ref(q, f))
 
 
+# kv_dequant_rows' redesign: (R, hd, byte offset of q into its buffer, f
+# drawn from the whole int8 range).  Any hd (the one-value path off
+# multiples of 16), rows 1-15 bytes off a 16-byte boundary (one-value
+# path), R ragged against a thread's 4 pieces and a block's threads, and
+# -128 mantissas at every exponent -128..127 (2^-f clamped to the normal
+# range, products that overflow to -inf).
+DEQUANT_EDGES = [(16384, 64, 0, False), (393217, 64, 0, False),
+                 (1, 64, 0, False), (3, 16, 0, False), (1001, 48, 0, False),
+                 (257, 80, 0, False), (33, 256, 0, False), (5, 1, 0, False),
+                 (7, 17, 0, False), (1000, 72, 0, False), (999, 64, 1, False),
+                 (64, 64, 15, False), (256, 64, 0, True), (129, 16, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,hd,offset,extreme", DEQUANT_EDGES)
+def test_kv_dequant_rows_edges_on_cuda(cuda_device, R, hd, offset, extreme):
+    """The kernel equals the plain version bit for bit and twice the same
+    on every edge of its geometry."""
+    g = torch.Generator(device=cuda_device).manual_seed(R + hd + offset)
+    buf = torch.randint(-128, 128, (R * hd + offset,), generator=g,
+                        device=cuda_device, dtype=torch.int8)
+    q = buf[offset:].view(R, hd)
+    if extreme:
+        f = (torch.arange(R, device=cuda_device) % 256 - 128).to(torch.int8)
+        q[::2] = -128
+    else:
+        f = torch.randint(-3, 12, (R,), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+    out = kv_dequant_rows(q, f)
+    again = kv_dequant_rows(q, f)
+    torch.cuda.synchronize()
+    ref = kv_dequant_ref(q, f)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    if extreme:
+        assert bool(torch.isinf(ref).any())      # the overflow was reached
+
+
 @pytest.mark.cuda
 def test_qmatmul_reads_nibbles_in_the_kernel(cuda_device, monkeypatch):
     """``qmatmul_any`` on the packer's ``w_nib`` storage launches the

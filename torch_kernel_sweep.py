@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Geometry sweeps behind the build-time constants of three of the
-PyTorch port's kernels, on one CUDA card.  Run from the repository root:
+"""Geometry sweeps behind the build-time constants of the PyTorch port's
+kernels, on one CUDA card.  Run from the repository root:
 
-    python3 torch_kernel_sweep.py [--part all|pack|bwd|fwd|bucket|reduce]
+    python3 torch_kernel_sweep.py [--part all|pack|bwd|fwd|bucket|dequant|
+                                          reduce]
                                   [--out build/kernel_sweep.json]
                                   [--src DIR] [--default-only]
 
@@ -41,7 +42,16 @@ geometry is copied here:
    qwen2 reduce's two largest buckets (the embedding alone at 8 bits, a
    stacked MLP leaf in nibbles), each variant checked bit for bit against
    the plain version (at rank 0 for the decode).
-5. ``reduce`` (not in ``all``): the fused reduce of qwen2-0.5b's gradient
+5. ``kv_dequant_rows`` (``csrc/kv_dequant.cu``, the 16-byte path):
+   ``KV_DEQUANT_VECS`` (the most 16-byte pieces a lane loads before it
+   stores; the launch halves it while an SM would have no block) by
+   ``KV_DEQUANT_THREADS`` (a block) by ``KV_DEQUANT_BLOCKS_PER_SM``
+   (the grid's blocks an SM at most), at one qwen2-0.5b layer's K ring
+   (R = 16384, hd 64) and all 24 layers' (R = 393216), each variant
+   checked bit for bit, with its registers and spills and the empty
+   kernel on its grid (the launch floor), beside ``zero_`` over the
+   output's bytes (what the card takes to write them alone).
+6. ``reduce`` (not in ``all``): the fused reduce of qwen2-0.5b's gradient
    tree over ``LocalMesh(4)`` (``chip_smoke._qwen2_grads``), uniform int8
    and ``plan_mixed_w4w8``, of the package under ``--src``: the peak
    memory of three calls after one warm-up (the tree, and the previous
@@ -108,6 +118,13 @@ BUCKET_VARIANTS = [()] + [
 # the qwen2 reduce's two largest buckets, as the tallies key them
 BUCKET_SHAPES = [(4, 8, False, (((151936, 896), 1, "float32"),)),
                  (4, 4, True, (((24, 4864, 896), 24, "float32"),))]
+DEQUANT_VARIANTS = [()] + [
+    (f"-DKV_DEQUANT_VECS={v}", f"-DKV_DEQUANT_THREADS={t}",
+     f"-DKV_DEQUANT_BLOCKS_PER_SM={b}")
+    for v, t, b in ((1, 256, 8), (2, 256, 8), (4, 256, 8), (4, 256, 16),
+                    (8, 256, 16), (8, 128, 8), (8, 128, 16), (8, 512, 4),
+                    (8, 512, 8), (8, 256, 4))]
+DEQUANT_SHAPES = ((16384, 64), (393216, 64))
 # the jet tagger's weights and biases: one grouped launch a training step
 JET_GROUP = [(16, 64), (64,), (64, 32), (32,), (32, 32), (32,), (32, 5),
              (5,)]
@@ -125,6 +142,8 @@ def _build_variants(parts, fwd_variants):
         jobs += [("hgq_quantize", d) for d in fwd_variants]
     if "bucket" in parts:
         jobs += [("wire_pack", d) for d in BUCKET_VARIANTS]
+    if "dequant" in parts:
+        jobs += [("kv_dequant", d) for d in DEQUANT_VARIANTS]
     if "reduce" in parts:
         jobs += [("wire_pack", ())]
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -269,12 +288,14 @@ def _fwd_sweep(dev, g, variants, label):
     return rows
 
 
-def _registers(name, defines):
-    """(registers, spill stores) ptxas reported for a bucket kernel's build
-    (``wire_quantize_bucket`` -> ``quantize_bucket_kernel``)."""
+def _registers(name, defines, source="wire_pack", kernel=None):
+    """(registers, spill stores) ptxas reported for a kernel's build (a
+    bucket kernel by its wrapper's name: ``wire_quantize_bucket`` ->
+    ``quantize_bucket_kernel``; else the first entry whose mangled name
+    holds ``kernel``)."""
     from repro_torch.kernels import _build
-    kernel = name.replace("wire_", "") + "_kernel"
-    lines = _build.ptxas_report("wire_pack", defines).splitlines()
+    kernel = kernel or name.replace("wire_", "") + "_kernel"
+    lines = _build.ptxas_report(source, defines).splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
             spill = int(lines[i + 1].split("bytes spill stores")[0]
@@ -310,6 +331,48 @@ def _bucket_sweep(dev, g):
                              "bound_ms": bound(nbytes, 0)[0]})
                 print(json.dumps(rows[-1]), flush=True)
             del sets, want
+    return rows
+
+
+def _dequant_sweep(dev, g):
+    from chip_smoke import DEQUANT_CALLS, dequant_grid, launch_floor_ms
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kv_dequant import kv_dequant_rows
+    from repro_torch.kernels.kv_dequant.ref import kv_dequant_ref
+    rows = []
+    for R, hd in DEQUANT_SHAPES:
+        nbytes = 5 * R * hd + R
+        # what the card writes alone: zero_ over the output's bytes
+        zero = [(torch.empty((R, hd), device=dev),)
+                for _ in range(n_copies(4 * R * hd))]
+        rows.append({"kernel": "torch.Tensor.zero_", "shape": f"R{R} hd{hd}",
+                     "ms": time_ms(torch.Tensor.zero_, zero, DEQUANT_CALLS),
+                     "bound_ms": bound(4 * R * hd, 0)[0]})
+        print(json.dumps(rows[-1]), flush=True)
+        del zero
+        sets = [(torch.randint(-128, 128, (R, hd), generator=g, device=dev,
+                               dtype=torch.int8),
+                 torch.randint(-3, 12, (R,), generator=g, device=dev,
+                               dtype=torch.int8))
+                for _ in range(n_copies(nbytes))]
+        want = kv_dequant_ref(*sets[0])
+        for defines in DEQUANT_VARIANTS:
+            with _build.variant("kv_dequant", defines):
+                exact = torch.equal(kv_dequant_rows(*sets[0]).view(
+                    torch.int32), want.view(torch.int32))
+                ms = time_ms(kv_dequant_rows, sets, DEQUANT_CALLS)
+                floor = launch_floor_ms(R, hd, dev)
+                blocks, threads, vecs = dequant_grid(R, hd)
+            rows.append({"kernel": "kv_dequant_rows", "shape": f"R{R} hd{hd}",
+                         "defines": list(defines) or "default",
+                         "grid": [blocks, threads, vecs],
+                         "registers": _registers(
+                             "kv_dequant_rows", defines, "kv_dequant",
+                             f"kv_dequant_vec_kernelIjLi{vecs}E"),
+                         "exact": exact, "ms": ms, "launch_floor_ms": floor,
+                         "bound_ms": bound(nbytes, 0)[0]})
+            print(json.dumps(rows[-1]), flush=True)
+        del sets, want
     return rows
 
 
@@ -355,7 +418,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/kernel_sweep.json")
     ap.add_argument("--part", choices=("all", "pack", "bwd", "fwd",
-                                       "bucket", "reduce"),
+                                       "bucket", "dequant", "reduce"),
                     default="all")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose repro_torch is timed (fwd or "
@@ -375,7 +438,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip()
     print(smi, flush=True)
-    parts = (("pack", "bwd", "fwd", "bucket") if args.part == "all"
+    parts = (("pack", "bwd", "fwd", "bucket", "dequant") if args.part == "all"
              else (args.part,))
     if other and parts not in (("fwd",), ("reduce",)):
         print("torch_kernel_sweep: --src times the forward or the reduce "
@@ -383,8 +446,9 @@ def main() -> int:
         return 2
     fwd_variants = [()] if other or args.default_only else FWD_VARIANTS
     if args.default_only:
-        global PACK_VARIANTS, BWD_VARIANTS, BUCKET_VARIANTS
+        global PACK_VARIANTS, BWD_VARIANTS, BUCKET_VARIANTS, DEQUANT_VARIANTS
         PACK_VARIANTS, BWD_VARIANTS, BUCKET_VARIANTS = [()], [()], [()]
+        DEQUANT_VARIANTS = [()]
     _build_variants(parts, fwd_variants)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -399,6 +463,8 @@ def main() -> int:
             dev, g, fwd_variants, "other tree" if other else "this tree")
     if "bucket" in parts:
         readings["wire_bucket"] = _bucket_sweep(dev, g)
+    if "dequant" in parts:
+        readings["kv_dequant_rows"] = _dequant_sweep(dev, g)
     if "reduce" in parts:
         readings["reduce"] = _reduce_reading(
             dev, "other tree" if other else "this tree")
@@ -406,8 +472,10 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(readings, indent=1))
     bad = [r for k in ("wire_pack_rows", "hgq_quantize_bwd",
-                       "hgq_quantize_fwd", "wire_bucket")
-           for r in readings.get(k, ()) if not r.get("exact", r.get("df_ok"))]
+                       "hgq_quantize_fwd", "wire_bucket", "kv_dequant_rows")
+           for r in readings.get(k, ())
+           if not r.get("exact", r.get("df_ok", r["kernel"].startswith(
+               "torch.")))]
     for r in bad:
         print("wrong result:", json.dumps(r), file=sys.stderr)
     return 1 if bad else 0
