@@ -41,7 +41,10 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    ragged R, -128 mantissas at every exponent); holds and times the
    ``hgq_quantize`` shapes of the SVHN and muon models (4-D
    per-parameter conv kernels, per-tensor activations up to 1.84 M
-   values, their grouped forwards);
+   values, their grouped forwards) and of the qwen2-0.5b training step
+   (the 151936 x 896 table per channel, a 29.4 M-value chunk pair of
+   attention probabilities, the activations, one layer's grouped forward
+   of 10 weights and biases);
 4. slice phase: serves qwen2-0.5b at full width (random weights from a
    seed) through the port's ``Engine`` in two configurations, holds the
    tokens against ``generate()`` and the logits against the CPU's plain
@@ -82,7 +85,23 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    the backward without ``ln2 * delta`` for SVHN, that backward and
    ``floor(f)`` rounding for muon), two card runs bit-identical, and one
    step of each traced last as the jet's is (one ``hgq_bwd`` kernel a
-   reducing backward, two past the one-cluster line);
+   reducing backward, two past the one-cluster line); then qwen2-0.5b at
+   its published width (``configs/qwen2_0_5b.py`` FULL, random weights
+   from the seed, the ``lm`` data kind, batch 2, seq 2048, chunks of 1024,
+   each layer rematerialized) through ``Trainer.run`` for 20 steps at the
+   launcher's settings: step 0's loss near ln(vocab), every loss finite,
+   ~EBOPs reported, step ms, tokens/s, peak memory and
+   ``lm_train_mfu_fp32``; a step's ``hgq_quantize`` launches tallied by
+   shape as exact counts (579 single forwards, 48 grouped, 531 backward);
+   its first 3 steps run again from the same init (the same bits); the
+   same code at full width and 2 layers (seq 256, chunks of 128) 5 steps
+   on the card against the CPU (step 0's loss and every step's ~EBOPs,
+   a limit that three faulty controls exceed: TF32 matmuls, the
+   probabilities quantized after one softmax over all keys, the backward
+   without ``ln2 * delta``);
+   ``TransformerLM.forward`` in EVAL against ``decode_step`` token by
+   token on the fp cache and the 8-bit ring, as served and without
+   activation quantizers; one LM step traced last as the others are;
 6. wire phase: (a) trains the same jet tagger data-parallel over
    ``dist.LocalMesh(4)`` (four ranks as threads on the one card: NCCL
    refuses two ranks on one GPU) with ``reduce="compressed"`` (1D, fused,
@@ -106,7 +125,7 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    shape those paths launched against its plain version and times it;
 7. prints one JSON line with every kernel's numbers, its times per unit
    of its main path (a full decode tick, a training step -- the jet's,
-   with an svhn step and a muon step beside it --, a compressed
+   with an svhn, a muon and an LM step beside it --, a compressed
    data-parallel step, a qwen2 gradient reduce) weighted by those
    tallies, the TPU kernels still to port, then, last, ``{"ok": true,
    "device": {...}}``.
@@ -134,6 +153,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -811,6 +831,54 @@ PAPER_SHAPES = [m for m in dict.fromkeys(
     + SVHN_GROUP + MUON_GROUP) if m not in HGQ_SHAPES]
 
 
+# qwen2-0.5b at its published width (configs/qwen2_0_5b.py FULL) and the
+# LM training cell's batch: the model's dimensions, checked against the
+# config where the cell runs
+QWEN = dict(L=24, d=896, H=14, KV=2, hd=64, ff=4864, V=151936, chunk=1024)
+LM_BATCH, LM_SEQ = 2, 2048
+
+
+def _lm_layer_members(Q=QWEN):
+    """One layer's weights and biases in the order of its grouped forward
+    (``models.lm._layer_weights``): q, k, v kernels per channel with their
+    biases per parameter, o, gate, up, down: (layout, shape) each."""
+    d, qd, kvd, ff = Q["d"], Q["H"] * Q["hd"], Q["KV"] * Q["hd"], Q["ff"]
+    return [("per_channel", (d, qd)), ("per_parameter", (qd,)),
+            ("per_channel", (d, kvd)), ("per_parameter", (kvd,)),
+            ("per_channel", (d, kvd)), ("per_parameter", (kvd,)),
+            ("per_channel", (qd, d)), ("per_channel", (d, ff)),
+            ("per_channel", (d, ff)), ("per_channel", (ff, d))]
+
+
+def _lm_layer_acts(B, S, chunk, Q=QWEN):
+    """One layer's activation quantizers, all per tensor, in launch order:
+    ln1, q, k, v, the probabilities of each (query chunk, key chunk) pair
+    [B, KV, G, cq, ck], the attention output, ln2, gate, up."""
+    c = min(chunk, S)
+    pairs = (-(-S // c)) ** 2
+    G = Q["H"] // Q["KV"]
+    return ([(B, S, Q["d"]), (B, S, Q["H"] * Q["hd"]),
+             (B, S, Q["KV"] * Q["hd"]), (B, S, Q["KV"] * Q["hd"])]
+            + [(B, Q["KV"], G, c, c)] * pairs
+            + [(B, S, Q["H"] * Q["hd"]), (B, S, Q["d"]), (B, S, Q["ff"]),
+               (B, S, Q["ff"])])
+
+
+# the LM step's quantizer shapes: the tied 151936 x 896 table per channel
+# (the embedding and the head, 136 M values, the backward's clusters and
+# second pass over 151936 rows a column), the activations per tensor (a
+# [2, 2, 7, 1024, 1024] chunk pair of probabilities, 29.4 M values), one
+# layer's 10 weights and biases in one grouped forward
+LM_TABLE = ((QWEN["V"], QWEN["d"]), (1, QWEN["d"]), torch.float32)
+LM_GROUP = [(s, (1, s[-1]) if lay == "per_channel" else s, torch.float32)
+            for lay, s in _lm_layer_members()]
+LM_SHAPES = [m for m in dict.fromkeys(
+    [LM_TABLE]
+    + [(s, (), torch.float32) for s in _lm_layer_acts(LM_BATCH, LM_SEQ,
+                                                      QWEN["chunk"])]
+    + LM_GROUP) if m not in HGQ_SHAPES]
+
+
 def _bits_of(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
@@ -1380,11 +1448,12 @@ def kernel_phase(dev):
             cases["kv_attention_rows"][key] = kv_attention_case(
                 B, S, W, nibble, 6.0, dev, g, H=H, KV=KV, hd=hd)
     long_ring_checks(dev, g)
-    for shape, fshape, dtype in HGQ_SHAPES + HGQ_EDGE + PAPER_SHAPES:
+    for shape, fshape, dtype in HGQ_SHAPES + HGQ_EDGE + PAPER_SHAPES \
+            + LM_SHAPES:
         key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
         cases["hgq_quantize_fwd"][key] = fwd
         cases["hgq_quantize_bwd"][key] = bwd
-    for members in (JET_GROUP, SVHN_GROUP, MUON_GROUP):
+    for members in (JET_GROUP, SVHN_GROUP, MUON_GROUP, LM_GROUP):
         key, case = hgq_group_case(members, dev, g)
         cases["hgq_quantize_fwd_group"][key] = case
     _hgq_group_checks(dev)
@@ -1459,7 +1528,8 @@ def kernels_line(cases, tallies):
             entry["note"] = ("the forward of the same TPU kernel over a group "
                              "of tensors in one launch (a training step's "
                              "weight and bias quantizers: 8 of the jet "
-                             "tagger, 12 of the SVHN and the muon models); "
+                             "tagger, 12 of the SVHN and the muon models, "
+                             "10 a layer of qwen2-0.5b); "
                              "library_ms null: "
                              "torch.fake_quantize_per_channel_affine rounds "
                              "half to even, Eq. 4 half up")
@@ -1564,6 +1634,8 @@ def _reset_counts():
 # reads, and a trace is only used whole: every kernel launch of the
 # function has its device kernel, else the function is profiled again.
 PROFILE_SETTLE_S = 0.05
+# the device operations a profiled training step lists by time
+PROFILE_TOP = 12
 PROFILE_MARKERS = 512
 PROFILE_ATTEMPTS = 3
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
@@ -1639,7 +1711,8 @@ def _launch_site(events, calls, i):
     return f"{c['name']} in {op} (launch {i + 1} of {len(calls)})"
 
 
-def _profiled(fn, grids_of=None, prepare=None, all_threads=False):
+def _profiled(fn, grids_of=None, prepare=None, all_threads=False,
+              device_ms=None):
     """``fn()`` (or ``fn(prepare())``, ``prepare`` run before the profiler
     starts) under ``torch.profiler``: (device operations, ms the device
     was busy, the launch grids of the device kernels whose name holds
@@ -1647,7 +1720,8 @@ def _profiled(fn, grids_of=None, prepare=None, all_threads=False):
     device kernels and host operators -- of every thread with
     ``all_threads``, where the profiler can -- counted), the markers left
     out.  Only a whole trace is read: one with a device kernel for every
-    kernel launch of ``fn``."""
+    kernel launch of ``fn``.  ``device_ms``, a dict, receives the device
+    milliseconds of each device operation's name."""
     from torch.autograd import DeviceType
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         args = () if prepare is None else (prepare(),)
@@ -1668,6 +1742,10 @@ def _profiled(fn, grids_of=None, prepare=None, all_threads=False):
         tuple(e["args"]["grid"]) for e in kernels
         if grids_of in e.get("name", "")]
     names = collections.Counter(e.name for e in events)
+    if device_ms is not None:
+        for e in dev:
+            device_ms[e.name] = device_ms.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
     return (len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3,
             grids, names)
 
@@ -2226,26 +2304,31 @@ def _df_without_ln2_delta():
         ops.hgq_quantize_bwd = real
 
 
-def _gaps(run, ref, ref_p):
-    """A run's largest relative gaps to the reference in loss and ~EBOPs
-    over the steps, and its largest |dparam| at the end."""
+def _gaps(run, ref, ref_p, loss_steps=None):
+    """A run's largest relative gaps to the reference in loss (over its
+    first ``loss_steps`` steps, all by default) and in ~EBOPs (over all),
+    each step's, and its largest |dparam| at the end."""
     from repro_torch.tree import tree_leaves
     hist, p = run
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
-    out = {"loss_rel": max(rel(h[0], r[0]) for h, r in zip(hist, ref)),
-           "ebops_rel": max(rel(h[1], r[1]) for h, r in zip(hist, ref)),
+    loss = [rel(h[0], r[0]) for h, r in zip(hist, ref)]
+    ebops = [rel(h[1], r[1]) for h, r in zip(hist, ref)]
+    out = {"loss_rel": max(loss[:loss_steps]), "ebops_rel": max(ebops),
            "param_abs": max(float((a - b).abs().max()) for a, b in zip(
-               tree_leaves(p), tree_leaves(ref_p)))}
+               tree_leaves(p), tree_leaves(ref_p))),
+           "loss_rel_steps": loss, "ebops_rel_steps": ebops}
     out["gap"] = max(out["loss_rel"], out["ebops_rel"])
     return out
 
 
-def _card_vs_cpu(dev, what, model, batches, controls, limit, traj_kw=None):
+def _card_vs_cpu(dev, what, model, batches, controls, limit, traj_kw=None,
+                 loss_steps=None):
     """The 20-step trajectory on the card (kernels) and on the CPU (plain
     versions) from one init (``model``'s, on the CPU) and one set of
     batches, twice on the card, and under each faulty control: gaps in
-    loss and ~EBOPs, largest |dparam|; the sound gap under ``limit``, every
-    control's above it, the two card runs bit-identical."""
+    loss (over the first ``loss_steps`` steps, all by default) and ~EBOPs,
+    largest |dparam|; the sound gap under ``limit``, every control's above
+    it, the two card runs bit-identical."""
     from repro_torch.tree import tree_leaves
     traj_kw = traj_kw or {}
     cpu = torch.device("cpu")
@@ -2260,8 +2343,10 @@ def _card_vs_cpu(dev, what, model, batches, controls, limit, traj_kw=None):
     for name, control in controls.items():
         with control():
             faulty[name] = _gaps(_trajectory(dev, params, qstate, batches,
-                                             **traj_kw), ref, ref_p)
-    out = {"sound": _gaps(card1, ref, ref_p), "repeat_bit_identical": same,
+                                             **traj_kw), ref, ref_p,
+                                 loss_steps)
+    out = {"sound": _gaps(card1, ref, ref_p, loss_steps),
+           "repeat_bit_identical": same,
            "controls": faulty, "cpu_final_loss": ref[-1][0]}
     print(f"[train] {what}: card vs CPU, {len(batches)} steps: "
           f"{json.dumps(out)} (limit on the larger relative gap of loss and "
@@ -2315,17 +2400,20 @@ def _profile_step(trainer, per_step, what, median_ms):
     grouped-forward kernel a forward launch, the backward's kernels."""
     step = trainer.tcfg.steps
     batch = trainer.pipeline(step)
+    device_ms = {}
     ops, busy, grids, names = _profiled(lambda: trainer.step_fn(
         trainer.params, trainer.qstate, trainer.opt, batch, step),
-        grids_of="hgq_bwd")
+        grids_of="hgq_bwd", device_ms=device_ms)
     fwd_kernels = sum(n for k, n in names.items() if "hgq_fwd_group" in k)
     fwd_launches = sum(per_step["hgq_quantize_fwd"].values()) + sum(
         per_step["hgq_quantize_fwd_group"].values())
     check(fwd_kernels == fwd_launches,
           f"{what}: profiled step: {fwd_kernels} hgq_quantize forward "
           f"kernels for {fwd_launches} launches")
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
     out = {"device_ops": ops, "device_busy_ms": busy,
            "idle_share_of_median_step": 1.0 - busy / median_ms,
+           "device_ms_by_name": {k[:100]: v for k, v in top},
            "hgq_fwd_kernels": fwd_kernels,
            **_bwd_kernels(grids, per_step, f"{what}: profiled step")}
     print(f"[train] {what}: profiled step: {ops} device operations, device "
@@ -2510,6 +2598,304 @@ def _paper_card_vs_cpu(dev, name):
                         dict(fwd=fwd, loss=loss, config=PAPER[name]))
 
 
+# ---------------------------------------------------------------------------
+# qwen2-0.5b: HGQ training at full width, and the no-cache prefill
+# ---------------------------------------------------------------------------
+
+# the launcher's optimizer settings (src/repro/api/spec.py: 20 steps, lr
+# 1e-3, beta 1e-9 -> 1e-7; gamma the Trainer's default)
+LM_TRAIN = dict(steps=20, lr=1e-3, beta0=1e-9, beta1=1e-7)
+# the cell's first steps run twice on the card, compared bit for bit
+LM_REPEAT_STEPS = 3
+# Step 0's loss against ln(vocab) = 11.931.  The random table is U(+-0.02)
+# on a 2^-6 grid (61% of its entries +-2^-6, the rest 0) and the final norm
+# gives unit activations, so the logits have variance 896 * 1.49e-4 = 0.134
+# whatever the depth, and the loss sits near ln(vocab) + 0.134 / 2 = 11.998
+# (12.0014 on the CPU at 2 layers).  The margin is twice that excess.
+LM_LOSS0_MARGIN = 0.15
+# The card against the CPU: the same code at full width, 2 layers, batch
+# 2, seq 256, chunks of 128 (so that they still interleave), 5 steps.
+# After the first update the loss trajectories part at once: an ulp of
+# another summation order moves a weight across its 2^-6 rounding point
+# (AdamW's first steps move every weight by about +-lr), and a random
+# model's loss answers every such flip alike (a sound gap of 2.6e-4 at
+# step 1, as large as the faulty controls').  So the loss is compared at
+# step 0 (one init, one batch: the forwards' rounding ties alone) and
+# ~EBOPs, which follow the continuous f and the range states, at every
+# step; the limit lies between the sound reading and the three faulty
+# controls' (readings in PERF.md).
+LM_SMALL = dict(n_layers=2, q_chunk=128, k_chunk=128)
+LM_SMALL_SEQ = 256
+LM_TRAJ_STEPS = 5
+LM_TRAJ_REL_LIMIT = 1e-5
+
+
+def _lm(cfg):
+    """(forward, loss) of the LM training step at ``cfg``."""
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import lm_loss
+    return (lambda p, q, b, mode: TransformerLM.forward(p, q, b, cfg, mode),
+            lambda out, b: lm_loss(out, b["tokens"]))
+
+
+def _lm_small_cfg():
+    from repro_torch.configs import get
+    return dataclasses.replace(get("qwen2-0.5b"), **LM_SMALL)
+
+
+def _lm_per_step(B, S, L, chunk, remat=True):
+    """A step's ``hgq_quantize`` launches by shape, as the wrappers key
+    them: the table's forward twice (the embedding, the tied head), each
+    layer's activation quantizers and its one grouped forward of 10
+    weights and biases (twice under remat: the backward recomputes the
+    layer), the final norm's; one backward a quantizer."""
+    f32 = "float32"
+    table = ("per_channel", (QWEN["V"], QWEN["d"]), f32)
+    acts = [("per_tensor", s, f32) for s in _lm_layer_acts(B, S, chunk)]
+    members = tuple((lay, s, f32) for lay, s in _lm_layer_members())
+    final = ("per_tensor", (B, S, QWEN["d"]), f32)
+    passes = 2 if remat else 1
+    return {"hgq_quantize_fwd": collections.Counter(
+                [table] * 2 + acts * (L * passes) + [final]),
+            "hgq_quantize_fwd_group": collections.Counter(
+                {members: L * passes}),
+            "hgq_quantize_bwd": collections.Counter(
+                [table] * 2 + (acts + list(members)) * L + [final])}
+
+
+def _lm_run(dev):
+    """qwen2-0.5b FULL through the port's ``Trainer.run`` on the card:
+    ``LM_TRAIN`` at batch 2, seq 2048, random weights from ``SEED``, the
+    ``lm`` data kind; steps timed, a step's launches tallied by shape;
+    then the first ``LM_REPEAT_STEPS`` steps again from the same init,
+    checked to give the same bits."""
+    from repro_torch.configs import get
+    from repro_torch.core.ebops import useful_model_flops_dense
+    from repro_torch.data import DataSpec, make_pipeline
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get("qwen2-0.5b")
+    dims = dict(L=cfg.n_layers, d=cfg.d_model, H=cfg.n_heads, KV=cfg.n_kv,
+                hd=cfg.hd, ff=cfg.d_ff, V=cfg.vocab, chunk=cfg.q_chunk)
+    check(dims == QWEN and cfg.k_chunk == cfg.q_chunk and cfg.remat
+          and cfg.tie_embeddings and cfg.qkv_bias,
+          f"not qwen2-0.5b at its published width: {dims}")
+    fwd, loss = _lm(cfg)
+    pipe = make_pipeline(DataSpec(kind="lm", batch=LM_BATCH, seq=LM_SEQ,
+                                  vocab=cfg.vocab, seed=SEED), device=dev)
+    tcfg = TrainConfig(log_every=1, **LM_TRAIN)
+
+    def init():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        return TransformerLM.init(gen, cfg, device=dev)
+
+    params, qstate = init()
+    n_tree = sum(t.numel() for t in tree_leaves(params))
+    starts, snap = [], {}
+
+    def timed_pipe(step):
+        # a step runs from one batch request to the next; the state after
+        # the repeated steps is copied out of step LM_REPEAT_STEPS - 1's time
+        torch.cuda.synchronize()
+        if step == LM_REPEAT_STEPS:
+            t = time.perf_counter()
+            snap["state"] = tree_map(lambda a: a.detach().cpu(),
+                                     (trainer.params, trainer.qstate))
+            snap["s"] = time.perf_counter() - t
+        starts.append(time.perf_counter())
+        return pipe(step)
+
+    trainer = Trainer(fwd, loss, tcfg, params, qstate, pipeline=timed_pipe)
+    del params, qstate
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_counts()                           # the main path starts here
+    t0 = time.perf_counter()
+    trainer.run(log=lambda line: print(f"[train] lm {line}", flush=True))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = _counts(TRAINING)                # ... and ends here
+    per_step = _per_step(_shapes(TRAINING), tcfg.steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = np.diff(starts + [t1]) * 1e3
+    step_ms[LM_REPEAT_STEPS - 1] -= snap["s"] * 1e3
+    # the same init again, its first steps
+    p2, q2 = init()
+    again = Trainer(fwd, loss, tcfg, p2, q2, pipeline=pipe)
+    del p2, q2
+    again.run(steps=LM_REPEAT_STEPS, log=lambda *a: None)
+    same_metrics = again.history == trainer.history[:LM_REPEAT_STEPS]
+    same_state = all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves((again.params, again.qstate)),
+        tree_leaves(snap.pop("state"))))
+    del again
+    hist = trainer.history
+    med = float(np.median(step_ms))
+    tokens = LM_BATCH * LM_SEQ
+    report = {
+        "config": "configs/qwen2_0_5b.py FULL (24 layers, d 896, 14 heads, "
+                  "2 kv heads, ff 4864, vocab 151936, QKV bias, tied "
+                  "embeddings; arXiv:2407.10671), random weights from the "
+                  "seed, lm data, batch 2, seq 2048, q_chunk = k_chunk = "
+                  "1024, remat; 20 steps, lr 1e-3, beta 1e-9 -> 1e-7",
+        "n_params": cfg.n_params(), "n_params_tree": n_tree,
+        "loss": [h["loss"] for h in hist], "ln_vocab": math.log(cfg.vocab),
+        "ebops": [h["ebops"] for h in hist],
+        "step_ms_median": med, "step_ms_p90": float(np.percentile(step_ms,
+                                                                   90)),
+        "tokens_per_s": tokens / (med / 1e3), "wall_s": t1 - t0,
+        "peak_mem_gib": peak,
+        "lm_train_mfu_fp32": useful_model_flops_dense(cfg.n_params(), tokens)
+        / (med / 1e3 * PEAK_FP32_PER_S),
+        "launches": counts,
+        "launches_per_step": {k: {" ".join(map(str, key)): n
+                                  for key, n in c.items()}
+                              for k, c in per_step.items()},
+        "repeat": {"steps": LM_REPEAT_STEPS, "metrics_equal": same_metrics,
+                   "params_and_qstate_equal": same_state}}
+    print(f"[train] lm on the card: {json.dumps(report)}", flush=True)
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["ebops"])
+              for h in hist), "lm: a loss or ~EBOPs is not finite")
+    check(abs(hist[0]["loss"] - math.log(cfg.vocab)) <= LM_LOSS0_MARGIN,
+          f"lm: step 0 loss {hist[0]['loss']} not within {LM_LOSS0_MARGIN} "
+          f"of ln(vocab) {math.log(cfg.vocab)}")
+    check(all(h["ebops"] > 0 for h in hist), "lm: ~EBOPs not reported")
+    want = _lm_per_step(LM_BATCH, LM_SEQ, cfg.n_layers, cfg.q_chunk)
+    check(per_step == want, f"lm: launches a step {per_step}, not {want}")
+    check(counts == {k: sum(c.values()) * tcfg.steps
+                     for k, c in want.items()},
+          f"lm: launches {counts} over {tcfg.steps} steps")
+    check(same_metrics and same_state,
+          f"lm: two card runs of the first {LM_REPEAT_STEPS} steps differ "
+          f"(metrics equal: {same_metrics}, state equal: {same_state})")
+    return trainer, report, per_step
+
+
+@contextlib.contextmanager
+def _matmul_tf32():
+    """Control: float32 matmuls in TF32 (cuBLAS's reduced-precision
+    path), forward and backward."""
+    real = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = real
+
+
+@contextlib.contextmanager
+def _probs_one_softmax():
+    """Control: the attention probabilities quantized after one softmax
+    over all keys (one key chunk of S) instead of per chunk pair."""
+    import repro_torch.nn.attention as attn
+    real = attn._chunked_attention
+
+    def whole(qh, kh, vh, positions, cfg, probs_f, mode):
+        return real(qh, kh, vh, positions,
+                    dataclasses.replace(cfg, k_chunk=qh.shape[1]), probs_f,
+                    mode)
+
+    attn._chunked_attention = whole
+    try:
+        yield
+    finally:
+        attn._chunked_attention = real
+
+
+def _lm_card_vs_cpu(dev):
+    from repro_torch.data import lm_batch
+    from repro_torch.models import TransformerLM
+    cfg = _lm_small_cfg()
+    fwd, loss = _lm(cfg)
+    cpu = torch.device("cpu")
+    model = TransformerLM.init(torch.Generator().manual_seed(SEED + 1), cfg,
+                               device=cpu)
+    batches = [lm_batch(SEED, s, LM_BATCH, LM_SMALL_SEQ, cfg.vocab,
+                        device=cpu) for s in range(LM_TRAJ_STEPS)]
+    return _card_vs_cpu(dev, "lm (2 layers, seq 256)", model, batches,
+                        {"matmul_tf32": _matmul_tf32,
+                         "probs_one_softmax": _probs_one_softmax,
+                         "df_without_ln2_delta": _df_without_ln2_delta},
+                        LM_TRAJ_REL_LIMIT,
+                        dict(fwd=fwd, loss=loss, config=LM_TRAIN),
+                        loss_steps=1)
+
+
+# Prefill against decode at full width, 2 layers, S = 256 over two query
+# and key chunks of 128, batch 2, teacher-forced.  As served, the
+# activation quantizers' rounding ties (an ulp of another summation order
+# decides them) and the bf16 or 8-bit storage of k and v move the logits
+# by a few percent and flip near-tie argmaxes: only gross faults are bounded
+# (LOGITS_REL_GROSS, LM_PD_AGREE_SERVED).  Without the activation
+# quantizers and the probabilities' grid the function is continuous: on a
+# float32 cache the two paths differ by the order of float32 operations
+# (LM_PD_REL_LIMIT) and give the same greedy tokens; the 8-bit ring adds
+# its rounding of k and v (LM_PD_REL_RING).  Readings in PERF.md.
+LM_PD_SEQ = 256
+LM_PD_AGREE_SERVED = 0.75
+LM_PD_REL_LIMIT = 1e-4
+LM_PD_REL_RING = 0.05
+
+
+def _lm_prefill_vs_decode(dev):
+    """``TransformerLM.forward`` in EVAL against ``decode_step`` token by
+    token, on the fp cache and the 8-bit quantized ring (which runs
+    ``kv_quantize_store`` and ``kv_attention_rows``), as served and
+    continuous: {case: {"rel_l2", "max_abs", "greedy_agree"}}."""
+    from repro_torch.core import hgq
+    from repro_torch.data import lm_batch
+    from repro_torch.models import TransformerLM
+    cfg = _lm_small_cfg()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    p, q = TransformerLM.init(gen, cfg, device=dev)
+    toks = lm_batch(SEED + 2, 0, LM_BATCH, LM_PD_SEQ, cfg.vocab,
+                    device=dev)["tokens"]
+    attn = {k: v for k, v in p["layers"]["attn"].items() if k != "probs_f"}
+    pc = _without_act_quantizers({**p, "layers": {**p["layers"],
+                                                  "attn": attn}})
+
+    def run(pp, kv_bits, dtype):
+        with torch.no_grad():
+            full, _, _ = TransformerLM.forward(pp, q, {"tokens": toks}, cfg,
+                                               mode=hgq.EVAL)
+            cache = TransformerLM.init_cache(cfg, LM_BATCH, LM_PD_SEQ,
+                                             dtype=dtype, kv_bits=kv_bits,
+                                             device=dev)
+            got = []
+            for t in range(LM_PD_SEQ):
+                lg, cache = TransformerLM.decode_step(
+                    pp, q, cache, toks[:, t:t + 1], t, cfg, kv_bits=kv_bits)
+                got.append(lg[:, 0])
+            got = torch.stack(got, dim=1)
+        check(bool(torch.isfinite(full).all() and torch.isfinite(got).all()),
+              "lm prefill / decode logits not finite")
+        return {"rel_l2": float((got - full).norm() / full.norm()),
+                "max_abs": float((got - full).abs().max()),
+                "greedy_agree": float((got.argmax(-1) == full.argmax(-1))
+                                      .float().mean())}
+
+    out = {"served_fp_bf16": run(p, None, torch.bfloat16),
+           "served_ring_8": run(p, 8, torch.bfloat16),
+           "continuous_fp_f32": run(pc, None, torch.float32),
+           "continuous_ring_8": run(pc, 8, torch.bfloat16)}
+    print(f"[train] lm prefill vs decode (full width, 2 layers, S "
+          f"{LM_PD_SEQ}, chunks of 128): {json.dumps(out)}", flush=True)
+    for case in ("served_fp_bf16", "served_ring_8"):
+        check(out[case]["rel_l2"] <= LOGITS_REL_GROSS
+              and out[case]["greedy_agree"] >= LM_PD_AGREE_SERVED,
+              f"lm prefill vs decode, {case}: {out[case]}")
+    c = out["continuous_fp_f32"]
+    check(c["rel_l2"] <= LM_PD_REL_LIMIT and c["greedy_agree"] == 1.0,
+          f"lm prefill vs decode, continuous, float32 cache: {c}")
+    check(out["continuous_ring_8"]["rel_l2"] <= LM_PD_REL_RING,
+          f"lm prefill vs decode, continuous, 8-bit ring: "
+          f"{out['continuous_ring_8']}")
+    return out
+
+
 def train_phase(dev):
     """The jet tagger (quickstart), then the SVHN and muon models; every
     step profiled after every timed run.  Returns the report and each
@@ -2522,11 +2908,27 @@ def train_phase(dev):
         rep["card_vs_cpu"] = _paper_card_vs_cpu(dev, name)
         runs[name] = (tr, rep, ps)
         report[name] = rep
+    t0 = time.perf_counter()
+    tr, rep, ps = _lm_run(dev)
+    rep["card_vs_cpu"] = _lm_card_vs_cpu(dev)
+    rep["prefill_vs_decode"] = _lm_prefill_vs_decode(dev)
+    runs["lm"] = (tr, rep, ps)
+    report["lm"] = rep
     # profiled only now, after every timed run
     for name, (tr, rep, ps) in runs.items():
         rep["profiled_step"] = _profile_step(
             tr, ps, "quickstart" if name == "jet" else name,
             rep["step_ms_median"])
+    lm = report["lm"]
+    lm["part_s"] = time.perf_counter() - t0
+    print(f"[train] lm summary (qwen2-0.5b FULL, batch {LM_BATCH}, seq "
+          f"{LM_SEQ}): step {lm['step_ms_median']:.1f} ms median, "
+          f"{lm['tokens_per_s']:.0f} tokens/s, peak "
+          f"{lm['peak_mem_gib']:.2f} GiB, profiled step busy "
+          f"{lm['profiled_step']['device_busy_ms']:.1f} ms, idle "
+          f"{lm['profiled_step']['idle_share_of_median_step']:.1%}, "
+          f"lm_train_mfu_fp32 {lm['lm_train_mfu_fp32']:.4f}; the LM part "
+          f"took {lm['part_s']:.0f} s", flush=True)
     return report, {name: ps for name, (_, _, ps) in runs.items()}
 
 
@@ -3176,7 +3578,9 @@ def main(argv=None) -> int:
                  "svhn": "one svhn step: a training step of SVHNNet at the "
                          "paper's configuration (batch 128)",
                  "muon": "one muon step: a training step of MuonTracker at "
-                         "the paper's configuration (batch 1024)"}
+                         "the paper's configuration (batch 1024)",
+                 "lm": "one LM step: a training step of qwen2-0.5b at full "
+                       "width (batch 2, seq 2048, remat)"}
         for name, unit in units.items():
             rep = train_report if name == "jet" else train_report[name]
             launches.update(rep["launches"])

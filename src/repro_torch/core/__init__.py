@@ -6,7 +6,7 @@ from .quantizer import (LN2, QuantizerSpec, f_shape_for, grad_scale,
                         occupied_bits, quantize, quantize_inference,
                         ste_round, train_bits)
 from .ebops import (ebops_conv2d, ebops_dyn_matmul, ebops_matmul, l1_bits,
-                    loss_with_resource)
+                    loss_with_resource, useful_model_flops_dense)
 from .hgq import (CALIB, EVAL, TRAIN, ActState, Aux, QTensor,
                   dyn_matmul_ebops, init_act_state, matmul_ebops, observe,
                   quant_act, quant_weight)
@@ -31,4 +31,5 @@ __all__ = ["ActState", "Aux", "CALIB", "EVAL", "FixedSpec", "LN2",
            "matmul_ebops", "mixed_low_plan", "observe", "occupied_bits",
            "plan_from_params", "quant_act",
            "quant_weight", "quantize", "quantize_inference", "representable",
-           "ste_round", "to_fixed", "train_bits"]
+           "ste_round", "to_fixed", "train_bits",
+           "useful_model_flops_dense"]

@@ -4,7 +4,8 @@ EBOPs = sum over multiplications of b_i * b_j (paper SSec. III.C, Eq. 5).
 The terms here are the differentiable ~EBOPs of training: bits =
 relu(i' + f) from running extremes, which upper-bound the exact count.
 Reductions are separable, ``sum_ij b_x[i] b_w[ij] = <b_x, sum_j b_w>``, so
-no [in, out] bit tensor is ever materialized.
+no [in, out] bit tensor is ever materialized.  ``useful_model_flops_dense``
+counts a dense model's training operations for an MFU line.
 """
 from __future__ import annotations
 
@@ -113,3 +114,9 @@ def loss_with_resource(base_loss: torch.Tensor, ebops: torch.Tensor,
                        l1: torch.Tensor, beta, gamma) -> torch.Tensor:
     """Eq. (16): L = L_base + beta * ~EBOPs + gamma * L1_norm."""
     return base_loss + beta * ebops + gamma * l1
+
+
+def useful_model_flops_dense(n_params: int, n_tokens: int) -> float:
+    """MODEL_FLOPS = 6 * N * D (dense): the useful operations of a training
+    step over D tokens, the numerator of an MFU line."""
+    return 6.0 * float(n_params) * float(n_tokens)

@@ -60,6 +60,13 @@ class Aux:
         if l1 is not None:
             self.l1 = self.l1 + l1
 
+    def merge(self, other: "Aux") -> None:
+        self.ebops = self.ebops + other.ebops
+        self.l1 = self.l1 + other.l1
+
+    def as_tuple(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.ebops, self.l1)
+
 
 def init_act_state(f_sh, device=None) -> ActState:
     return ActState(torch.zeros(f_sh, dtype=torch.float32, device=device),

@@ -1,5 +1,6 @@
 """Deterministic, resumable synthetic data (counterpart of
-``repro/data/synthetic.py``; the paper's three kinds: jet, svhn, muon).
+``repro/data/synthetic.py``; the paper's three kinds, jet, svhn and muon,
+and the LM's token stream, lm).
 
 Every batch is a pure function of (seed, step), drawn on the CPU from a
 ``torch.Generator`` seeded from both and then moved to the device, so a
@@ -97,6 +98,20 @@ def muon_batch(seed: int, step: int, batch: int = 1024, device=None
     return {"stations": x.to(dev), "target": (angle * 1000.0).to(dev)}
 
 
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+             device=None) -> Dict[str, torch.Tensor]:
+    """Markov-ish token stream, so a model can bring the loss below
+    log(vocab): uniform tokens, each replaced with probability 0.7 by
+    ``31 * (the previous uniform token) % vocab`` (the first by the last
+    one's, a cyclic roll).  tokens [batch, seq] int64."""
+    dev = resolve_device(device)
+    g = _gen(seed, step)
+    base = torch.randint(0, vocab, (batch, seq), generator=g)
+    shifted = torch.roll(base, 1, dims=1) * 31 % vocab
+    use_rule = torch.rand((batch, seq), generator=g) < 0.7
+    return {"tokens": torch.where(use_rule, shifted, base).to(dev)}
+
+
 @dataclasses.dataclass(frozen=True)
 class DataSpec:
     kind: str           # jet | svhn | muon | lm | asr
@@ -110,9 +125,12 @@ def make_pipeline(spec: DataSpec, device=None
                   ) -> Callable[[int], Dict[str, torch.Tensor]]:
     """step -> batch dict on ``device`` (the card by default)."""
     kinds = {"jet": jet_batch, "svhn": svhn_batch, "muon": muon_batch}
+    dev = resolve_device(device)
+    if spec.kind == "lm":
+        return lambda step: lm_batch(spec.seed, step, spec.batch, spec.seq,
+                                     spec.vocab, device=dev)
     if spec.kind not in kinds:
         raise NotImplementedError(f"data kind {spec.kind!r} is not ported "
-                                  f"yet (only {', '.join(kinds)})")
-    dev = resolve_device(device)
+                                  f"yet (only {', '.join(kinds)}, lm)")
     batch_fn = kinds[spec.kind]
     return lambda step: batch_fn(spec.seed, step, spec.batch, device=dev)

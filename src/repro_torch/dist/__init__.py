@@ -7,7 +7,7 @@
   card) and ``ProcessGroupMesh`` (``torch.distributed``);
 * :mod:`.collectives` -- the compressed mean all-reduce (two-phase
   exchange, error feedback on both phases);
-* :mod:`.perf` -- serving-weight packing;
+* :mod:`.perf` -- the compute-dtype scope and serving-weight packing;
 * this module -- post-reduce error-feedback gradient compression.
 
 Error feedback: each step compresses ``grad + residual`` and carries the

@@ -1,21 +1,52 @@
-"""HGQ serving-weight packing (the packing half of ``repro/dist/perf.py``).
+"""Compute-dtype casting and HGQ serving-weight packing (counterpart of
+``repro/dist/perf.py``).
+
+Compute dtype: layers call :func:`cast_for_matmul` on matmul operands;
+the dtype is scoped (:func:`compute_dtype_scope`, over ``dist.scope``),
+and the unscoped default is ``None``: no cast, float32 stays float32.
 
 :func:`pack_params_for_serving` rewrites every matmul weight dict
 ``{'w', 'f'}`` into ``{'w_int8', 'scale', 'f'}`` (or ``{'w_nib', ...}``,
 two int4 mantissas per byte along K, for plan layers of <= 4 bits): int8
 mantissas plus a per-output-channel 2^-f scale, the representation the
-``qmatmul`` kernel consumes.  The port has no compute-dtype scope (the
-served model is float32) and no packed-routing flag: a packed weight
-always goes through ``qmatmul``.
+``qmatmul`` kernel consumes.  The port has no packed-routing flag: a
+packed weight always goes through ``qmatmul``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..core.plan import NIBBLE_BITS, packable_weight
 from ..kernels.qmatmul.ops import pack_linear, pack_nibbles, unpack_nibbles
+from .scope import Scoped
+
+_COMPUTE: Scoped[Optional[torch.dtype]] = Scoped("repro_torch.compute_dtype",
+                                                 None)
+
+
+def compute_dtype_scope(dtype: Optional[torch.dtype]):
+    """Context manager: run the enclosed computation with ``dtype`` as the
+    matmul compute dtype (``None`` = no cast); restores on exit."""
+    return _COMPUTE.scope(dtype)
+
+
+def reset_precision() -> None:
+    """Back to the no-cast default (tests)."""
+    _COMPUTE.reset_default()
+
+
+def get_compute_dtype() -> Optional[torch.dtype]:
+    return _COMPUTE.get()
+
+
+def cast_for_matmul(x: torch.Tensor) -> torch.Tensor:
+    """Cast a floating matmul operand to the compute dtype, if one is set."""
+    dtype = _COMPUTE.get()
+    if dtype is None or not x.is_floating_point():
+        return x
+    return x.to(dtype)
 
 
 def _pack_one(p: Dict[str, Any], bits: int = 8,

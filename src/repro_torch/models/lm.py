@@ -1,11 +1,18 @@
-"""Decoder-only transformer LM, dense family, decode path (counterpart of
-``repro/models/lm.py``; the training ``forward`` is not ported yet).
+"""Decoder-only transformer LM, dense family (counterpart of
+``repro/models/lm.py``): the training / prefill ``forward`` and the
+decode path.
 
 Params keep the JAX tree: nested dicts with stacked ``[L, ...]`` layer
-leaves, so plan keys (``layers/mlp/gate/kernel``) and ``from_jax`` carry
-over unchanged.  ``lax.scan`` over layers becomes a Python loop over
-per-layer views ``leaf[l]``.  The residual stream stays unquantized;
-activation quantizers sit at the norm and projection outputs.
+leaves, so plan keys (``layers/mlp/gate/kernel``), ``from_jax`` and the
+checkpoints carry over unchanged.  ``lax.scan`` over layers becomes a
+Python loop over per-layer views; the training forward unbinds the
+stacked leaves (one gradient stack a leaf), remats each layer with
+``torch.utils.checkpoint`` when ``cfg.remat``, sums the layers' ~EBOPs
+and L1 as the scan's carry does and stacks their new range states back
+to ``[L, ...]``.  In TRAIN a layer's 10 weight and bias quantizers run
+as one group (one ``hgq_quantize`` forward launch on the card).  The
+residual stream stays unquantized; activation quantizers sit at the norm
+and projection outputs.
 """
 from __future__ import annotations
 
@@ -13,18 +20,19 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import hgq
-from ..core.hgq import QTensor
+from ..core.hgq import Aux, QTensor
 from ..device import resolve_device
-from ..dist.perf import is_packed, packed_mantissas
+from ..dist.perf import cast_for_matmul, is_packed, packed_mantissas
 from ..kernels.qmatmul.ops import qmatmul_any
 from ..nn.attention import (AttnConfig, GQAAttention, KVCache, QKVCache,
                             decode_positions)
 from ..nn.basic import HDense, HEmbedding, LayerNorm, RMSNorm
-from ..nn.common import get_qw
+from ..nn.common import get_qw, quantize_weights
 from ..nn.mlp import GLUMLP
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from .config import ModelConfig
 
 Caches = Union[KVCache, QKVCache]
@@ -42,8 +50,37 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
 
 
 def layer_views(stacked: Any, n_layers: int) -> List[Any]:
-    """Stacked ``[L, ...]`` layer tree -> one tree of views per layer."""
-    return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n_layers)]
+    """Stacked ``[L, ...]`` layer tree -> one tree of views per layer, by
+    ``unbind``: under autograd each stacked leaf gets one backward that
+    stacks its layers' gradients, where an index a layer would add a
+    zero-filled ``[L, ...]`` gradient each."""
+    per_leaf = [a.unbind(0) for a in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [u[i] for u in per_leaf])
+            for i in range(n_layers)]
+
+
+# a layer's projections, whose weights and biases one grouped quantizer
+# launch makes in TRAIN
+_PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
+                "mlp": ("gate", "up", "down")}
+
+
+def _layer_weights(lp, mode: str) -> Dict[str, Any]:
+    """{block: {projection: its quantized kernel and bias}} made in one
+    group in TRAIN (10 members for qwen2: q, k, v with biases, o, gate,
+    up, down); {block: None} (each projection quantizes its own)
+    otherwise."""
+    if mode != hgq.TRAIN:
+        return {blk: None for blk in _PROJECTIONS}
+    keys = [(blk, name, k) for blk, names in _PROJECTIONS.items()
+            for name in names for k in ("kernel", "bias")
+            if k in lp[blk][name]]
+    qs = quantize_weights([lp[b][n][k] for b, n, k in keys], mode)
+    out: Dict[str, Any] = {blk: {n: {} for n in names}
+                           for blk, names in _PROJECTIONS.items()}
+    for (b, n, k), t in zip(keys, qs):
+        out[b][n][k] = t
+    return out
 
 
 def _check_positions(cache_pos, S: int, W: int) -> None:
@@ -60,9 +97,9 @@ def _check_positions(cache_pos, S: int, W: int) -> None:
 
 class TransformerLM(nn.Module):
     """Holds one params / qstate tree (buffers, for ``.to()`` and
-    ``state_dict``); the static ``init`` / ``init_cache`` /
+    ``state_dict``); the static ``init`` / ``forward`` / ``init_cache`` /
     ``decode_step`` take trees explicitly, as the engine serves a packed
-    copy of the tree."""
+    copy of the tree and ``make_train_step`` trains one."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  qstate: Optional[Dict[str, Any]] = None):
@@ -75,8 +112,10 @@ class TransformerLM(nn.Module):
                 self.register_buffer("__".join((prefix,) + path), leaf,
                                      persistent=True)
 
-    def forward(self, tokens: torch.Tensor, caches: Caches, cache_pos,
-                kv_bits: Optional[int] = None):
+    def __call__(self, tokens: torch.Tensor, caches: Caches, cache_pos,
+                 kv_bits: Optional[int] = None):
+        """Calling the module decodes over its own trees; ``forward`` is
+        the reference's static training / prefill forward."""
         return self.decode_step(self.params, self.qstate, caches, tokens,
                                 cache_pos, self.cfg, kv_bits=kv_bits)
 
@@ -118,23 +157,83 @@ class TransformerLM(nn.Module):
     # -------------------------- layer body ------------------------------
     @staticmethod
     def _layer(lp, lq, x, positions, cache, cache_pos, cfg: ModelConfig,
-               mode: str, kv_bits: Optional[int]):
+               mode: str, kv_bits: Optional[int] = None, with_aux=True):
+        """One layer: (x, new range states, (~EBOPs, L1) or None without
+        ``with_aux``, a decode step whose Aux nobody reads)."""
         Norm = _norm_cls(cfg)
-        h, _ = Norm.apply(lp["ln1"], lq["ln1"], x, mode=mode, aux=None)
-        a, _, _ = GQAAttention.apply(
+        aux = Aux.zero(x.device) if with_aux else None
+        w = _layer_weights(lp, mode)
+        newq: Dict[str, Any] = {}
+        h, newq["ln1"] = Norm.apply(lp["ln1"], lq["ln1"], x, mode=mode,
+                                    aux=aux)
+        a, newq["attn"], _ = GQAAttention.apply(
             lp["attn"], lq["attn"], h, cfg=_attn_cfg(cfg), mode=mode,
-            aux=None, positions=positions, cache=cache, cache_pos=cache_pos,
-            kv_bits=kv_bits)
+            aux=aux, positions=positions, cache=cache, cache_pos=cache_pos,
+            kv_bits=kv_bits, weights=w["attn"])
         x = x + a.q
-        h, _ = Norm.apply(lp["ln2"], lq["ln2"], x, mode=mode, aux=None)
-        m, _ = GLUMLP.apply(lp["mlp"], lq["mlp"], h, mode=mode, aux=None,
-                            act=cfg.act)
-        return x + m.q
+        h, newq["ln2"] = Norm.apply(lp["ln2"], lq["ln2"], x, mode=mode,
+                                    aux=aux)
+        m, newq["mlp"] = GLUMLP.apply(lp["mlp"], lq["mlp"], h, mode=mode,
+                                      aux=aux, act=cfg.act, weights=w["mlp"])
+        return x + m.q, newq, None if aux is None else aux.as_tuple()
+
+    # -------------------------- layer loop ------------------------------
+    @staticmethod
+    def _stack_forward(p, q, x, positions, cfg: ModelConfig, mode: str):
+        """The no-cache layer loop: (x, new layer range states stacked to
+        ``[L, ...]``, (~EBOPs, L1) summed over the layers).  With
+        ``cfg.remat`` (and autograd on) each layer is recomputed in its
+        backward; the recompute's range states are discarded, the first
+        pass's kept."""
+        L = cfg.n_layers
+        lps = layer_views(p["layers"], L)
+        lqs = layer_views(q["layers"], L)
+        ebops = torch.zeros((), dtype=torch.float32, device=x.device)
+        l1 = torch.zeros((), dtype=torch.float32, device=x.device)
+        newlqs = []
+        for lp, lq in zip(lps, lqs):
+            args = (lp, lq, x, positions, None, None, cfg, mode)
+            if cfg.remat and torch.is_grad_enabled():
+                h, newlq, (e, a) = checkpoint(TransformerLM._layer, *args,
+                                              use_reentrant=False,
+                                              preserve_rng_state=False)
+            else:
+                h, newlq, (e, a) = TransformerLM._layer(*args)
+            x = h.to(x.dtype)
+            ebops, l1 = ebops + e, l1 + a
+            newlqs.append(newlq)
+        return x, tree_map(lambda *a: torch.stack(a), *newlqs), (ebops, l1)
+
+    # --------------------------- forward --------------------------------
+    @staticmethod
+    def forward(p, q, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                mode: str = hgq.TRAIN):
+        """Training / prefill forward over ``batch["tokens"]`` [B, S]
+        (positions 0..S-1, no cache): (logits [B, S, V], new qstate, Aux)."""
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        aux = Aux.zero(tokens.device)
+        newq: Dict[str, Any] = {}
+        e, newq["embed"] = HEmbedding.apply(p["embed"], q["embed"], tokens,
+                                            mode=mode, aux=aux)
+        x = cast_for_matmul(e.q)
+        positions = torch.arange(S, device=tokens.device)
+        x, newq["layers"], (ebops, l1) = TransformerLM._stack_forward(
+            p, q, x, positions, cfg, mode)
+        aux.add(ebops=ebops, l1=l1)
+        Norm = _norm_cls(cfg)
+        h, newq["final_norm"] = Norm.apply(p["final_norm"], q["final_norm"],
+                                           x, mode=mode, aux=aux)
+        logits = TransformerLM._logits(p, q, newq, h, cfg, mode, aux)
+        return logits, newq, aux
 
     @staticmethod
-    def _logits(p, h: QTensor, cfg: ModelConfig, mode: str) -> torch.Tensor:
+    def _logits(p, q, newq, h: QTensor, cfg: ModelConfig, mode: str,
+                aux: Optional[Aux]) -> torch.Tensor:
         if not cfg.tie_embeddings:
-            lt, _ = HDense.apply(p["lm_head"], {}, h, mode=mode, aux=None)
+            lt, newq["lm_head"] = HDense.apply(p["lm_head"],
+                                               q.get("lm_head", {}), h,
+                                               mode=mode, aux=aux)
             return lt.q
         tbl = p["embed"]["table"]
         if is_packed(tbl):
@@ -148,8 +247,12 @@ class TransformerLM(nn.Module):
                               device=h.q.device)
             m = tbl["w_int8"] if "w_int8" in tbl else packed_mantissas(tbl)
             return qmatmul_any(h.q.to(torch.float32) * s_d, m.T, ones)
+        # the table quantized again, as the reference does
         wq = get_qw(tbl, mode)
-        return torch.matmul(h.q.to(wq.q.dtype), wq.q.T)
+        logits = torch.matmul(h.q.to(wq.q.dtype), wq.q.T)
+        hgq.matmul_ebops(aux, h.bits, None if wq.bits is None else wq.bits.T,
+                         cfg.d_model, cfg.vocab)
+        return logits
 
     # ---------------------------- decode --------------------------------
     @staticmethod
@@ -193,12 +296,13 @@ class TransformerLM(nn.Module):
         x = e.q
         for l in range(L):
             cache_l = type(caches)(*(c[l] for c in caches))
-            x = TransformerLM._layer(lps[l], lqs[l], x, positions, cache_l,
-                                     cp, cfg, mode, kv_bits)
+            x, _, _ = TransformerLM._layer(lps[l], lqs[l], x, positions,
+                                           cache_l, cp, cfg, mode, kv_bits,
+                                           with_aux=False)
         Norm = _norm_cls(cfg)
         h, _ = Norm.apply(p["final_norm"], q["final_norm"], x, mode=mode,
                           aux=None)
-        return TransformerLM._logits(p, h, cfg, mode), caches
+        return TransformerLM._logits(p, q, {}, h, cfg, mode, None), caches
 
 
 def _flatten(tree, prefix=()):

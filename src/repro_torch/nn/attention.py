@@ -1,6 +1,19 @@
-"""Quantized GQA attention with a KV-cache decode path (counterpart of
-``repro/nn/attention.py``; the chunked no-cache forward waits for LM
-training, ``TransformerLM.forward``).
+"""Quantized GQA attention: the chunked (flash-style) train / prefill
+forward, KV-cache decode, optional local window, RoPE (counterpart of
+``repro/nn/attention.py``).
+
+Without a cache, ``_chunked_attention`` runs the reference's two-level
+loop over query and key chunks with an online softmax: the probabilities
+are quantized per (query chunk, key chunk) pair, unnormalized, against
+the running maximum of the chunks seen so far, so the chunk sizes are
+part of the numbers.  The loops are plain PyTorch, as the reference's
+are plain jnp (no Pallas kernel); their memory is bounded by the layer's
+remat (``models/lm.py``), not by per-chunk checkpoints.  The reference's
+head-TP branch (k / v repeated to full heads over a ``model`` axis) is
+not ported: the port has no model axis.
+
+EBOPs: the dynamic QK^T / PV matmuls use per-tensor activation bits, so
+their ~EBOPs terms are analytic in the static shapes.
 
 Caches are updated IN PLACE: ``apply`` writes the new k/v rows into the
 layer's cache view and returns the same cache object.  JAX returns a new
@@ -13,10 +26,11 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..core import hgq
 from ..core.hgq import Aux, QTensor
-from ..core.quantizer import quantize_inference
+from ..core.quantizer import quantize, quantize_inference
 from ..kernels.kv_dequant.ops import kv_attention_decode, kv_quantize_store
 from ..kernels.kv_dequant.ref import attention_mask, ring_write
 from .basic import HDense
@@ -54,12 +68,42 @@ class QKVCache(NamedTuple):
     vf: torch.Tensor
 
 
+# int8 fp cache: k / v stored as round(x * 2^4), clipped to +-127, and read
+# back as q / 16 (post-HGQ activations are range-calibrated, |k|, |v| < 8)
+KV_INT8_SCALE = 16.0
+
+
+def _cache_store(x: torch.Tensor, cache_dtype: torch.dtype) -> torch.Tensor:
+    if cache_dtype == torch.int8:
+        return torch.clamp(torch.round(x.to(torch.float32) * KV_INT8_SCALE),
+                           -127, 127).to(torch.int8)
+    return x.to(cache_dtype)
+
+
+def _cache_load(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.int8:
+        return x.to(torch.float32) * (1.0 / KV_INT8_SCALE)
+    return x
+
+
 def decode_positions(cache_pos: torch.Tensor, S: int) -> torch.Tensor:
     """Positions of a chunk of S new tokens: ``[S]`` for a scalar
     ``cache_pos``, ``[B, S]`` for a per-slot vector."""
     cp = torch.as_tensor(cache_pos).to(torch.int32)
     ar = torch.arange(S, dtype=torch.int32, device=cp.device)
     return cp[:, None] + ar[None, :] if cp.ndim == 1 else cp + ar
+
+
+def memory_tpos(mem_len: torch.Tensor, T: int) -> torch.Tensor:
+    """Slot positions [B, T] of a linearly filled (non-ring) memory of
+    width T holding ``mem_len[b]`` valid rows: slot t carries position t
+    while t < mem_len, else -1 (the empty-slot sentinel of the decode
+    masks); ``mem_len == 0`` masks every slot."""
+    mem = torch.as_tensor(mem_len).to(torch.int32)
+    ar = torch.arange(T, dtype=torch.int32, device=mem.device)
+    return torch.where(ar[None, :] < mem[:, None], ar[None, :],
+                       torch.full((), -1, dtype=torch.int32,
+                                  device=mem.device))
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -104,66 +148,41 @@ class GQAAttention:
               aux: Optional[Aux], positions: torch.Tensor,
               cache: Union[KVCache, QKVCache, None] = None,
               cache_pos: Optional[torch.Tensor] = None,
-              kv_bits: Optional[int] = None
+              kv_bits: Optional[int] = None,
+              weights: Optional[Dict[str, Dict[str, QTensor]]] = None
               ) -> Tuple[QTensor, Dict[str, Any],
                          Union[KVCache, QKVCache, None]]:
-        if cache is None:
-            raise NotImplementedError(
-                "the no-cache chunked attention forward is not ported yet")
+        """Without ``cache``: the chunked forward over the S positions of
+        x (``positions`` = 0..S-1).  With one: decode, the new rows
+        written at ``cache_pos``.  ``weights``: each projection's
+        quantized kernel and bias, made beforehand (``HDense.apply``'s
+        ``wq``, by projection name)."""
         B, S, _ = x.q.shape
         H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-        dev = x.q.device
+        w = weights or {}
         newq: Dict[str, Any] = {}
-        qt, newq["wq"] = HDense.apply(p["wq"], q["wq"], x, mode=mode, aux=aux)
-        kt, newq["wk"] = HDense.apply(p["wk"], q["wk"], x, mode=mode, aux=aux)
-        vt, newq["wv"] = HDense.apply(p["wv"], q["wv"], x, mode=mode, aux=aux)
+        qt, newq["wq"] = HDense.apply(p["wq"], q["wq"], x, mode=mode, aux=aux,
+                                      wq=w.get("wq"))
+        kt, newq["wk"] = HDense.apply(p["wk"], q["wk"], x, mode=mode, aux=aux,
+                                      wq=w.get("wk"))
+        vt, newq["wv"] = HDense.apply(p["wv"], q["wv"], x, mode=mode, aux=aux,
+                                      wq=w.get("wv"))
         qh = rope(qt.q.reshape(B, S, H, hd), positions, cfg.rope_theta)
         kh = rope(kt.q.reshape(B, S, KV, hd), positions, cfg.rope_theta)
         vh = vt.q.reshape(B, S, KV, hd)
         probs_f = p.get("probs_f")
-
-        # ring write: global position g lives in slot g % W (windowed) or
-        # slot g; a chunk longer than the ring keeps only its newest rows
-        W = cache.k.shape[1]
-        cpb = torch.broadcast_to(torch.as_tensor(cache_pos, device=dev)
-                                 .to(torch.int64), (B,))
-        qpos = cpb[:, None] + torch.arange(S, device=dev)       # [B, S]
-        if cfg.window is not None:
-            last = cpb + (S - 1)
-            slot = torch.where(qpos > last[:, None] - W, qpos % W,
-                               torch.full_like(qpos, W))
+        if cache is None:
+            out = _chunked_attention(qh, kh, vh, positions, cfg, probs_f,
+                                     mode)
+            kv_len = S
         else:
-            slot = qpos
-        quantized = isinstance(cache, QKVCache)
-        if quantized:
-            # quantize, pack and ring write of k and v in one launch
-            kv_quantize_store(kh, vh, slot, cache.k, cache.v, cache.kf,
-                              cache.vf, kv_bits or 8)
-        else:
-            bidx = torch.arange(B, device=dev)[:, None]
-            ring_write(cache.k, bidx, slot, kh.to(cache.k.dtype), S)
-            ring_write(cache.v, bidx, slot, vh.to(cache.v.dtype), S)
-        if cfg.window is not None:
-            # slot s holds global position last - ((last - s) % W);
-            # never-written slots resolve negative and are masked
-            spos = torch.arange(W, device=dev)
-            tpos = last[:, None] - torch.remainder(last[:, None] - spos[None],
-                                                   W)
-        else:
-            tpos = torch.arange(W, device=dev).expand(B, W)
-        if quantized:
-            out = kv_attention_decode(
-                qh, cache.k, cache.kf, cache.v, cache.vf,
-                qpos.to(torch.int32), tpos.to(torch.int32),
-                window=cfg.window, n_kv=KV, probs_f=probs_f)
-        else:
-            out = _decode_attention(qh, cache.k.to(torch.float32),
-                                    cache.v.to(torch.float32), qpos, cfg,
-                                    probs_f, mode, tpos=tpos)
+            out = _cached_attention(qh, kh, vh, cache, cache_pos, cfg,
+                                    probs_f, mode, kv_bits)
+            kv_len = cache.k.shape[1]
         if aux is not None and qt.bits is not None and probs_f is not None:
             # analytic ~EBOPs of the dynamic QK^T / PV matmuls
-            n_qk = float(B * H * S) * float(W) * hd
-            b_p = torch.relu(1.0 + probs_f)
+            n_qk = float(B * H * S) * float(kv_len) * hd
+            b_p = torch.relu(1.0 + probs_f)  # p~ in [0, 1] => i' = 1
             aux.add(ebops=torch.max(qt.bits) * torch.max(kt.bits) * n_qk
                     + b_p * torch.max(vt.bits) * n_qk)
             aux.add(l1=torch.relu(probs_f))
@@ -174,16 +193,122 @@ class GQAAttention:
             newq["attnout"] = st
         else:
             oq = QTensor(o, None)
-        yo, newq["wo"] = HDense.apply(p["wo"], q["wo"], oq, mode=mode, aux=aux)
+        yo, newq["wo"] = HDense.apply(p["wo"], q["wo"], oq, mode=mode, aux=aux,
+                                      wq=w.get("wo"))
         return yo, newq, cache
+
+
+def _cached_attention(qh, kh, vh, cache: Union[KVCache, QKVCache], cache_pos,
+                      cfg: AttnConfig, probs_f, mode: str,
+                      kv_bits: Optional[int]) -> torch.Tensor:
+    """Decode: write the new k / v rows into the ring (in place), attend
+    over it.  Global position g lives in slot g % W (windowed) or slot g;
+    a chunk longer than the ring keeps only its newest rows."""
+    B, S = qh.shape[:2]
+    dev = qh.device
+    W = cache.k.shape[1]
+    cpb = torch.broadcast_to(torch.as_tensor(cache_pos, device=dev)
+                             .to(torch.int64), (B,))
+    qpos = cpb[:, None] + torch.arange(S, device=dev)           # [B, S]
+    if cfg.window is not None:
+        last = cpb + (S - 1)
+        slot = torch.where(qpos > last[:, None] - W, qpos % W,
+                           torch.full_like(qpos, W))
+    else:
+        slot = qpos
+    quantized = isinstance(cache, QKVCache)
+    if quantized:
+        # quantize, pack and ring write of k and v in one launch
+        kv_quantize_store(kh, vh, slot, cache.k, cache.v, cache.kf,
+                          cache.vf, kv_bits or 8)
+    else:
+        bidx = torch.arange(B, device=dev)[:, None]
+        ring_write(cache.k, bidx, slot, _cache_store(kh, cache.k.dtype), S)
+        ring_write(cache.v, bidx, slot, _cache_store(vh, cache.v.dtype), S)
+    if cfg.window is not None:
+        # slot s holds global position last - ((last - s) % W);
+        # never-written slots resolve negative and are masked
+        spos = torch.arange(W, device=dev)
+        tpos = last[:, None] - torch.remainder(last[:, None] - spos[None], W)
+    else:
+        tpos = torch.arange(W, device=dev).expand(B, W)
+    if quantized:
+        return kv_attention_decode(
+            qh, cache.k, cache.kf, cache.v, cache.vf, qpos.to(torch.int32),
+            tpos.to(torch.int32), window=cfg.window, n_kv=cfg.n_kv,
+            probs_f=probs_f)
+    return _decode_attention(qh, _cache_load(cache.k).to(torch.float32),
+                             _cache_load(cache.v).to(torch.float32), qpos,
+                             cfg, probs_f, mode, tpos=tpos)
 
 
 def _quant_probs(pt: torch.Tensor, probs_f, mode: str) -> torch.Tensor:
     if probs_f is None:
         return pt
-    if mode == hgq.TRAIN:
-        raise NotImplementedError("TRAIN-mode probs quantizer not ported")
-    return quantize_inference(pt, probs_f)
+    return (quantize if mode == hgq.TRAIN else quantize_inference)(pt,
+                                                                   probs_f)
+
+
+def _group_heads(qh: torch.Tensor, KV: int) -> torch.Tensor:
+    """[B, S, H, hd] -> [B, KV, G, S, hd]."""
+    B, S, H, hd = qh.shape
+    return qh.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+
+
+def _chunked_attention(qh, kh, vh, positions, cfg: AttnConfig, probs_f,
+                       mode: str) -> torch.Tensor:
+    """Online-softmax attention over query chunks of ``min(q_chunk, S)``
+    rows and key chunks of ``min(k_chunk, S)``, both padded up to whole
+    chunks (padded keys masked, padded query rows dropped): qh [B, S, H,
+    hd], kh / vh [B, S, KV, hd] at positions 0..S-1 -> [B, S, H, hd].
+    Each pair's probabilities ``exp(s - m_new)`` are quantized before
+    they are summed, as the reference does (``NEG_INF`` masks,
+    ``max(l, 1e-20)``)."""
+    del positions        # the reference's chunks sit at positions 0..S-1
+    B, S, H, hd = qh.shape
+    KV = cfg.n_kv
+    G = H // KV
+    dev = qh.device
+    scale = hd ** -0.5
+    cq = min(cfg.q_chunk, S)
+    ck = min(cfg.k_chunk, S)
+    nq, nk = -(-S // cq), -(-S // ck)
+    qg = F.pad(_group_heads(qh, KV), (0, 0, 0, nq * cq - S))
+    kg = F.pad(kh.transpose(1, 2), (0, 0, 0, nk * ck - S))   # [B, KV, S', hd]
+    vg = F.pad(vh.transpose(1, 2), (0, 0, 0, nk * ck - S))
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    outs = []
+    for qi in range(nq):
+        qc = qg[:, :, :, qi * cq:(qi + 1) * cq]             # [B,KV,G,cq,hd]
+        qpos = qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((B, KV, G, cq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, cq), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, KV, G, cq, hd), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kc = kg[:, :, ki * ck:(ki + 1) * ck]            # [B, KV, ck, hd]
+            vc = vg[:, :, ki * ck:(ki + 1) * ck]
+            kpos = ki * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bkgqh,bkch->bkgqc", qc, kc) * scale
+            mask = (kpos < S)[None, :].expand(cq, ck)     # key padding
+            if cfg.causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if cfg.window is not None:
+                mask = mask & ((qpos[:, None] - kpos[None, :]) < cfg.window)
+            s = torch.where(mask, s, neg)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            pt = torch.where(mask, torch.exp(s - m_new[..., None]), zero)
+            pt = _quant_probs(pt, probs_f, mode)
+            corr = torch.exp(m - m_new)
+            l = l * corr + pt.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum("bkgqc,bkch->bkgqh", pt, vc)
+            m = m_new
+        outs.append((o / torch.clamp(l, min=1e-20)[..., None]).to(qh.dtype))
+    # [nq, B, KV, G, cq, hd] -> [B, S, H, hd]
+    out = torch.stack(outs).permute(1, 2, 3, 0, 4, 5).reshape(
+        B, H, nq * cq, hd)
+    return out[:, :, :S].transpose(1, 2).to(qh.dtype)
 
 
 def _decode_attention(qh, k_all, v_all, qpos, cfg: AttnConfig, probs_f,

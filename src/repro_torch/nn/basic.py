@@ -195,8 +195,38 @@ class HConv2D:
         return _out_quant(p, q, activation(act, y), mode, aux)
 
 
+class _Gather(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each row's gradients in a fixed
+    order: the ids sorted (stably, so a row's gradients keep the tokens'
+    order), one segmented sum a distinct id, written into a zero table.
+    No atomics: two runs on the card give the same bits, where the
+    accumulating ``index_put`` of ``table[ids]``'s own backward adds in
+    no fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        uniq, counts = torch.unique_consecutive(flat[order],
+                                                return_counts=True)
+        sums = torch.segment_reduce(g.reshape(-1, g.shape[-1])[order], "sum",
+                                    lengths=counts, axis=0)
+        out = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype,
+                          device=g.device)
+        out[uniq] = sums
+        return out, None
+
+
 class HEmbedding:
-    """Lookup (no multipliers, no EBOPs) into a quantized table."""
+    """Lookup (no multipliers, no EBOPs) into a quantized table; in TRAIN
+    the table's gradient is summed in a fixed order (``_Gather``)."""
 
     @staticmethod
     def init(gen, vocab: int, d: int, cfg: HGQConfig, device=None):
@@ -216,7 +246,7 @@ class HEmbedding:
             y = rows.to(torch.float32) * \
                 tbl["scale"].reshape(tbl["scale"].shape[-1])
         else:
-            y = get_qw(tbl, mode).q[ids]
+            y = _Gather.apply(get_qw(tbl, mode).q, ids)
         return QTensor(y, None), (dict(q) if q else {})
 
 

@@ -72,21 +72,25 @@ def act_q_init(cfg: HGQConfig, feature_shape=(), device=None
 
 
 def get_qw(p: Dict[str, Any], mode: str) -> QTensor:
-    """Quantize (or, for a packed weight, dequantize) a stored weight."""
+    """Quantize (or, for a packed weight, dequantize) a stored weight; a
+    quantized one is cast to the compute dtype (``dist.perf``)."""
     if "w_int8" in p or "w_nib" in p:
         from ..dist.perf import unpack_weight
         f = p.get("f")
         return QTensor(unpack_weight(p),
                        None if f is None else torch.relu(f.float()) + 1.0)
-    return hgq.quant_weight(p["w"], p.get("f"), mode)
+    from ..dist.perf import cast_for_matmul
+    qt = hgq.quant_weight(p["w"], p.get("f"), mode)
+    return QTensor(cast_for_matmul(qt.q), qt.bits)
 
 
 def quantize_weights(ps: Sequence[Dict[str, Any]], mode: str
                      ) -> List[QTensor]:
     """:func:`get_qw` of several stored (unpacked) weights; in TRAIN their
     quantizers run as one group (``hgq.quant_weights``)."""
-    return hgq.quant_weights([p["w"] for p in ps], [p.get("f") for p in ps],
-                             mode)
+    from ..dist.perf import cast_for_matmul
+    return [QTensor(cast_for_matmul(t.q), t.bits) for t in hgq.quant_weights(
+        [p["w"] for p in ps], [p.get("f") for p in ps], mode)]
 
 
 def apply_act_q(x: torch.Tensor, f: Optional[torch.Tensor],

@@ -25,14 +25,20 @@ class GLUMLP:
 
     @staticmethod
     def apply(p, q, x: QTensor, *, mode: str, aux: Optional[Aux],
-              act: str = "silu") -> Tuple[QTensor, Dict[str, Any]]:
+              act: str = "silu",
+              weights: Optional[Dict[str, Dict[str, QTensor]]] = None
+              ) -> Tuple[QTensor, Dict[str, Any]]:
+        """``weights``: each projection's quantized kernel, made beforehand
+        (``HDense.apply``'s ``wq``, by projection name)."""
+        w = weights or {}
         newq: Dict[str, Any] = {}
         g, newq["gate"] = HDense.apply(p["gate"], q["gate"], x, mode=mode,
-                                       aux=aux, act=act)
-        u, newq["up"] = HDense.apply(p["up"], q["up"], x, mode=mode, aux=aux)
+                                       aux=aux, act=act, wq=w.get("gate"))
+        u, newq["up"] = HDense.apply(p["up"], q["up"], x, mode=mode, aux=aux,
+                                     wq=w.get("up"))
         h = g.q * u.q
         # product of two quantized values: bits add (fixed-point multiply)
         bits = None if g.bits is None or u.bits is None else g.bits + u.bits
         y, newq["down"] = HDense.apply(p["down"], q["down"], QTensor(h, bits),
-                                       mode=mode, aux=aux)
+                                       mode=mode, aux=aux, wq=w.get("down"))
         return y, newq

@@ -71,7 +71,8 @@ def _imports(path: Path):
 def test_sources_import_neither_jax_nor_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "torch_kernel_sweep.py",
-                                         ROOT / "torch_profile_check.py"]
+                                         ROOT / "torch_profile_check.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
     for f in files:
         for name in _imports(f):

@@ -387,8 +387,8 @@ def test_jet_pipeline_is_a_function_of_seed_and_step():
     noise = big["x"] - centres[big["y"]]
     assert abs(float(noise.std()) - 1.0) < 0.02
     assert 1.0 < float(centres.std()) < 2.0
-    with pytest.raises(NotImplementedError):
-        make_pipeline(DataSpec(kind="lm", batch=8), device="cpu")
+    with pytest.raises(NotImplementedError):        # not ported yet
+        make_pipeline(DataSpec(kind="asr", batch=8), device="cpu")
     if not torch.cuda.is_available():       # the card is the default
         with pytest.raises(RuntimeError):
             make_pipeline(DataSpec(kind="jet", batch=8))
