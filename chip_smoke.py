@@ -39,7 +39,9 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    2048, 393216, hd 64) beside the empty kernel on the same grid (the
    launch floor), and holds it on its edges (any hd, rows off alignment,
    ragged R, -128 mantissas at every exponent); holds and times the
-   ``hgq_quantize`` shapes of the SVHN and muon models (4-D
+   serving kernels at granite-moe-3b-a800m's shapes too (``qmatmul`` at
+   N 40 and 49155, attention and the store at 8 kv heads); holds and
+   times the ``hgq_quantize`` shapes of the SVHN and muon models (4-D
    per-parameter conv kernels, per-tensor activations up to 1.84 M
    values, their grouped forwards) and of the qwen2-0.5b training step
    (the 151936 x 896 table per channel, a 29.4 M-value chunk pair of
@@ -56,7 +58,16 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    ``torch.profiler``, whose trace also gives the blocks each
    ``kv_attention_rows`` launch ran (at least 128) and must hold no
    ``stack``, ``index_put`` or ``bitwise`` operation (the KV store is one
-   kernel);
+   kernel); then serves granite-moe-3b-a800m (the MoE family: 32 layers
+   of 40 experts, top 8) at full width the same way (``granite_serving``):
+   (a) packed int8 with ``kv_bits`` 8, (b) the expert stacks in nibbles
+   with ``kv_bits`` 4; every request finishes, each equals itself served
+   alone by an engine of the same geometry, card vs CPU logits at 4 of
+   its layers within the dense limits that two MoE faults (gates not
+   renormalized, the capacity one slot short) exceed, one full tick's
+   launches by shape exact (161 ``qmatmul``, 32 ``kv_quantize_store``,
+   32 ``kv_attention_rows``; the expert nibbles unpacked, no ``qmatmul``
+   weight), and one tick of each profiled last;
 5. train phase: trains the paper's jet tagger at its full width with
    ``examples/quickstart.py``'s configuration through the port's
    ``Trainer.run`` (300 steps, batch 1024), calibrates it on a held-out
@@ -145,8 +156,9 @@ the kernel phase only.
 
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
-kernel) and leaves the per-unit fields null; ``--phase train`` runs steps
-1-3 and 5; ``--phase wire`` steps 1-3 and 6.
+kernel) and leaves the per-unit fields null; ``--phase serve`` runs steps
+1-4, ``--phase train`` steps 1-3 and 5, ``--phase wire`` steps 1-3 and
+6.
 """
 from __future__ import annotations
 
@@ -608,14 +620,14 @@ def kv_store_case(key, window, dev, g, off=0, xoff=0, timed=True):
 
 
 # the fused store at serving's shapes (a decode tick of 8 slots and a
-# prefill chunk of 16, qwen2-0.5b's 2 kv heads of 64, the 1024-slot ring;
-# int8 and nibble rings), timed; then checks only: a windowed ring, a
+# prefill chunk of 16, qwen2-0.5b's 2 and granite's 8 kv heads of 64, the
+# 1024-slot ring; int8 and nibble rings), timed; then checks only: a windowed ring, a
 # chunk longer than its ring (rows dropped), bfloat16 rows, and views 1-15
 # bytes into their buffers
-STORE_TIMED = [(8, 1, 2, 64, 1024, 64, 8, "float32"),
-               (8, 1, 2, 64, 1024, 32, 4, "float32"),
-               (1, 16, 2, 64, 1024, 64, 8, "float32"),
-               (1, 16, 2, 64, 1024, 32, 4, "float32")]
+STORE_TIMED = [(B, S, KV, 64, 1024, hdm, bits, "float32")
+               for KV in (2, 8)            # qwen2-0.5b's, granite's kv heads
+               for B, S in ((8, 1), (1, 16))
+               for hdm, bits in ((64, 8), (32, 4))]
 STORE_CHECKS = ([((4, 1, 2, 64, 64, 64, 8, "float32"), True, 0, 0),
                  ((2, 16, 2, 64, 8, 64, 8, "float32"), True, 0, 0),
                  ((2, 16, 2, 64, 8, 32, 4, "float32"), True, 0, 0),
@@ -835,6 +847,9 @@ PAPER_SHAPES = [m for m in dict.fromkeys(
 # LM training cell's batch: the model's dimensions, checked against the
 # config where the cell runs
 QWEN = dict(L=24, d=896, H=14, KV=2, hd=64, ff=4864, V=151936, chunk=1024)
+# granite-moe-3b-a800m at its published width (configs FULL): 40 experts of
+# d_ff 512, top 8, an untied 49155-token head
+GRANITE = dict(L=32, d=1536, H=24, KV=8, hd=64, ff=512, E=40, k=8, V=49155)
 LM_BATCH, LM_SEQ = 2, 2048
 
 
@@ -1417,12 +1432,17 @@ def kernel_phase(dev):
     g.manual_seed(SEED)
     H, KV, hd, W = 14, 2, 64, 1024
     cases = {name: {} for name in KERNELS}
+    d, Gkv, E, V = (GRANITE[k] for k in ("d", "KV", "E", "V"))
     for M in (8, 16):
-        # int8: q, o; k, v; gate, up; down; the tied head.  nibbles: gate,
-        # up; down (configuration (a)'s MLP)
+        # qwen2-0.5b: int8: q, o; k, v; gate, up; down; the tied head.
+        # nibbles: gate, up; down (configuration (a)'s MLP).  granite: int8
+        # q, o; k, v; the router (N 40, under one block of 128 columns);
+        # the untied head (N 49155, odd); nibbles at N 512 and 1536
         for K, N, bits in ((896, 896, 8), (896, 128, 8), (896, 4864, 8),
                            (4864, 896, 8), (896, 151936, 8),
-                           (896, 4864, 4), (4864, 896, 4)):
+                           (896, 4864, 4), (4864, 896, 4),
+                           (d, d, 8), (d, Gkv * hd, 8), (d, E, 8), (d, V, 8),
+                           (d, Gkv * hd, 4), (d, d, 4)):
             cases["qmatmul"][M, K, N, bits] = qmatmul_case(M, K, N, bits,
                                                            dev, g)
     rel = [c["rel_err"] for c in cases["qmatmul"].values()]
@@ -1442,11 +1462,13 @@ def kernel_phase(dev):
     for R in (8 * W * KV, W * KV, 24 * 8 * W * KV):
         cases["kv_dequant_rows"][R, hd] = kv_dequant_case(R, hd, dev, g)
     _dequant_edge_checks(dev, g)
-    for B, S in ((8, 1), (1, 16)):
-        for nibble in (False, True):
-            key = (B, S, H, KV, hd, W, hd // 2 if nibble else hd)
-            cases["kv_attention_rows"][key] = kv_attention_case(
-                B, S, W, nibble, 6.0, dev, g, H=H, KV=KV, hd=hd)
+    # qwen2-0.5b's 14 heads over 2 kv heads, granite's 24 over 8
+    for h, kv in ((H, KV), (GRANITE["H"], GRANITE["KV"])):
+        for B, S in ((8, 1), (1, 16)):
+            for nibble in (False, True):
+                key = (B, S, h, kv, hd, W, hd // 2 if nibble else hd)
+                cases["kv_attention_rows"][key] = kv_attention_case(
+                    B, S, W, nibble, 6.0, dev, g, H=h, KV=kv, hd=hd)
     long_ring_checks(dev, g)
     for shape, fshape, dtype in HGQ_SHAPES + HGQ_EDGE + PAPER_SHAPES \
             + LM_SHAPES:
@@ -1750,12 +1772,14 @@ def _profiled(fn, grids_of=None, prepare=None, all_threads=False,
             grids, names)
 
 
-def _serve(eng, reqs):
+def _serve(eng, reqs, unpacks=None):
     """Continuous batching through the public surface, each tick timed
     to its end on the card.  The first tick with every slot busy also
-    has its launches tallied by shape."""
+    has its launches tallied by shape and, given the counter of
+    ``_counting_unpacks``, its ``unpack_nibbles`` calls counted: (tick
+    ms, that tick's launches by shape, its unpack calls or None)."""
     pending = list(reqs)
-    tick_ms, tick_shapes = [], None
+    tick_ms, tick_shapes, tick_unpacks = [], None, None
     while pending or not all(r.done for r in reqs):
         while pending and eng.submit(pending[0]) is not None:
             pending.pop(0)
@@ -1764,6 +1788,7 @@ def _serve(eng, reqs):
                                            for r in eng.slot_req)
         if full:
             before = _shapes(SERVING)
+            unpacked = None if unpacks is None else unpacks[0]
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
@@ -1771,18 +1796,23 @@ def _serve(eng, reqs):
         if full:
             after = _shapes(SERVING)
             tick_shapes = {k: after[k] - before[k] for k in after}
-    return tick_ms, tick_shapes
+            if unpacks is not None:
+                tick_unpacks = unpacks[0] - unpacked
+    return tick_ms, tick_shapes, tick_unpacks
 
 
 def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
-                       kv_bits, prompts, dev):
+                       kv_bits, prompts, dev, unpacks=None, device_ms=None):
     """Device operations, busy ms and the attention kernel's launch grids
-    of one decode tick with all 8 slots busy (B = 8, KV = 2, W = 1024), on
-    an engine of its own (a new one for each profiler run), after every
+    of one decode tick with all 8 slots busy (B = 8, W = 1024), on an
+    engine of its own (a new one for each profiler run), after every
     timed run: the profiler
     slows the host, and may go on doing so once it is stopped.  The
     attention kernel reads the whole ring whatever its fill, so short
-    prompts give the same device work as the timed run's."""
+    prompts give the same device work as the timed run's.  ``unpacks``,
+    the counter of an enclosing ``_counting_unpacks``, is set to the
+    profiled tick's ``unpack_nibbles`` calls; ``device_ms`` receives the
+    device milliseconds by operation name (``_profiled``)."""
     def engine():
         eng = Engine(model, params, qstate, cfg, batch_slots=8,
                      max_len=1024, prefill_chunk=16, packed=True, plan=pl,
@@ -1794,8 +1824,13 @@ def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
               "profile pass: idle slot")
         return eng
 
-    return _profiled(lambda eng: eng.step(), "kv_attention_kernel",
-                     prepare=engine)
+    def step(eng):
+        if unpacks is not None:
+            unpacks[0] = 0
+        eng.step()
+
+    return _profiled(step, "kv_attention_kernel", prepare=engine,
+                     device_ms=device_ms)
 
 
 # what a KV store outside the fused kernel would run, by the names of host
@@ -1852,12 +1887,12 @@ def _bf16_activations_into_qmatmul():
 
 
 def _without_act_quantizers(tree):
-    """The tree without its activation quantizers (every ``out_f`` and
-    ``attnout_f``): packed weights, the cache's grids and the
-    probabilities' grid stay."""
+    """The tree without its activation quantizers (every ``out_f``,
+    ``attnout_f`` and an MoE's ``h_f``): packed weights, the cache's grids
+    and the probabilities' grid stay."""
     if isinstance(tree, dict):
         return {k: _without_act_quantizers(v) for k, v in tree.items()
-                if k not in ("out_f", "attnout_f")}
+                if k not in ("out_f", "attnout_f", "h_f")}
     return tree
 
 
@@ -1872,12 +1907,14 @@ LOGITS_REL_GROSS = 0.1
 LOGITS_REL_LIMIT = 0.005
 
 
-def _logits_vs_plain(p, q, cfg, kv_bits, dev):
+def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls):
     """Teacher-forced logits of the card (kernels) against the CPU (plain
     versions) on one prefill chunk and two decode ticks of 2 rows, with
     the activation quantizers on ("full") and off ("continuous"), where
-    two controls -- the card path with one subtle fault each -- are read
-    too: {witness: {"rel_l2", "argmax_agree", "controls"?}}."""
+    the ``controls`` -- the card path with one subtle fault each, {name:
+    (the fault's tree without activation quantizers, a context manager
+    that puts the fault in the code)} -- are read too: {witness:
+    {"rel_l2", "argmax_agree", "controls"?}}."""
     from repro_torch.models import TransformerLM
     from repro_torch.tree import tree_map
     g = np.random.default_rng(SEED)
@@ -1913,15 +1950,48 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev):
     _, full = compare(p)
     pc = _without_act_quantizers(p)
     b, cont = compare(pc)
-    # control: probabilities on a grid one step finer in every layer
+    cont["controls"] = {}
+    for name, (tree, fault) in controls(pc).items():
+        with fault():
+            cont["controls"][name] = rel(run(dev, tree, q), b)
+    return {"full": full, "continuous": cont}
+
+
+def _dense_controls(pc):
+    """Probabilities on a grid one step finer in every layer; activations
+    rounded to bfloat16 into every packed matmul."""
     attn = dict(pc["layers"]["attn"],
                 probs_f=pc["layers"]["attn"]["probs_f"] + 1)
-    finer = run(dev, {**pc, "layers": {**pc["layers"], "attn": attn}}, q)
-    with _bf16_activations_into_qmatmul():
-        bf16 = run(dev, pc, q)
-    cont["controls"] = {"probs_grid_one_step_finer": rel(finer, b),
-                        "bf16_activations_into_qmatmul": rel(bf16, b)}
-    return {"full": full, "continuous": cont}
+    return {"probs_grid_one_step_finer": (
+                {**pc, "layers": {**pc["layers"], "attn": attn}},
+                contextlib.nullcontext),
+            "bf16_activations_into_qmatmul": (
+                pc, _bf16_activations_into_qmatmul)}
+
+
+@contextlib.contextmanager
+def _patched(module, name, fn):
+    """``module.name`` replaced by ``fn(the real one)`` inside."""
+    real = getattr(module, name)
+    setattr(module, name, fn(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _moe_controls(pc):
+    """The MoE's gates not renormalized over the top k; every expert's
+    capacity one slot short wherever it has more than one (a decode
+    tick's C = 1 stays)."""
+    import repro_torch.nn.moe as moe
+    return {"gates_not_renormalized": (
+                pc, lambda: _patched(moe, "renormalize",
+                                     lambda real: lambda g: g)),
+            "capacity_one_slot_short": (
+                pc, lambda: _patched(moe, "capacity",
+                                     lambda real: lambda S, c: max(
+                                         1, real(S, c) - 1)))}
 
 
 def slice_phase(dev, cases):
@@ -1964,7 +2034,7 @@ def slice_phase(dev, cases):
         _reset_counts()                       # the main path starts here
         t0 = time.perf_counter()
         with _counting_unpacks(unpacks):
-            tick_ms, tick_shapes = _serve(eng, reqs)
+            tick_ms, tick_shapes, _ = _serve(eng, reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts(SERVING)             # ... and ends here
@@ -2007,7 +2077,8 @@ def slice_phase(dev, cases):
             check(ref[0].tolist() == reqs[i].out,
                   f"({tag}) Engine != generate() for request {i}")
         pp, qq = pack_for_serving(params, qstate, pl)
-        logits = _logits_vs_plain(pp, qq, cfg, kv_bits, dev)
+        logits = _logits_vs_plain(pp, qq, cfg, kv_bits, dev,
+                                  _dense_controls)
         full, cont = logits["full"], logits["continuous"]
         print(f"[slice] ({tag}) card vs CPU logits: {json.dumps(logits)} "
               f"(limits: full {LOGITS_REL_GROSS}, continuous "
@@ -2045,32 +2116,246 @@ def slice_phase(dev, cases):
               f"{counts}; per full tick {per_tick}; Engine == generate() "
               f"on requests 0 and {len(reqs) - 1}", flush=True)
         del eng
+    granite_total, report["granite"], granite_ticks, granite_profile = \
+        granite_serving(dev, cases)
+    for k in total:
+        total[k] += granite_total[k]
     # profiled only now, after every timed run
     for tag, desc, pl, kv_bits in configs:
-        ops, busy, grids, names = _profile_full_tick(
+        _read_profiled_tick(tag, cfg, report[tag], _profile_full_tick(
             Engine, Request, TransformerLM, params, qstate, cfg, pl, kv_bits,
-            prompts, dev)
-        stray = _store_ops(names)
-        check(not stray, f"({tag}) the profiled tick holds operations of a "
-                         f"KV store outside its kernel: {stray}")
-        med = report[tag]["decode_tick_ms_median"]
-        blocks = sorted({math.prod(gr) for gr in grids})
-        check(len(grids) == cfg.n_layers and min(blocks) >= 128,
-              f"({tag}) the profiled tick's kv_attention_rows launches: "
-              f"{len(grids)} of {cfg.n_layers}, blocks {blocks}, fewer than "
-              f"128")
-        report[tag]["profiled_full_tick"] = {
-            "device_ops": ops, "device_busy_ms": busy,
-            "idle_share_of_median_tick": 1.0 - busy / med,
-            "attention_grids": sorted(set(grids)),
-            "kv_store_kernels": sum(n for k, n in names.items()
-                                    if "kv_store_kernel" in k),
-            "stack_index_put_bitwise_ops": stray}
-        print(f"[slice] ({tag}) profiled full tick: {ops} device operations, "
-              f"device busy {busy:.2f} ms, idle {1.0 - busy / med:.1%} of the "
-              f"median tick; kv_attention_rows grids {sorted(set(grids))}",
+            prompts, dev))
+    granite_profile()
+    return total, report, tick_shapes_a, granite_ticks
+
+
+def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0):
+    """Check one profiled full tick and record it in ``entry``: every
+    layer's ``kv_attention_rows`` launch ran at least 128 blocks, and the
+    tick holds no operation of a KV store outside its kernel (a stack, an
+    ``index_put``, a bitwise and / or) but the one ``aten::stack`` each of
+    the tick's ``unpacks`` (``unpack_nibbles`` calls) makes."""
+    ops, busy, grids, names = profiled
+    stray = _store_ops(names)
+    stacks = stray.pop("aten::stack", 0)
+    check(not stray and stacks == unpacks,
+          f"({tag}) the profiled tick holds operations of a KV store outside "
+          f"its kernel: {stray}, {stacks} aten::stack for {unpacks} "
+          f"unpack_nibbles calls")
+    med = entry["decode_tick_ms_median"]
+    blocks = sorted({math.prod(gr) for gr in grids})
+    check(len(grids) == cfg.n_layers and min(blocks) >= 128,
+          f"({tag}) the profiled tick's kv_attention_rows launches: "
+          f"{len(grids)} of {cfg.n_layers}, blocks {blocks}, fewer than 128")
+    entry["profiled_full_tick"] = {
+        "device_ops": ops, "device_busy_ms": busy,
+        "idle_share_of_median_tick": 1.0 - busy / med,
+        "attention_grids": sorted(set(grids)),
+        "kv_store_kernels": sum(n for k, n in names.items()
+                                if "kv_store_kernel" in k),
+        "stack_index_put_bitwise_ops": stray, "unpack_stacks": stacks}
+    print(f"[slice] ({tag}) {cfg.name} profiled full tick: {ops} device "
+          f"operations, device busy {busy:.2f} ms, idle "
+          f"{1.0 - busy / med:.1%} of the median tick; kv_attention_rows "
+          f"grids {sorted(set(grids))}", flush=True)
+
+
+# Card logits against the CPU at granite's full width and this many of its
+# layers (the first ones of the served tree): the CPU side then takes a
+# few seconds a run.  The limits are the dense model's (readings in
+# PERF.md); its controls are MoE faults (``_moe_controls``).
+GRANITE_LOGITS_LAYERS = 4
+GRANITE_EXPERTS = ("layers/moe/gate", "layers/moe/up", "layers/moe/down")
+
+
+def granite_serving(dev, cases):
+    """granite-moe-3b-a800m FULL (random weights from the seed) served
+    through ``Engine`` as the qwen2 part serves it (8 slots, a 1024-slot
+    ring, chunks of 16, 10 greedy requests of 16-256 prompt tokens and 32
+    new ones) in two configurations: (a) packed uniform int8, ``kv_bits``
+    8; (b) a plan with the expert stacks in nibbles (4 bits), the rest
+    int8, ``kv_bits`` 4.  Checks: every request finishes; its tokens
+    equal those of the request served alone by an engine of the same
+    geometry (``generate()`` prefills a whole prompt at once, so its
+    capacity and its drops differ); card vs CPU logits at
+    ``GRANITE_LOGITS_LAYERS`` layers within the dense limits, which both
+    MoE controls exceed; one full tick's launches by shape, exact (161
+    ``qmatmul``: q, k, v, o and the router a layer and the head; one
+    ``kv_quantize_store`` and one ``kv_attention_rows`` a layer), and its
+    ``unpack_nibbles`` calls (the three expert stacks a layer in (b), none
+    in (a): no ``qmatmul`` weight is unpacked).  Returns (launch counts,
+    report, configuration (a)'s full tick by shape, a function that
+    profiles one full tick of each configuration, to be called after
+    every timed run)."""
+    from repro_torch.configs import get
+    from repro_torch.core.plan import LayerPlan, PrecisionPlan
+    from repro_torch.models import TransformerLM, model_for
+    from repro_torch.serving import (Engine, Request, kv_bytes_per_token,
+                                     packed_nbytes)
+    from repro_torch.serving.packed import pack_for_serving
+    from repro_torch.tree import tree_map
+
+    G = GRANITE
+    cfg = get("granite-moe-3b-a800m")
+    check(model_for(cfg) is TransformerLM
+          and (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+               cfg.d_ff, cfg.moe_experts, cfg.moe_top_k, cfg.vocab)
+          == tuple(G[k] for k in ("L", "d", "H", "KV", "hd", "ff", "E", "k",
+                                  "V")), "not granite-moe-3b-a800m")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params, qstate = TransformerLM.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"[granite] granite-moe-3b-a800m FULL init on the card: "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{cfg.n_params() / 1e9:.2f} B parameters", flush=True)
+    plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
+                                 for k in GRANITE_EXPERTS})
+    rng = np.random.default_rng(SEED)
+    lens = [16, 256] + [int(n) for n in rng.integers(16, 257, 8)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
+    max_new, max_len, L = 32, 1024, cfg.n_layers
+    t_part = time.perf_counter()
+    configs = (("a", "packed uniform int8, kv_bits 8", None, 8),
+               ("b", "packed plan: layers/moe/{gate,up,down} in nibbles (4 "
+                     "bits), the rest int8; kv_bits 4", plan, 4))
+    want_qmatmul = {(8, G["d"], G["d"], 8): 2 * L,            # q, o
+                    (8, G["d"], G["KV"] * G["hd"], 8): 2 * L,  # k, v
+                    (8, G["d"], G["E"], 8): L,                 # the router
+                    (8, G["d"], G["V"], 8): 1}                 # the head
+    total = {k: 0 for k in SERVING}
+    report, tick_shapes_a = {}, None
+    for tag, desc, pl, kv_bits in configs:
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(TransformerLM, params, qstate, cfg, batch_slots=8,
+                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
+                     kv_bits=kv_bits, seed=SEED, device=dev)
+        reqs = [Request(prompt=list(pr), max_new=max_new) for pr in prompts]
+        torch.cuda.synchronize()
+        unpacks = [0]
+        _reset_counts()                       # the main path starts here
+        t0 = time.perf_counter()
+        with _counting_unpacks(unpacks):
+            tick_ms, tick_shapes, tick_unpacks = _serve(eng, reqs, unpacks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(SERVING)             # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        nbytes = packed_nbytes(eng.p)
+        del eng
+        for k in total:
+            total[k] += counts[k]
+        check(all(c > 0 for c in counts.values()),
+              f"(granite {tag}) a kernel was never launched: {counts}")
+        check(tick_shapes is not None,
+              f"(granite {tag}) no tick had every slot busy")
+        per_tick = {k: sum(c.values()) for k, c in tick_shapes.items()}
+        store, attn = tick_shapes["kv_quantize_store"], \
+            tick_shapes["kv_attention_rows"]
+        rows_launches = _counts(("kv_quantize_rows",))["kv_quantize_rows"]
+        check(dict(tick_shapes["qmatmul"]) == want_qmatmul
+              and sum(store.values()) == L and len(store) == 1
+              and dict(attn) == {(8, 1, G["H"], G["KV"], G["hd"], max_len,
+                                  G["hd"] // 2 if kv_bits == 4 else G["hd"]):
+                                 L}
+              and rows_launches == 0,
+              f"(granite {tag}) one full tick's launches by shape: "
+              f"{ {k: dict(c) for k, c in tick_shapes.items()} }, "
+              f"{rows_launches} kv_quantize_rows launches while serving")
+        check(tick_unpacks == (3 * L if pl is not None else 0),
+              f"(granite {tag}) {tick_unpacks} unpack_nibbles calls in a "
+              f"full tick")
+        if tag == "a":
+            tick_shapes_a = tick_shapes
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 8)
+        for key in store:
+            if key not in cases["kv_quantize_store"]:
+                cases["kv_quantize_store"][key] = kv_store_case(
+                    key, False, dev, g)
+        check(all(r.done and len(r.out) == max_new for r in reqs),
+              f"(granite {tag}) not every request finished")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+              f"(granite {tag}) token out of range")
+        # each request alone, on an engine of the same geometry over the
+        # same packed tree
+        pp, qq = pack_for_serving(params, qstate, pl)
+        t0 = time.perf_counter()
+        apart = []
+        for i, pr in enumerate(prompts):
+            one = Request(prompt=list(pr), max_new=max_new)
+            Engine(TransformerLM, pp, qq, cfg, batch_slots=8,
+                   max_len=max_len, prefill_chunk=16, kv_bits=kv_bits,
+                   seed=SEED, device=dev).run([one])
+            if one.out != reqs[i].out:
+                apart.append(i)
+        alone_s = time.perf_counter() - t0
+        check(not apart, f"(granite {tag}) requests {apart} served alone "
+                         f"give other tokens than in the batch")
+        cut = GRANITE_LOGITS_LAYERS
+        logits = _logits_vs_plain(
+            {**pp, "layers": tree_map(lambda a: a[:cut], pp["layers"])},
+            {**qq, "layers": tree_map(lambda a: a[:cut], qq["layers"])},
+            dataclasses.replace(cfg, n_layers=cut), kv_bits, dev,
+            _moe_controls)
+        del pp, qq
+        full, cont = logits["full"], logits["continuous"]
+        print(f"[granite] ({tag}) card vs CPU logits at {cut} layers: "
+              f"{json.dumps(logits)} (limits: full {LOGITS_REL_GROSS}, "
+              f"continuous {LOGITS_REL_LIMIT})", flush=True)
+        check(full["rel_l2"] <= LOGITS_REL_GROSS,
+              f"(granite {tag}) card vs CPU logits rel L2 {full['rel_l2']}")
+        check(cont["rel_l2"] <= LOGITS_REL_LIMIT
+              and cont["argmax_agree"] == 1.0,
+              f"(granite {tag}) card vs CPU logits without activation "
+              f"quantizers: {cont}")
+        check(all(c > LOGITS_REL_LIMIT for c in cont["controls"].values()),
+              f"(granite {tag}) the logits check misses a control: {cont}")
+        toks = sum(len(r.out) for r in reqs)
+        med = float(np.median(tick_ms))
+        report[tag] = {
+            "config": desc, "requests": len(reqs),
+            "prompt_tokens": sum(lens), "new_tokens": toks,
+            "decode_tick_ms_median": med, "ticks": len(tick_ms),
+            "tokens_per_s": toks / wall, "wall_s": wall,
+            "peak_mem_gib": peak, "packed_weight_bytes": nbytes,
+            "kv_bytes_per_token": kv_bytes_per_token(cfg.n_kv, cfg.hd, L,
+                                                     kv_bits),
+            "launches": counts, "launches_per_full_tick": per_tick,
+            "unpack_nibbles_per_full_tick": tick_unpacks,
+            "alone_runs_s": alone_s, "logits_vs_cpu": logits}
+        print(f"[granite] ({tag}) {desc}: {len(reqs)} requests, prompts "
+              f"{min(lens)}-{max(lens)} tokens, {toks} new tokens in "
+              f"{wall:.2f} s = {toks / wall:.1f} tok/s; decode tick median "
+              f"{med:.2f} ms over {len(tick_ms)} ticks; peak memory "
+              f"{peak:.2f} GiB; packed weights {nbytes / 1e6:.1f} MB; "
+              f"launches {counts}; per full tick {per_tick}, "
+              f"{tick_unpacks} unpack_nibbles calls; every request equal "
+              f"alone ({alone_s:.1f} s)", flush=True)
+
+    print(f"[granite] served, checked alone and against the CPU in "
+          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+
+    def profile():
+        t0 = time.perf_counter()
+        for tag, desc, pl, kv_bits in configs:
+            unpacks, by_name = [0], {}
+            with _counting_unpacks(unpacks):
+                profiled = _profile_full_tick(
+                    Engine, Request, TransformerLM, params, qstate, cfg, pl,
+                    kv_bits, prompts, dev, unpacks=unpacks, device_ms=by_name)
+            _read_profiled_tick(f"granite {tag}", cfg, report[tag], profiled,
+                                unpacks=unpacks[0])
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+            report[tag]["profiled_full_tick"]["top_device_ms"] = top
+            print(f"[granite] ({tag}) the profiled tick's device ms by "
+                  f"operation: " + "; ".join(f"{n[:60]} {ms:.3f}"
+                                             for n, ms in top), flush=True)
+        print(f"[granite] profiled in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    return total, report, tick_shapes_a
+
+    return total, report, tick_shapes_a, profile
 
 
 # ---------------------------------------------------------------------------
@@ -3523,8 +3808,8 @@ def wire_phase(dev, cases):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "train", "wire"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
+                                        "wire"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3565,13 +3850,18 @@ def main(argv=None) -> int:
     tallies = collections.defaultdict(list)
     launches = collections.Counter()
     slice_report = train_report = wire_report = None
-    if args.phase == "all":
-        total, slice_report, tick_shapes = slice_phase(dev, cases)
+    if args.phase in ("all", "serve"):
+        total, slice_report, tick_shapes, granite_ticks = slice_phase(
+            dev, cases)
         launches.update(total)
         per = ("one full decode tick of serving configuration (a), calls by "
                "shape as counted on the main path")
+        granite_per = ("one full decode tick of granite-moe-3b-a800m FULL, "
+                       "configuration (a) (packed int8, kv_bits 8), calls by "
+                       "shape as counted on the main path")
         for k in SERVING:
             tallies[k].append((tick_shapes[k], per))
+            tallies[k].append((granite_ticks[k], granite_per))
     if args.phase in ("all", "train"):
         train_report, per_step = train_phase(dev)
         units = {"jet": "one training step of the quickstart jet tagger",

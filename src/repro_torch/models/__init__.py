@@ -1,5 +1,5 @@
-"""Models ported so far: the dense decoder-only LM and the paper's three
-benchmark models."""
+"""Models ported so far: the decoder-only LM (dense, MoE and the VLM
+backbone) and the paper's three benchmark models."""
 from .config import ModelConfig
 from .lm import TransformerLM
 from .tasks import JetTagger, MuonTracker, SVHNNet
@@ -7,7 +7,7 @@ from .tasks import JetTagger, MuonTracker, SVHNNet
 
 def model_for(cfg: ModelConfig):
     """Dispatch an arch config to its model implementation."""
-    if cfg.family not in ("dense",):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return TransformerLM
 

@@ -1,6 +1,6 @@
-"""Decoder-only transformer LM, dense family (counterpart of
-``repro/models/lm.py``): the training / prefill ``forward`` and the
-decode path.
+"""Decoder-only transformer LM, dense / MoE / VLM-backbone families
+(counterpart of ``repro/models/lm.py``): the training / prefill
+``forward`` and the decode path.
 
 Params keep the JAX tree: nested dicts with stacked ``[L, ...]`` layer
 leaves, so plan keys (``layers/mlp/gate/kernel``), ``from_jax`` and the
@@ -9,8 +9,9 @@ Python loop over per-layer views; the training forward unbinds the
 stacked leaves (one gradient stack a leaf), remats each layer with
 ``torch.utils.checkpoint`` when ``cfg.remat``, sums the layers' ~EBOPs
 and L1 as the scan's carry does and stacks their new range states back
-to ``[L, ...]``.  In TRAIN a layer's 10 weight and bias quantizers run
-as one group (one ``hgq_quantize`` forward launch on the card).  The
+to ``[L, ...]``.  In TRAIN a layer's projection weight and bias
+quantizers run as one group (one ``hgq_quantize`` forward launch on the
+card); an MoE block quantizes its router and expert stacks itself.  The
 residual stream stays unquantized; activation quantizers sit at the norm
 and projection outputs.
 """
@@ -32,6 +33,7 @@ from ..nn.attention import (AttnConfig, GQAAttention, KVCache, QKVCache,
 from ..nn.basic import HDense, HEmbedding, LayerNorm, RMSNorm
 from ..nn.common import get_qw, quantize_weights
 from ..nn.mlp import GLUMLP
+from ..nn.moe import MoE, MoEConfig
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .config import ModelConfig
 
@@ -49,6 +51,12 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
                       causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
 
 
+def _moe_cfg(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                     n_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                     act=cfg.act)
+
+
 def layer_views(stacked: Any, n_layers: int) -> List[Any]:
     """Stacked ``[L, ...]`` layer tree -> one tree of views per layer, by
     ``unbind``: under autograd each stacked leaf gets one backward that
@@ -60,24 +68,25 @@ def layer_views(stacked: Any, n_layers: int) -> List[Any]:
 
 
 # a layer's projections, whose weights and biases one grouped quantizer
-# launch makes in TRAIN
+# launch makes in TRAIN (an MoE block has none here: it quantizes its own)
 _PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
                 "mlp": ("gate", "up", "down")}
 
 
 def _layer_weights(lp, mode: str) -> Dict[str, Any]:
-    """{block: {projection: its quantized kernel and bias}} made in one
-    group in TRAIN (10 members for qwen2: q, k, v with biases, o, gate,
-    up, down); {block: None} (each projection quantizes its own)
-    otherwise."""
+    """{block: {projection: its quantized kernel and bias}} for the
+    layer's blocks of ``_PROJECTIONS``, made in one group in TRAIN (10
+    members for qwen2: q, k, v with biases, o, gate, up, down); {block:
+    None} (each projection quantizes its own) otherwise."""
+    blocks = {b: names for b, names in _PROJECTIONS.items() if b in lp}
     if mode != hgq.TRAIN:
-        return {blk: None for blk in _PROJECTIONS}
-    keys = [(blk, name, k) for blk, names in _PROJECTIONS.items()
+        return {blk: None for blk in blocks}
+    keys = [(blk, name, k) for blk, names in blocks.items()
             for name in names for k in ("kernel", "bias")
             if k in lp[blk][name]]
     qs = quantize_weights([lp[b][n][k] for b, n, k in keys], mode)
     out: Dict[str, Any] = {blk: {n: {} for n in names}
-                           for blk, names in _PROJECTIONS.items()}
+                           for blk, names in blocks.items()}
     for (b, n, k), t in zip(keys, qs):
         out[b][n][k] = t
     return out
@@ -140,8 +149,12 @@ class TransformerLM(nn.Module):
                                                        cfg.hgq, dev)
             lp["ln2"], lq["ln2"] = Norm.init(gen, cfg.d_model, cfg.hgq,
                                              device=dev)
-            lp["mlp"], lq["mlp"] = GLUMLP.init(gen, cfg.d_model, cfg.d_ff,
-                                               cfg.hgq, dev)
+            if cfg.moe_experts:
+                lp["moe"], lq["moe"] = MoE.init(gen, _moe_cfg(cfg), cfg.hgq,
+                                                dev)
+            else:
+                lp["mlp"], lq["mlp"] = GLUMLP.init(gen, cfg.d_model,
+                                                   cfg.d_ff, cfg.hgq, dev)
             per_p.append(lp)
             per_q.append(lq)
         p["layers"] = tree_map(lambda *a: torch.stack(a), *per_p)
@@ -173,8 +186,13 @@ class TransformerLM(nn.Module):
         x = x + a.q
         h, newq["ln2"] = Norm.apply(lp["ln2"], lq["ln2"], x, mode=mode,
                                     aux=aux)
-        m, newq["mlp"] = GLUMLP.apply(lp["mlp"], lq["mlp"], h, mode=mode,
-                                      aux=aux, act=cfg.act, weights=w["mlp"])
+        if cfg.moe_experts:
+            m, newq["moe"] = MoE.apply(lp["moe"], lq["moe"], h,
+                                       cfg=_moe_cfg(cfg), mode=mode, aux=aux)
+        else:
+            m, newq["mlp"] = GLUMLP.apply(lp["mlp"], lq["mlp"], h, mode=mode,
+                                          aux=aux, act=cfg.act,
+                                          weights=w["mlp"])
         return x + m.q, newq, None if aux is None else aux.as_tuple()
 
     # -------------------------- layer loop ------------------------------
@@ -209,7 +227,9 @@ class TransformerLM(nn.Module):
     def forward(p, q, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                 mode: str = hgq.TRAIN):
         """Training / prefill forward over ``batch["tokens"]`` [B, S]
-        (positions 0..S-1, no cache): (logits [B, S, V], new qstate, Aux)."""
+        (positions 0..S-1, no cache), a VLM's ``batch["patch_embeds"]``
+        [B, P, d] written over the first P positions: (logits [B, S, V],
+        new qstate, Aux)."""
         tokens = batch["tokens"]
         S = tokens.shape[1]
         aux = Aux.zero(tokens.device)
@@ -217,6 +237,9 @@ class TransformerLM(nn.Module):
         e, newq["embed"] = HEmbedding.apply(p["embed"], q["embed"], tokens,
                                             mode=mode, aux=aux)
         x = cast_for_matmul(e.q)
+        if cfg.n_patches and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
         positions = torch.arange(S, device=tokens.device)
         x, newq["layers"], (ebops, l1) = TransformerLM._stack_forward(
             p, q, x, positions, cfg, mode)
