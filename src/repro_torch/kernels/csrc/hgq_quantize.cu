@@ -16,6 +16,17 @@
 // cols]) or one value per element (per parameter).  Any cols works: no lane
 // alignment as the TPU kernel needed.
 //
+// An MoE layer's expert stack x [E, K, N] (x viewed as [E K, N], K rows an
+// expert) has its f per expert: [E, 1, N] (per expert channel: row r, column c
+// reads f[(r / K) N + c]) or [E, 1, 1] (per expert tensor: row r reads f[r / K]).
+// Both are the per-channel and per-tensor bodies run over E groups of K rows, each
+// group with its own f: the forward gives each group its own blocks (a block
+// finds its group by one division), the backward takes the group from a grid axis
+// (per channel z, per tensor y) and reduces it as the plain layouts reduce the
+// whole tensor, its clusters and second pass inside the group.  The TPU package
+// sends these shapes to its plain reference (src/repro/kernels/hgq_quantize/
+// ops.py:60); here they are kernels, with no fallback.
+//
 // The forward is one kernel for a group of independent tensors: a table in the
 // kernel's parameter space (__grid_constant__, no copy to the device) holds each
 // member's x, f and out, its [rows, cols], layout and dtype, and its first block;
@@ -130,7 +141,15 @@ static_assert(FWD_THREADS >= 32 && FWD_THREADS <= 1024 &&
 // parameter space every CUDA version takes)
 constexpr int FWD_MAX_MEMBERS = 64;
 
-enum Layout { PER_TENSOR = 0, PER_CHANNEL = 1, PER_PARAM = 2 };
+// the layouts as the entry points take them; PER_EXPERT_* run as PER_CHANNEL /
+// PER_TENSOR over groups of rows (group_rows K an expert)
+enum Layout {
+  PER_TENSOR = 0,
+  PER_CHANNEL = 1,
+  PER_PARAM = 2,
+  PER_EXPERT_CHANNEL = 3,
+  PER_EXPERT_TENSOR = 4
+};
 
 __device__ __forceinline__ float load(const float* p, long long i) {
   return p[i];
@@ -398,9 +417,13 @@ struct FwdMember {
   long long rows;   // x and out as [rows, cols], contiguous
   int cols;
   int block0;       // the member's first block in the grid
-  int blocks;       // its blocks; per channel column tiles x row chunks
+  int blocks;       // its blocks; per channel column tiles x row chunks, times
+                    // the groups
   int ctiles;       // per channel: tiles of 2^tpr_log2 column vectors, else 1
-  unsigned char layout, bf16, vec, tpr_log2;
+  unsigned char layout, bf16, vec, tpr_log2;  // layout: PER_TENSOR, _CHANNEL
+                                              // or _PARAM
+  int groups;       // groups of rows / groups rows, each with its own f (1 but
+                    // for the per-expert layouts); blocks / groups a group
 };
 
 struct FwdTable {
@@ -567,7 +590,7 @@ __device__ __forceinline__ void fwd_channel(const FwdMember& m, int b) {
 }
 
 template <typename T>
-__device__ __forceinline__ void fwd_member(const FwdMember& m, int b) {
+__device__ __forceinline__ void fwd_body(const FwdMember& m, int b) {
   if (m.layout == PER_CHANNEL) {
     if (m.vec) fwd_channel<T, true>(m, b);
     else fwd_channel<T, false>(m, b);
@@ -578,6 +601,29 @@ __device__ __forceinline__ void fwd_member(const FwdMember& m, int b) {
     if (m.vec) fwd_flat<T, PER_PARAM, true>(m, b);
     else fwd_flat<T, PER_PARAM, false>(m, b);
   }
+}
+
+// A member over groups of rows (the per-expert layouts): block b serves group
+// b / (blocks / groups) as a member of its own, its x, out and f moved to the
+// group's rows and f values.
+template <typename T>
+__device__ __forceinline__ void fwd_member(const FwdMember& m, int b) {
+  if (m.groups == 1) {
+    fwd_body<T>(m, b);
+    return;
+  }
+  const int per = m.blocks / m.groups;
+  const int grp = b / per;
+  FwdMember s = m;
+  s.rows = m.rows / m.groups;
+  s.blocks = per;
+  s.groups = 1;
+  const long long off = static_cast<long long>(grp) * s.rows * m.cols;
+  s.x = static_cast<const T*>(m.x) + off;
+  s.out = static_cast<T*>(m.out) + off;
+  s.f = m.f + (m.layout == PER_CHANNEL ? static_cast<long long>(grp) * m.cols
+                                       : grp);
+  fwd_body<T>(s, b - grp * per);
 }
 
 // Block b serves the last member whose first block is at or before b.
@@ -595,17 +641,26 @@ hgq_fwd_group_kernel(const __grid_constant__ FwdTable t) {
   else fwd_member<float>(m, blk - m.block0);
 }
 
-// Per channel.  grid (blocks of the clusters along the rows, 32-column tiles),
-// clusters of `cs` blocks along x.  Block b takes rows [b * span, (b + 1) *
-// span); lane: V columns of the tile (TPR lanes across it) and one of the block's
-// 8 V row phases (phase p takes rows p, p + 8 V, ...).  dst: df, or with several
-// clusters the partials [clusters, cols].
+// Per channel.  grid (blocks of the clusters along the rows, 32-column tiles,
+// groups), clusters of `cs` blocks along x.  Grid z is the group: its `rows` rows
+// and cols f values, reduced alone (one group but per expert).  Block b takes
+// rows [b * span, (b + 1) * span) of its group; lane: V columns of the tile (TPR
+// lanes across it) and one of the block's 8 V row phases (phase p takes rows p,
+// p + 8 V, ...).  dst: df [groups, cols], or with several clusters the partials
+// [groups, clusters, cols].
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(RED_THREADS)
 hgq_bwd_channel_kernel(const T* __restrict__ g, const T* __restrict__ x,
                        const float* __restrict__ f, float* __restrict__ dst,
                        long long rows, int cols, long long span, int cs) {
   constexpr int V = vec_of<T>();
+  {
+    const long long grp = blockIdx.z;
+    g += grp * rows * cols;
+    x += grp * rows * cols;
+    f += grp * cols;
+    dst += grp * (gridDim.x / cs) * cols;
+  }
   constexpr int TPR = COL_TILE / V;
   constexpr int PH = RED_WARPS * V;
   __shared__ float wsum[RED_WARPS][COL_TILE];
@@ -688,16 +743,24 @@ hgq_bwd_channel_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// Per tensor.  grid (blocks of the clusters), clusters of `cs` blocks.  Block b
-// takes elements [b * span, (b + 1) * span), span a multiple of the block's step;
-// a thread V consecutive elements a step, summed by a fixed tree.  dst: df, or
-// with several clusters the partials [clusters].
+// Per tensor.  grid (blocks of the clusters, groups), clusters of `cs` blocks.
+// Grid y is the group: its n elements and its one f, reduced alone.  Block b
+// takes elements [b * span, (b + 1) * span) of its group, span a multiple of the
+// block's step; a thread V consecutive elements a step, summed by a fixed tree.
+// dst: df [groups], or with several clusters the partials [groups, clusters].
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(RED_THREADS)
 hgq_bwd_tensor_kernel(const T* __restrict__ g, const T* __restrict__ x,
                       const float* __restrict__ f, float* __restrict__ dst,
                       long long n, long long span, int cs) {
   constexpr int V = vec_of<T>();
+  {
+    const long long grp = blockIdx.y;
+    g += grp * n;
+    x += grp * n;
+    f += grp;
+    dst += grp * (gridDim.x / cs);
+  }
   constexpr long long STEP = static_cast<long long>(RED_THREADS) * V;
   __shared__ float wsum[RED_WARPS];
   __shared__ float slots[CLUSTER];  // rank 0: one a rank
@@ -762,24 +825,30 @@ hgq_bwd_tensor_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// second pass, per channel: df[c] = the clusters' partials of column c, in
-// cluster order
+// second pass, per channel: df[grp, c] = the group's clusters' partials of
+// column c, in cluster order
 __global__ void hgq_bwd_sum_cols_kernel(const float* __restrict__ part,
                                         float* __restrict__ df, long long nc,
-                                        int cols) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float s = part[c];
-  for (long long k = 1; k < nc; ++k) s = __fadd_rn(s, part[k * cols + c]);
-  df[c] = s;
+                                        int cols, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= total) return;
+  const long long grp = i / cols, c = i - grp * cols;
+  const float* p = part + grp * nc * cols + c;
+  float s = p[0];
+  for (long long k = 1; k < nc; ++k) s = __fadd_rn(s, p[k * cols]);
+  df[i] = s;
 }
 
-// second pass, per tensor: df[0] = the clusters' partials, thread t adding
-// t, t + RED_THREADS, ... in order, then the fixed trees of the block
+// second pass, per tensor: block b writes df[b], the sum of group b's clusters'
+// partials, thread t adding t, t + RED_THREADS, ... in order, then the fixed
+// trees of the block
 __global__ void __launch_bounds__(RED_THREADS)
 hgq_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ df,
                    long long nc) {
   __shared__ float wsum[RED_WARPS];
+  part += static_cast<long long>(blockIdx.x) * nc;
+  df += blockIdx.x;
   float s = 0.f;
   for (long long k = threadIdx.x; k < nc; k += RED_THREADS)
     s = __fadd_rn(s, part[k]);
@@ -803,6 +872,32 @@ struct Plan {
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
+// A layout as the kernels run it: the per-channel, per-tensor or per-parameter
+// body over `groups` groups of `rows` rows each (rows the group's, cols the
+// tensor's).  The per-expert layouts are the first two over E groups of
+// group_rows rows; every other layout takes group_rows == rows, one group.
+struct Shape {
+  long long rows;  // a group's
+  int cols, layout, groups;
+};
+
+bool shape_of(long long rows, long long cols, int layout, long long group_rows,
+              Shape* sh) {
+  if (rows <= 0 || cols <= 0 || cols > INT_MAX || layout < PER_TENSOR ||
+      layout > PER_EXPERT_TENSOR || group_rows <= 0 || rows % group_rows)
+    return false;
+  const bool expert = layout >= PER_EXPERT_CHANNEL;
+  if (!expert && group_rows != rows) return false;
+  if (rows / group_rows > 65535) return false;  // a grid axis of the backward
+  sh->rows = group_rows;
+  sh->cols = static_cast<int>(cols);
+  sh->layout = layout == PER_EXPERT_CHANNEL  ? PER_CHANNEL
+               : layout == PER_EXPERT_TENSOR ? PER_TENSOR
+                                             : layout;
+  sh->groups = static_cast<int>(rows / group_rows);
+  return true;
+}
+
 // rows (per channel) or elements (per tensor) one batch of a block covers, and
 // the multiple a block's span keeps
 long long batch_units(int layout, int bf16) {
@@ -814,10 +909,13 @@ long long span_step(int layout, int bf16) {
   return layout == PER_CHANNEL ? 1 : RED_THREADS * (bf16 ? 8 : 4);
 }
 
-Plan plan_for(long long rows, int cols, int layout, int bf16) {
-  const long long n = layout == PER_CHANNEL ? rows : rows * cols;
-  const long long unit = batch_units(layout, bf16);
-  const long long step = span_step(layout, bf16);
+// one group's plan: every group of a launch has the same
+Plan plan_for(const Shape& sh, int bf16) {
+  const long long n = sh.layout == PER_CHANNEL
+                          ? sh.rows
+                          : sh.rows * static_cast<long long>(sh.cols);
+  const long long unit = batch_units(sh.layout, bf16);
+  const long long step = span_step(sh.layout, bf16);
   const long long blocks = cdiv(n, unit);
   Plan p;
   if (blocks <= CLUSTER * ONE_CLUSTER_BATCHES) {
@@ -832,8 +930,11 @@ Plan plan_for(long long rows, int cols, int layout, int bf16) {
   return p;
 }
 
-long long scratch_of(const Plan& p, int cols, int layout) {
-  return p.nc > 1 ? p.nc * (layout == PER_CHANNEL ? cols : 1) : 0;
+// the partials of every group's clusters, where a group has more than one
+long long scratch_of(const Plan& p, const Shape& sh) {
+  return p.nc > 1
+             ? sh.groups * p.nc * (sh.layout == PER_CHANNEL ? sh.cols : 1)
+             : 0;
 }
 
 bool aligned16(const void* p) {
@@ -867,86 +968,98 @@ cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int cs,
 
 template <typename T>
 cudaError_t bwd(const void* g, const void* x, const float* f, float* df,
-                float* scratch, long long rows, int cols, int layout,
-                const Plan& p, cudaStream_t st) {
+                float* scratch, const Shape& sh, const Plan& p,
+                cudaStream_t st) {
   const T* gt = static_cast<const T*>(g);
   const T* xt = static_cast<const T*>(x);
-  const long long n = rows * cols;
-  if (layout == PER_PARAM) {
+  const long long n = sh.rows * static_cast<long long>(sh.cols);  // a group's
+  if (sh.layout == PER_PARAM) {
     bwd_param_kernel<T><<<ew_blocks(n), EW_THREADS, 0, st>>>(gt, xt, f, df, n);
     return cudaGetLastError();
   }
   constexpr int V = vec_of<T>();
   const int cs = static_cast<int>(p.cs);
   const unsigned blocks = static_cast<unsigned>(p.cs * p.nc);
+  const unsigned groups = static_cast<unsigned>(sh.groups);
   float* dst = p.nc > 1 ? scratch : df;
   // 16-byte loads where g and x are aligned and every vector lies whole in a
-  // row; the same sums either way
+  // row (per tensor: in a group); the same sums either way
   const bool vec = aligned16(g) && aligned16(x) &&
-                   (layout == PER_CHANNEL ? cols : n) % V == 0;
+                   (sh.layout == PER_CHANNEL ? sh.cols : n) % V == 0;
   const int smem = vec ? STAGE_BYTES : 0;
   cudaError_t e;
-  if (layout == PER_CHANNEL) {
-    const dim3 grid(blocks, static_cast<unsigned>(cdiv(cols, COL_TILE)));
+  if (sh.layout == PER_CHANNEL) {
+    const dim3 grid(blocks, static_cast<unsigned>(cdiv(sh.cols, COL_TILE)),
+                    groups);
     e = launch_clusters(vec ? hgq_bwd_channel_kernel<T, true>
                             : hgq_bwd_channel_kernel<T, false>,
-                        grid, cs, smem, st, gt, xt, f, dst, rows, cols, p.span,
-                        cs);
+                        grid, cs, smem, st, gt, xt, f, dst, sh.rows, sh.cols,
+                        p.span, cs);
+    const long long total = static_cast<long long>(sh.groups) * sh.cols;
     if (e == cudaSuccess && p.nc > 1)
-      hgq_bwd_sum_cols_kernel<<<static_cast<unsigned>(cdiv(cols, RED_THREADS)),
-                                RED_THREADS, 0, st>>>(scratch, df, p.nc, cols);
+      hgq_bwd_sum_cols_kernel<<<static_cast<unsigned>(cdiv(total, RED_THREADS)),
+                                RED_THREADS, 0, st>>>(scratch, df, p.nc,
+                                                      sh.cols, total);
   } else {
     e = launch_clusters(vec ? hgq_bwd_tensor_kernel<T, true>
                             : hgq_bwd_tensor_kernel<T, false>,
-                        dim3(blocks), cs, smem, st, gt, xt, f, dst, n, p.span,
-                        cs);
+                        dim3(blocks, groups), cs, smem, st, gt, xt, f, dst, n,
+                        p.span, cs);
     if (e == cudaSuccess && p.nc > 1)
-      hgq_bwd_sum_kernel<<<1, RED_THREADS, 0, st>>>(scratch, df, p.nc);
+      hgq_bwd_sum_kernel<<<groups, RED_THREADS, 0, st>>>(scratch, df, p.nc);
   }
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-bool valid(long long rows, int cols, int layout) {
-  return rows > 0 && cols > 0 && layout >= PER_TENSOR && layout <= PER_PARAM;
-}
+// Descriptor values a member takes: x, f, out, rows, cols, layout, bf16,
+// group_rows.
+constexpr int DESC = 8;
 
-// One member of the forward from (x, f, out, rows, cols, layout, bf16) as the
-// entry points take them; its blocks follow from rows, cols, layout and dtype.
+// One member of the forward from its descriptor; its blocks follow from rows,
+// cols, layout, group rows and dtype.
 bool plan_member(const long long* d, long long block0, FwdMember* m) {
   const long long rows = d[3], cols = d[4], layout = d[5], bf16 = d[6];
-  if (cols > INT_MAX || !valid(rows, static_cast<int>(cols),
-                               static_cast<int>(layout)) ||
+  Shape sh;
+  if (layout < PER_TENSOR || layout > PER_EXPERT_TENSOR ||
+      !shape_of(rows, cols, static_cast<int>(layout), d[7], &sh) ||
       (bf16 != 0 && bf16 != 1) || block0 > INT_MAX)
     return false;
   m->x = reinterpret_cast<const void*>(d[0]);
   m->f = reinterpret_cast<const float*>(d[1]);
   m->out = reinterpret_cast<void*>(d[2]);
   m->rows = rows;
-  m->cols = static_cast<int>(cols);
-  m->layout = static_cast<unsigned char>(layout);
+  m->cols = sh.cols;
+  m->layout = static_cast<unsigned char>(sh.layout);
   m->bf16 = static_cast<unsigned char>(bf16);
+  m->groups = sh.groups;
   const long long v = bf16 ? 8 : 4;
   bool vec = aligned16(m->x) && aligned16(m->out);
+  // a group's blocks; the groups share the member's most blocks
+  const long long most = std::max<long long>(1, FWD_MAX_BLOCKS / sh.groups);
   long long blocks;
   m->ctiles = 1;
   m->tpr_log2 = 0;
-  if (layout == PER_CHANNEL) {
+  if (sh.layout == PER_CHANNEL) {
     vec = vec && cols % v == 0;
     const long long cvecs = cdiv(cols, v);
-    int sh = 0;  // lanes across a row: the column vectors, up to a warp
-    while ((1LL << sh) < cvecs && sh < 5) ++sh;
-    m->tpr_log2 = static_cast<unsigned char>(sh);
-    const long long ctiles = cdiv(cvecs, 1LL << sh);
-    const long long rp = FWD_THREADS >> sh;
-    const long long chunks = std::min(
-        cdiv(rows, rp), std::max<long long>(1, FWD_MAX_BLOCKS / ctiles));
+    int s = 0;  // lanes across a row: the column vectors, up to a warp
+    while ((1LL << s) < cvecs && s < 5) ++s;
+    m->tpr_log2 = static_cast<unsigned char>(s);
+    const long long ctiles = cdiv(cvecs, 1LL << s);
+    const long long rp = FWD_THREADS >> s;
+    const long long chunks = std::min(cdiv(sh.rows, rp),
+                                      std::max<long long>(1, most / ctiles));
     m->ctiles = static_cast<int>(ctiles);
     blocks = ctiles * chunks;
   } else {
-    if (layout == PER_PARAM) vec = vec && aligned16(m->f);
-    blocks = std::min<long long>(cdiv(cdiv(rows * cols, v), FWD_THREADS),
-                                 FWD_MAX_BLOCKS);
+    const long long n = sh.rows * cols;  // a group's
+    if (sh.layout == PER_PARAM) vec = vec && aligned16(m->f);
+    // a group starts on a 16-byte boundary only if its elements are whole
+    // vectors
+    if (sh.groups > 1) vec = vec && n % v == 0;
+    blocks = std::min<long long>(cdiv(cdiv(n, v), FWD_THREADS), most);
   }
+  blocks *= sh.groups;
   if (blocks > INT_MAX) return false;
   m->vec = vec;
   m->block0 = static_cast<int>(block0);
@@ -954,14 +1067,15 @@ bool plan_member(const long long* d, long long block0, FwdMember* m) {
   return true;
 }
 
-// desc: count rows of (x, f, out, rows, cols, layout, bf16)
+// desc: count rows of DESC values
 cudaError_t fwd_group(const long long* desc, int count, cudaStream_t st) {
   if (count < 1 || count > FWD_MAX_MEMBERS) return cudaErrorInvalidValue;
   FwdTable t = {};
   t.count = count;
   long long total = 0;
   for (int i = 0; i < count; ++i) {
-    if (!plan_member(desc + 7 * i, total, &t.m[i])) return cudaErrorInvalidValue;
+    if (!plan_member(desc + DESC * i, total, &t.m[i]))
+      return cudaErrorInvalidValue;
     total += t.m[i].blocks;
   }
   if (total > INT_MAX) return cudaErrorInvalidValue;
@@ -971,34 +1085,44 @@ cudaError_t fwd_group(const long long* desc, int count, cudaStream_t st) {
 
 }  // namespace
 
-// The backward's geometry for [rows, cols] at a per-channel or per-tensor layout
-// and x's dtype: plan[0] blocks a cluster, plan[1] clusters (above 1, a second
-// pass adds their partials), plan[2] rows (per channel) or elements (per tensor)
-// a block.  Returns the floats of scratch it needs (0: one launch, none).
+// The backward's geometry for x as [rows, cols] at a per-channel, per-tensor or
+// per-expert layout (group_rows rows an expert; rows otherwise) and x's dtype,
+// the same for every group: plan[0] blocks a cluster, plan[1] clusters a group
+// (above 1, a second pass adds their partials), plan[2] rows (per channel) or
+// elements (per tensor) a block.  Returns the floats of scratch it needs (0: one
+// launch, none), or -1 for a shape or layout the backward does not take.
 extern "C" long long hgq_quantize_bwd_plan(long long rows, int cols, int layout,
-                                           int bf16, long long* plan) {
-  if (!valid(rows, cols, layout) || layout == PER_PARAM) return -1;
-  const Plan p = plan_for(rows, cols, layout, bf16);
+                                           int bf16, long long group_rows,
+                                           long long* plan) {
+  Shape sh;
+  if (!shape_of(rows, cols, layout, group_rows, &sh) || sh.layout == PER_PARAM)
+    return -1;
+  const Plan p = plan_for(sh, bf16);
   plan[0] = p.cs;
   plan[1] = p.nc;
   plan[2] = p.span;
-  return scratch_of(p, cols, layout);
+  return scratch_of(p, sh);
 }
 
 // x, out: [rows, cols] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1);
-// f: float32, 1 value, [cols] or [rows, cols] by layout.  A group of one.
+// f: float32, 1 value, [cols], [rows, cols], [rows / group_rows, cols] or
+// [rows / group_rows] by layout (0 per tensor, 1 per channel, 2 per parameter,
+// 3 per expert channel, 4 per expert tensor); group_rows: the rows an expert
+// (3, 4), else rows.  A group of one.
 extern "C" int hgq_quantize_fwd_launch(const void* x, const float* f, void* out,
                                        long long rows, int cols, int layout,
-                                       int bf16, void* stream) {
-  const long long d[7] = {reinterpret_cast<long long>(x),
-                          reinterpret_cast<long long>(f),
-                          reinterpret_cast<long long>(out), rows, cols, layout,
-                          bf16};
+                                       int bf16, long long group_rows,
+                                       void* stream) {
+  const long long d[DESC] = {reinterpret_cast<long long>(x),
+                             reinterpret_cast<long long>(f),
+                             reinterpret_cast<long long>(out),
+                             rows, cols, layout, bf16, group_rows};
   return static_cast<int>(fwd_group(d, 1, static_cast<cudaStream_t>(stream)));
 }
 
 // The members of one launch: desc holds, for each of `count` (1..64) members,
-// x, f and out (device pointers), rows, cols, layout and bf16, each as above.
+// x, f and out (device pointers), rows, cols, layout, bf16 and group_rows, each
+// as above.
 extern "C" int hgq_quantize_fwd_group_launch(const long long* desc, int count,
                                              void* stream) {
   return static_cast<int>(
@@ -1009,20 +1133,23 @@ extern "C" int hgq_quantize_fwd_group_launch(const long long* desc, int count,
 extern "C" int hgq_quantize_fwd_group_max() { return FWD_MAX_MEMBERS; }
 
 // g, x: [rows, cols] contiguous in x's dtype; df: float32 in f's layout;
-// scratch: the floats hgq_quantize_bwd_plan returns (null if 0).
+// group_rows as for the forward; scratch: the floats hgq_quantize_bwd_plan
+// returns (null if 0).
 extern "C" int hgq_quantize_bwd_launch(const void* g, const void* x,
                                        const float* f, float* df,
                                        float* scratch, long long rows, int cols,
-                                       int layout, int bf16, void* stream) {
-  if (!valid(rows, cols, layout) || cdiv(cols, COL_TILE) > 65535)
+                                       int layout, int bf16,
+                                       long long group_rows, void* stream) {
+  Shape sh;
+  if (!shape_of(rows, cols, layout, group_rows, &sh) ||
+      cdiv(cols, COL_TILE) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = plan_for(rows, cols, layout, bf16);  // unused per parameter
-  if (layout != PER_PARAM && scratch_of(p, cols, layout) > 0 &&
-      scratch == nullptr)
+  const Plan p = plan_for(sh, bf16);  // unused per parameter
+  if (sh.layout != PER_PARAM && scratch_of(p, sh) > 0 && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      bf16 ? bwd<__nv_bfloat16>(g, x, f, df, scratch, rows, cols, layout, p, st)
-           : bwd<float>(g, x, f, df, scratch, rows, cols, layout, p, st);
+      bf16 ? bwd<__nv_bfloat16>(g, x, f, df, scratch, sh, p, st)
+           : bwd<float>(g, x, f, df, scratch, sh, p, st);
   return static_cast<int>(e);
 }

@@ -9,10 +9,13 @@ backward launch the hand-written kernels of ``csrc/hgq_quantize.cu``
 ``ref.py``.  The backward saves x and f, not the quantization error, and
 recomputes ``xq``: one float32 tensor less per quantizer.
 
-Three layouts of f reach the kernels, x viewed as [rows, cols] over its
+Five layouts of f reach the kernels, x viewed as [rows, cols] over its
 last axis: per tensor (``f.ndim == 0``), per channel (``f`` of shape
-``(N,)`` or ``(1, ..., 1, N)``, N the last axis) and per parameter
-(``f.shape == x.shape``).  On CUDA any other broadcast raises.
+``(N,)`` or ``(1, ..., 1, N)``, N the last axis), per parameter
+(``f.shape == x.shape``), and over an MoE layer's expert stack x ``(E,
+K, ..., N)`` per expert channel (``f`` of shape ``(E, 1, ..., 1, N)``) and
+per expert tensor (``(E, 1, ..., 1)``), x's rows in E groups of K each
+(``group_rows``).  On CUDA any other broadcast raises.
 
 ``hgq_quantize_group(xs, fs)`` quantizes a list of independent tensors,
 each in its own layout and dtype, in one forward launch (a training
@@ -30,7 +33,9 @@ import torch
 from .. import _build
 from . import ref
 
-LAYOUTS = ("per_tensor", "per_channel", "per_parameter")
+LAYOUTS = ("per_tensor", "per_channel", "per_parameter",
+           "per_expert_channel", "per_expert_tensor")
+_PER_EXPERT = ("per_expert_channel", "per_expert_tensor")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -46,6 +51,12 @@ def layout_of(x_shape: Sequence[int], f_shape: Sequence[int]
             and f_shape[-1] == x_shape[-1]
             and all(d == 1 for d in f_shape[:-1])):
         return "per_channel"
+    if (len(f_shape) == len(x_shape) >= 3 and f_shape[0] == x_shape[0]
+            and all(d == 1 for d in f_shape[1:-1])):
+        if f_shape[-1] == x_shape[-1]:
+            return "per_expert_channel"
+        if f_shape[-1] == 1:
+            return "per_expert_tensor"
     return None
 
 
@@ -54,22 +65,29 @@ def _rows_cols(x: torch.Tensor) -> Tuple[int, int]:
     return (x.numel() // cols if cols else 0), cols
 
 
+def _group_rows(x: torch.Tensor, lay: str) -> int:
+    """The rows of x's [rows, cols] view an f group covers: an expert's
+    under the per-expert layouts, all of them otherwise."""
+    rows, _ = _rows_cols(x)
+    return rows // x.shape[0] if lay in _PER_EXPERT else rows
+
+
 def _lib() -> ctypes.CDLL:
     """The built library, its entry points typed on first use."""
     lib = _build.load("hgq_quantize")
     if not getattr(lib, "typed", False):
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hgq_quantize_fwd_launch.argtypes = [vp, vp, vp, ll, ci, ci, ci,
-                                                vp]
+                                                ll, vp]
         lib.hgq_quantize_fwd_launch.restype = ci
         lib.hgq_quantize_fwd_group_launch.argtypes = [vp, ci, vp]
         lib.hgq_quantize_fwd_group_launch.restype = ci
         lib.hgq_quantize_fwd_group_max.argtypes = []
         lib.hgq_quantize_fwd_group_max.restype = ci
         lib.hgq_quantize_bwd_launch.argtypes = [vp, vp, vp, vp, vp, ll, ci,
-                                                ci, ci, vp]
+                                                ci, ci, ll, vp]
         lib.hgq_quantize_bwd_launch.restype = ci
-        lib.hgq_quantize_bwd_plan.argtypes = [ll, ci, ci, ci, vp]
+        lib.hgq_quantize_bwd_plan.argtypes = [ll, ci, ci, ci, ll, vp]
         lib.hgq_quantize_bwd_plan.restype = ll
         lib.typed = True
     return lib
@@ -93,7 +111,8 @@ def _check(what: str, f: torch.Tensor, *xs: torch.Tensor) -> str:
     if lay is None:
         raise ValueError(f"{what}: no kernel for f {tuple(f.shape)} against "
                          f"x {tuple(x.shape)} (per tensor, per channel over "
-                         f"the last axis, or per parameter)")
+                         f"the last axis, per parameter, or per expert "
+                         f"channel or tensor over the first axis)")
     return lay
 
 
@@ -103,7 +122,7 @@ def _key(lay: str, x: torch.Tensor) -> Tuple[str, Tuple[int, ...], str]:
 
 def hgq_quantize_fwd(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """The forward kernel: Eq. 4 of contiguous CUDA x (float32 or
-    bfloat16) at contiguous float32 f in one of the three layouts."""
+    bfloat16) at contiguous float32 f in one of the five layouts."""
     lay = _check("hgq_quantize_fwd", f, x)
     out = torch.empty_like(x)
     rows, cols = _rows_cols(x)
@@ -112,7 +131,7 @@ def hgq_quantize_fwd(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     _build.check(_lib().hgq_quantize_fwd_launch(
         x.data_ptr(), f.data_ptr(), out.data_ptr(), rows, cols,
         LAYOUTS.index(lay), int(x.dtype == torch.bfloat16),
-        _build.stream_ptr(x.device)), "hgq_quantize_fwd")
+        _group_rows(x, lay), _build.stream_ptr(x.device)), "hgq_quantize_fwd")
     hgq_quantize_fwd.launches += 1
     hgq_quantize_fwd.shapes[_key(lay, x)] += 1
     return out
@@ -127,7 +146,12 @@ def _member(x: torch.Tensor, f: torch.Tensor, out: torch.Tensor,
             lay: str) -> Tuple[int, ...]:
     rows, cols = _rows_cols(x)
     return (x.data_ptr(), f.data_ptr(), out.data_ptr(), rows, cols,
-            LAYOUTS.index(lay), int(x.dtype == torch.bfloat16))
+            LAYOUTS.index(lay), int(x.dtype == torch.bfloat16),
+            _group_rows(x, lay))
+
+
+# the values of a member's row of the grouped launch's table (``_member``)
+_DESC = 8
 
 
 def hgq_quantize_fwd_group(xs: Sequence[torch.Tensor],
@@ -154,7 +178,7 @@ def hgq_quantize_fwd_group(xs: Sequence[torch.Tensor],
     if len(members) > lib.hgq_quantize_fwd_group_max():
         raise ValueError(f"hgq_quantize_fwd_group: {len(members)} members, "
                          f"more than one launch takes")
-    desc = (ctypes.c_longlong * (7 * len(members)))(
+    desc = (ctypes.c_longlong * (_DESC * len(members)))(
         *(v for m in members for v in m))
     _build.check(lib.hgq_quantize_fwd_group_launch(
         desc, len(members), _build.stream_ptr(xs[0].device)),
@@ -170,15 +194,19 @@ hgq_quantize_fwd_group.launches = 0
 hgq_quantize_fwd_group.shapes = collections.Counter()
 
 
-def bwd_plan(rows: int, cols: int, layout: str, dtype: torch.dtype
+def bwd_plan(rows: int, cols: int, layout: str, dtype: torch.dtype,
+             group_rows: Optional[int] = None
              ) -> Tuple[Tuple[int, int, int], int]:
     """The backward kernel's geometry for x viewed as [rows, cols] at a
-    per-channel or per-tensor layout: ((blocks a cluster, clusters, rows
-    (per channel) or elements (per tensor) a block), floats of scratch).
-    One cluster needs no scratch and no second launch."""
+    per-channel, per-tensor or per-expert layout (``group_rows`` rows an
+    expert, all of them by default): ((blocks a cluster, clusters, rows
+    (per channel) or elements (per tensor) a block), each expert's alike,
+    floats of scratch).  One cluster a group needs no scratch and no
+    second launch."""
     plan = (ctypes.c_longlong * 3)()
-    n = _lib().hgq_quantize_bwd_plan(rows, cols, LAYOUTS.index(layout),
-                                     int(dtype == torch.bfloat16), plan)
+    n = _lib().hgq_quantize_bwd_plan(
+        rows, cols, LAYOUTS.index(layout), int(dtype == torch.bfloat16),
+        rows if group_rows is None else group_rows, plan)
     if n < 0:
         raise ValueError(f"no backward plan for {layout} [{rows}, {cols}]")
     return tuple(plan), n
@@ -188,23 +216,24 @@ def hgq_quantize_bwd(g: torch.Tensor, x: torch.Tensor,
                      f: torch.Tensor) -> torch.Tensor:
     """The backward kernel: ``df`` (float32, f's shape) from contiguous
     CUDA g and x of one dtype and float32 f; a fixed-order reduction, one
-    launch of a thread block cluster wherever one cluster suffices
-    (``bwd_plan``)."""
+    launch of thread block clusters (one an expert under the per-expert
+    layouts) wherever one cluster a group suffices (``bwd_plan``)."""
     lay = _check("hgq_quantize_bwd", f, x, g)
     rows, cols = _rows_cols(x)
     if rows == 0:
         return torch.zeros_like(f)
     df = torch.empty_like(f)
     scratch = None
+    grows = _group_rows(x, lay)
     if lay != "per_parameter":
-        _, n_scratch = bwd_plan(rows, cols, lay, x.dtype)
+        _, n_scratch = bwd_plan(rows, cols, lay, x.dtype, grows)
         if n_scratch:
             scratch = torch.empty((n_scratch,), dtype=torch.float32,
                                   device=x.device)
     _build.check(_lib().hgq_quantize_bwd_launch(
         g.data_ptr(), x.data_ptr(), f.data_ptr(), df.data_ptr(),
         None if scratch is None else scratch.data_ptr(), rows, cols,
-        LAYOUTS.index(lay), int(x.dtype == torch.bfloat16),
+        LAYOUTS.index(lay), int(x.dtype == torch.bfloat16), grows,
         _build.stream_ptr(x.device)), "hgq_quantize_bwd")
     hgq_quantize_bwd.launches += 1
     hgq_quantize_bwd.shapes[_key(lay, x)] += 1
@@ -294,7 +323,9 @@ def hgq_quantize(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     ``dx = g``, ``df = sum g * ln2 * (x - xq)`` down to f's shape.
 
     f: a scalar (per tensor), ``(N,)`` / ``(1, ..., 1, N)`` over x's last
-    axis (per channel) or ``x.shape`` (per parameter); on the CPU any
-    shape that broadcasts against x."""
+    axis (per channel), ``x.shape`` (per parameter), ``(E, 1, ..., 1, N)``
+    or ``(E, 1, ..., 1)`` over an expert stack x ``(E, K, ..., N)`` (per
+    expert channel or tensor); on the CPU any shape that broadcasts
+    against x."""
     return _HGQQuantize.apply(x, f)
 

@@ -10,8 +10,8 @@ stacked leaves (one gradient stack a leaf), remats each layer with
 ``torch.utils.checkpoint`` when ``cfg.remat``, sums the layers' ~EBOPs
 and L1 as the scan's carry does and stacks their new range states back
 to ``[L, ...]``.  In TRAIN a layer's projection weight and bias
-quantizers run as one group (one ``hgq_quantize`` forward launch on the
-card); an MoE block quantizes its router and expert stacks itself.  The
+quantizers, an MoE block's router and expert stacks among them, run as
+one group (one ``hgq_quantize`` forward launch on the card).  The
 residual stream stays unquantized; activation quantizers sit at the norm
 and projection outputs.
 """
@@ -68,27 +68,42 @@ def layer_views(stacked: Any, n_layers: int) -> List[Any]:
 
 
 # a layer's projections, whose weights and biases one grouped quantizer
-# launch makes in TRAIN (an MoE block has none here: it quantizes its own)
+# launch makes in TRAIN: a dense projection's kernel and bias, an MoE
+# block's router kernel and its three expert stacks (stored weights
+# themselves, ``{"w", "f"}``)
 _PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
-                "mlp": ("gate", "up", "down")}
+                "mlp": ("gate", "up", "down"),
+                "moe": ("router", "gate", "up", "down")}
 
 
 def _layer_weights(lp, mode: str) -> Dict[str, Any]:
-    """{block: {projection: its quantized kernel and bias}} for the
-    layer's blocks of ``_PROJECTIONS``, made in one group in TRAIN (10
-    members for qwen2: q, k, v with biases, o, gate, up, down); {block:
-    None} (each projection quantizes its own) otherwise."""
+    """{block: {projection: its quantized kernel and bias, or an expert
+    stack's QTensor}} for the layer's blocks of ``_PROJECTIONS``, made in
+    one group in TRAIN (10 members for qwen2: q, k, v with biases, o,
+    gate, up, down; 8 for granite: q, k, v, o, the router, the gate, up
+    and down stacks); {block: None} (each projection quantizes its own)
+    otherwise."""
     blocks = {b: names for b, names in _PROJECTIONS.items() if b in lp}
     if mode != hgq.TRAIN:
         return {blk: None for blk in blocks}
-    keys = [(blk, name, k) for blk, names in blocks.items()
-            for name in names for k in ("kernel", "bias")
-            if k in lp[blk][name]]
-    qs = quantize_weights([lp[b][n][k] for b, n, k in keys], mode)
+    keys = []
+    for blk, names in blocks.items():
+        for name in names:
+            node = lp[blk][name]
+            if "w" in node:                     # an expert stack
+                keys.append((blk, name, None))
+            else:
+                keys.extend((blk, name, k) for k in ("kernel", "bias")
+                            if k in node)
+    qs = quantize_weights([lp[b][n] if k is None else lp[b][n][k]
+                           for b, n, k in keys], mode)
     out: Dict[str, Any] = {blk: {n: {} for n in names}
                            for blk, names in blocks.items()}
     for (b, n, k), t in zip(keys, qs):
-        out[b][n][k] = t
+        if k is None:
+            out[b][n] = t
+        else:
+            out[b][n][k] = t
     return out
 
 
@@ -188,7 +203,8 @@ class TransformerLM(nn.Module):
                                     aux=aux)
         if cfg.moe_experts:
             m, newq["moe"] = MoE.apply(lp["moe"], lq["moe"], h,
-                                       cfg=_moe_cfg(cfg), mode=mode, aux=aux)
+                                       cfg=_moe_cfg(cfg), mode=mode, aux=aux,
+                                       weights=w["moe"])
         else:
             m, newq["mlp"] = GLUMLP.apply(lp["mlp"], lq["mlp"], h, mode=mode,
                                           aux=aux, act=cfg.act,

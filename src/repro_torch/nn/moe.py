@@ -14,7 +14,13 @@ Here the same dispatch runs batched over B:
   ``valid = pos < C``.  The ``[B, E, C, d]`` buffer is *gathered*: slot
   ``(e, c)`` reads the token of sorted pair ``starts[e] + c`` where
   ``c < counts[e]`` and holds +0.0 elsewhere, so no scatter (and no
-  write order) is involved.
+  write order) is involved.  Its backward (``_DispatchGather``) is the
+  reference's: the gradient of ``xr[st_]`` scatter-adds the sorted
+  pairs' slot gradients into zeros in sorted order, i.e. each token's k
+  in ascending expert order, a dropped pair (the dump slot) as +0.0;
+  here they are gathered in that order and added one after another from
+  +0.0 (no accumulating ``index_put``, whose atomics add in no fixed
+  order on the card).
 * **Expert products** run on the dequantized stacks (``get_qw``) as plain
   float32 batched matmuls, ``[E, B * C, d] @ [E, d, f]``; a row's result
   depends on the batch's shape only, not on its other rows.
@@ -120,26 +126,77 @@ def dispatch(eidx: torch.Tensor, n_experts: int, C: int) -> Dispatch:
                     slot_token=slot_token.reshape(B, E, C), filled=filled)
 
 
-def _combine(y_e: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor,
-             dsp: Dispatch) -> torch.Tensor:
-    """``y_e [E, B, C, d]`` -> ``[B, S, d]``: each token's k gated
-    contributions added to +0.0 one after another in ascending expert
-    order, a dropped pair as +0.0."""
-    E, B, C, d = y_e.shape
-    S, k = eidx.shape[1], eidx.shape[2]
+@dataclasses.dataclass
+class TokenSlots:
+    """Each token's k pairs in ascending expert order (``[B, S, k]``):
+    the permutation of its ``eidx`` entries, the slot each reads in the
+    ``[E * B * C]`` rows of the buffer (``(e * B + b) * C + pos``, a
+    dropped pair's clamped to ``C - 1``), and whether it was kept."""
+    perm: torch.Tensor
+    rows: torch.Tensor
+    valid: torch.Tensor
+
+
+def token_slots(eidx: torch.Tensor, dsp: Dispatch, C: int) -> TokenSlots:
+    B = eidx.shape[0]
     e_up, perm = torch.sort(eidx, dim=-1)
-    g_up = torch.gather(gates, -1, perm)
     pos_up = torch.gather(dsp.pos, -1, perm)
-    valid_up = torch.gather(dsp.valid, -1, perm)
-    rows = (e_up * B + torch.arange(B, device=y_e.device)[:, None, None]) \
+    rows = (e_up * B + torch.arange(B, device=eidx.device)[:, None, None]) \
         * C + torch.clamp(pos_up, max=C - 1)
-    contrib = torch.where(valid_up[..., None],
-                          y_e.reshape(E * B * C, d)[rows.reshape(-1)]
-                          .reshape(B, S, k, d) * g_up[..., None], 0.0)
-    y = torch.zeros((B, S, d), dtype=torch.float32, device=y_e.device)
+    return TokenSlots(perm=perm, rows=rows,
+                      valid=torch.gather(dsp.valid, -1, perm))
+
+
+def _add_in_order(contrib: torch.Tensor) -> torch.Tensor:
+    """``[B, S, k, d]`` -> ``[B, S, d]``: the k terms added to +0.0 one
+    after another, in order."""
+    B, S, k, d = contrib.shape
+    y = torch.zeros((B, S, d), dtype=contrib.dtype, device=contrib.device)
     for j in range(k):
         y = y + contrib[:, :, j]
     return y
+
+
+class _DispatchGather(torch.autograd.Function):
+    """The expert buffer ``[E, B * C, d]`` from ``x [B, S, d]``: slot
+    ``(e, b * C + c)`` holds row b's token ``tok`` where ``filled``, +0.0
+    elsewhere.  Backward: each token's k slot gradients gathered in
+    ascending expert order (``slots``), a dropped pair reading an
+    appended zero row, and added one after another from +0.0 -- the
+    reference's scatter-add order (``xr[st_]`` in sorted-pair order)."""
+
+    @staticmethod
+    def forward(ctx, x, tok, filled, slots):
+        B, S, d = x.shape
+        ctx.save_for_backward(slots)
+        return torch.where(filled, x.reshape(B * S, d)[tok], 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        slots, = ctx.saved_tensors
+        E, BC, d = g.shape
+        padded = torch.cat([g.reshape(E * BC, d), g.new_zeros((1, d))])
+        return _add_in_order(padded[slots]), None, None, None
+
+
+def _combine(y_e: torch.Tensor, gates: torch.Tensor, ts: TokenSlots
+             ) -> torch.Tensor:
+    """``y_e [E, B, C, d]`` -> ``[B, S, d]``: each token's k gated
+    contributions added to +0.0 one after another in ascending expert
+    order, a dropped pair as +0.0.
+
+    The gather's own backward (an accumulating ``index_put``) is exact in
+    any order: kept pairs read distinct slots, and a dropped pair, which
+    may read a kept pair's clamped slot again, brings an exact zero (its
+    ``where`` gradient times a gate >= 0) into a zero-initialized sum,
+    where adding zeros changes no bits."""
+    E, B, C, d = y_e.shape
+    S, k = ts.rows.shape[1], ts.rows.shape[2]
+    g_up = torch.gather(gates, -1, ts.perm)
+    contrib = torch.where(ts.valid[..., None],
+                          y_e.reshape(E * B * C, d)[ts.rows.reshape(-1)]
+                          .reshape(B, S, k, d) * g_up[..., None], 0.0)
+    return _add_in_order(contrib.to(torch.float32))
 
 
 def _wsum(bits: torch.Tensor, full_shape) -> torch.Tensor:
@@ -166,24 +223,34 @@ class MoE:
 
     @staticmethod
     def apply(p, q, x: QTensor, *, cfg: MoEConfig, mode: str,
-              aux: Optional[Aux]) -> Tuple[QTensor, Dict[str, Any]]:
+              aux: Optional[Aux],
+              weights: Optional[Dict[str, Any]] = None
+              ) -> Tuple[QTensor, Dict[str, Any]]:
+        """``weights``: the router's quantized kernel (``{"kernel":
+        QTensor}``, ``HDense.apply``'s ``wq``) and the ``gate``, ``up``
+        and ``down`` stacks' (QTensors), made beforehand (the layer's one
+        grouped launch in TRAIN); without it they are quantized here."""
         B, S, d = x.q.shape
         E, k, dff = cfg.n_experts, cfg.top_k, cfg.d_ff
+        w = weights or {}
         newq: Dict[str, Any] = {}
         logits, newq["router"] = HDense.apply(p["router"], q["router"], x,
-                                              mode=mode, aux=aux)
+                                              mode=mode, aux=aux,
+                                              wq=w.get("router"))
         gates, eidx = route(logits.q, k)                 # [B, S, k]
-        wg = get_qw(p["gate"], mode)
-        wu = get_qw(p["up"], mode)
-        wd = get_qw(p["down"], mode)
+        wg, wu, wd = (w[n] if n in w else get_qw(p[n], mode)
+                      for n in ("gate", "up", "down"))
         C = capacity(S, cfg)
         dsp = dispatch(eidx, E, C)
+        ts = token_slots(eidx, dsp, C)
 
         # [E, B * C, d]: slot (e, c) of row b holds its token's x, or +0.0
-        tok = dsp.slot_token.permute(1, 0, 2).reshape(E, B * C)
-        bidx = torch.arange(B, device=x.q.device).repeat_interleave(C)
-        xe = torch.where(dsp.filled.permute(1, 0, 2).reshape(E, B * C, 1),
-                         x.q[bidx.expand(E, -1), tok], 0.0)
+        tok = (dsp.slot_token + S * torch.arange(B, device=x.q.device)
+               [:, None, None]).permute(1, 0, 2).reshape(E, B * C)
+        filled = dsp.filled.permute(1, 0, 2).reshape(E, B * C, 1)
+        xe = _DispatchGather.apply(
+            x.q, tok, filled,
+            torch.where(ts.valid, ts.rows, E * B * C))
         g_h = torch.bmm(xe, wg.q)
         u_h = torch.bmm(xe, wu.q)
         h = (activation(cfg.act, g_h) * u_h).to(x.q.dtype)
@@ -194,7 +261,7 @@ class MoE:
         else:
             h_bits = None
         y_e = torch.bmm(h, wd.q).reshape(E, B, C, d)
-        y = _combine(y_e, gates, eidx, dsp).to(x.q.dtype)
+        y = _combine(y_e, gates, ts).to(x.q.dtype)
 
         # ---- active-compute ~EBOPs (analytic, scaled by k/E) ----
         if aux is not None and x.bits is not None and wg.bits is not None:

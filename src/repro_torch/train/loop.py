@@ -21,7 +21,8 @@ from ..core import hgq
 from ..core.pareto import ParetoFront
 from ..core.schedule import Schedule, constant, log_ramp
 from ..dist import collectives, ef_compress, ef_init
-from ..optim import AdamWState, adamw_init, adamw_update, clip_by_global_norm
+from ..optim import (AdamWState, adamw_init, adamw_update,
+                     clip_by_global_norm, clip_by_global_norm_)
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import checkpoint as ckpt_lib
 
@@ -92,11 +93,15 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
                     reduce: str = "full", mesh=None,
                     wire_kind: str = "int8", wire_layout: str = "auto",
                     wire_widths: Optional[Any] = None,
-                    wire_fused: bool = True):
+                    wire_fused: bool = True, donate: bool = False):
     """The step ``(params, qstate, opt, batch, step) -> (params, qstate,
     opt, metrics)``: value and gradient of the Eq.-16 total over the
     params' leaves (``torch.autograd.grad``), global-norm clipping, AdamW.
-    Returns new trees; the inputs stay as they were.
+    Returns new trees; the inputs stay as they were.  With ``donate`` (the
+    reference Trainer's ``donate_argnums``, for a model whose parameters
+    and moments fill the card) the step writes the new params and AdamW
+    moments over the given ones and returns them: the same bits, one copy
+    of the state.
 
     With ``grad_tx`` (a ``(grads, state) -> (grads, state)`` transform
     applied after clipping, e.g. ``dist.ef_compress``) the step takes and
@@ -129,6 +134,8 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
     lr_sched = lr_sched or constant(tcfg.lr)
 
     if reduce == "compressed":
+        if donate:
+            raise ValueError("donate takes the uncompressed step only")
         if grad_tx is not None:
             raise ValueError(
                 "grad_tx and reduce='compressed' are mutually exclusive: "
@@ -151,11 +158,17 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
         lr = lr_sched(step)
         total, newq, ebops, base, grads = _value_and_grad(
             forward, loss_fn, tcfg, params, qstate, batch, beta)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        # the clipped leaves replace the raw ones one at a time
+        leaves = tree_leaves(grads)
+        del grads
+        gnorm = clip_by_global_norm_(leaves, tcfg.clip_norm)
+        grads = tree_unflatten(params, leaves)
+        del leaves
         if grad_tx is not None:
             grads, tx_state = grad_tx(grads, tx_state)
         new_params, opt = adamw_update(grads, opt, params, lr=lr,
-                                       weight_decay=tcfg.weight_decay)
+                                       weight_decay=tcfg.weight_decay,
+                                       in_place=donate)
         metrics = {"loss": base, "total": total, "ebops": ebops,
                    "gnorm": gnorm, "beta": beta}
         return new_params, newq, opt, metrics, tx_state
@@ -226,7 +239,10 @@ class Trainer:
                  pipeline: Optional[Callable[[int], Dict]] = None,
                  better_metric: str = "max",
                  grad_tx: Optional[Callable] = None,
-                 tx_state: Optional[Any] = None):
+                 tx_state: Optional[Any] = None, donate: bool = False):
+        """``donate``: each step updates the params and the optimizer
+        state in place (``make_train_step``'s ``donate``); the trees
+        given here are the Trainer's to overwrite."""
         self.tcfg = tcfg
         self.forward = forward
         self.pipeline = pipeline
@@ -244,13 +260,14 @@ class Trainer:
                 tx_state = ef_init(params)
             # the residual threads from step to step like the optimizer
             self.step_fn = make_train_step(forward, loss_fn, tcfg,
-                                           grad_tx=grad_tx)
+                                           grad_tx=grad_tx, donate=donate)
         else:
             if tx_state is not None:
                 raise ValueError("tx_state given but no grad_tx transform; "
                                  "gradient compression would be silently "
                                  "ignored")
-            self.step_fn = make_train_step(forward, loss_fn, tcfg)
+            self.step_fn = make_train_step(forward, loss_fn, tcfg,
+                                           donate=donate)
         self.tx_state = tx_state
         self.history = []
 

@@ -138,7 +138,10 @@ def test_layouts():
     assert layout_of((3, 5, 100), (1, 1, 100)) == "per_channel"
     assert layout_of((16, 64), (16, 64)) == "per_parameter"
     assert layout_of((64,), (64,)) == "per_parameter"
-    for x_shape, f_shape in (((16, 64), (16, 1)), ((3, 5, 100), (3, 1, 1)),
+    # an MoE layer's expert stacks [E, K, N], f per expert
+    assert layout_of((3, 5, 100), (3, 1, 100)) == "per_expert_channel"
+    assert layout_of((3, 5, 100), (3, 1, 1)) == "per_expert_tensor"
+    for x_shape, f_shape in (((16, 64), (16, 1)), ((3, 5, 100), (3, 5, 1)),
                              ((3, 5, 100), (5, 100)), ((16, 64), (1,)),
                              ((64,), (1, 64))):
         assert layout_of(x_shape, f_shape) is None, (x_shape, f_shape)

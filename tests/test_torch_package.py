@@ -69,11 +69,11 @@ def _imports(path: Path):
 
 
 def test_sources_import_neither_jax_nor_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "torch_kernel_sweep.py",
-                                         ROOT / "torch_profile_check.py"] \
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted(ROOT.glob("torch_*.py")) \
         + sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
+    assert ROOT / "torch_granite_gaps.py" in files
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
@@ -692,6 +692,60 @@ def test_hgq_fwd_group_on_cuda(cuda_device, offset):
 
 def _bits16(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+# the per-expert layouts (an MoE layer's expert stacks [E, K, N], f per
+# expert): granite's gate stack cut to 8 experts per expert channel and
+# tensor, a bfloat16 stack whose rows are not whole vectors, K = 1, and
+# each reduction just past the one-cluster line (each expert's clusters and
+# second pass)
+PER_EXPERT = [((8, 1536, 512), (8, 1, 512), torch.float32),
+              ((8, 1536, 512), (8, 1, 1), torch.float32),
+              ((5, 37, 33), (5, 1, 33), torch.bfloat16),
+              ((40, 1, 512), (40, 1, 1), torch.float32),
+              ((3, 2049, 16), (3, 1, 16), torch.float32),
+              ((3, 257, 256), (3, 1, 1), torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fshape,dtype", PER_EXPERT)
+def test_hgq_per_expert_layouts_on_cuda(cuda_device, shape, fshape, dtype):
+    """The per-expert layouts launch the kernels, single and grouped: the
+    forward the plain version's bits, df within 1e-5 of the sum of |terms|
+    and, expert by expert, the bits of the per-channel or per-tensor
+    launch on that expert alone; two launches the same bits.  Another
+    broadcast over the experts raises."""
+    from repro_torch.kernels.hgq_quantize import (hgq_quantize_fwd_group,
+                                                  layout_of)
+    lay = layout_of(shape, fshape)
+    assert lay in ("per_expert_channel", "per_expert_tensor")
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 4).to(dtype)
+    f = torch.rand(fshape, generator=g, device=cuda_device) * 8 - 1
+    gy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    before = (hgq_quantize_fwd.launches, hgq_quantize_bwd.launches)
+    out, df = hgq_quantize_fwd(x, f), hgq_quantize_bwd(gy, x, f)
+    torch.cuda.synchronize()
+    assert (hgq_quantize_fwd.launches, hgq_quantize_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(_bits16(out), _bits16(hgq_quantize_ref(x, f)))
+    assert torch.equal(_bits16(out),
+                       _bits16(hgq_quantize_fwd_group([x], [f])[0]))
+    assert torch.equal(df, hgq_quantize_bwd(gy, x, f))
+    ref = hgq_quantize_grad_ref(gy, x, f)
+    xq = hgq_quantize_ref(x, f).float()
+    scale = (gy.float() * 0.6931471805599453
+             * (x.float() - xq)).abs().sum_to_size(fshape)
+    assert bool(((df - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    per = (lambda fe: fe.reshape(-1)) if lay == "per_expert_channel" \
+        else (lambda fe: fe.reshape(()))
+    for e in range(shape[0]):
+        assert torch.equal(df[e].reshape(-1),
+                           hgq_quantize_bwd(gy[e], x[e], per(f[e]))
+                           .reshape(-1)), e
+    with pytest.raises(ValueError):                 # f per expert, 2 wide
+        hgq_quantize_fwd(x, torch.zeros((shape[0],) + shape[1:-1] + (2,),
+                                        device=cuda_device))
 
 
 # (B, S, W, windowed ring, kv bits, rows' dtype, byte offset of the ring

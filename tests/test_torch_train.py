@@ -120,6 +120,47 @@ def test_adamw_lion_sgd_match_jax(wd):
                  rtol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_adamw_in_place_gives_the_same_bits(dtype, wd):
+    """``in_place`` writes the functional update's results over its
+    inputs: params of either dtype, both moments and the step bit for bit
+    over 4 steps, and the returned leaves are the given tensors."""
+    to = lambda a: torch.from_numpy(a).to(dtype)
+    params = _grad_tree()
+    fp, ip = tree_map(to, params), tree_map(to, params)
+    fst, ist = toptim.adamw_init(fp), toptim.adamw_init(ip)
+    for _ in range(4):
+        g = tree_map(to, _grad_tree())
+        fp, fst = toptim.adamw_update(g, fst, fp, lr=torch.tensor(3e-2),
+                                      weight_decay=wd)
+        given = tree_leaves(ip) + tree_leaves(ist.mu) + tree_leaves(ist.nu)
+        ip, ist = toptim.adamw_update(g, ist, ip, lr=torch.tensor(3e-2),
+                                      weight_decay=wd, in_place=True)
+        got = tree_leaves(ip) + tree_leaves(ist.mu) + tree_leaves(ist.nu)
+        assert all(a is b for a, b in zip(given, got))
+    assert int(fst.step) == int(ist.step) == 4
+    for a, b in zip(tree_leaves((fp, fst.mu, fst.nu)),
+                    tree_leaves((ip, ist.mu, ist.nu))):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_clip_by_global_norm_over_a_list():
+    """The list form scales each entry where it lies in the list, the
+    same bits as the tree form, and leaves the given tensors as they
+    were."""
+    g = jax.tree.map(torch.from_numpy, _grad_tree())
+    raw = [t.clone() for t in tree_leaves(g)]
+    want, wn = toptim.clip_by_global_norm(g, 0.5)
+    leaves = tree_leaves(g)
+    gn = toptim.clip_by_global_norm_(leaves, 0.5)
+    assert torch.equal(gn, wn)
+    assert all(torch.equal(a, b) for a, b in zip(leaves, tree_leaves(want)))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g), raw))
+    assert not any(torch.equal(a, b) for a, b in zip(leaves, raw))
+
+
 @pytest.mark.parametrize("max_norm", [0.5, 100.0])
 def test_clip_by_global_norm(max_norm):
     g = _grad_tree()
