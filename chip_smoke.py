@@ -40,7 +40,13 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    launch floor), and holds it on its edges (any hd, rows off alignment,
    ragged R, -128 mantissas at every exponent); holds and times the
    serving kernels at granite-moe-3b-a800m's shapes too (``qmatmul`` at
-   N 40 and 49155, attention and the store at 8 kv heads); holds and
+   N 40 and 49155, attention and the store at 8 kv heads) and at
+   recurrentgemma-2b's (``qmatmul`` at K 2560 and 7680, N 256 to 256000;
+   ``kv_attention_rows`` at head dim 256, 10 heads over 1 kv head, on its
+   wrapped 2064-slot ring with a window of 2048, int8 and nibble, a tick
+   and a prefill chunk, rings up to 32768 slots, and rings read without
+   16-byte loads, which give the aligned ring's bits; ``kv_quantize_store``
+   at hd 256 on a windowed ring); holds and
    times the ``hgq_quantize`` shapes of the SVHN and muon models (4-D
    per-parameter conv kernels, per-tensor activations up to 1.84 M
    values, their grouped forwards) and of the qwen2-0.5b training step
@@ -64,16 +70,28 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    ``torch.profiler``, whose trace also gives the blocks each
    ``kv_attention_rows`` launch ran (at least 128) and must hold no
    ``stack``, ``index_put`` or ``bitwise`` operation (the KV store is one
-   kernel); then serves granite-moe-3b-a800m (the MoE family: 32 layers
-   of 40 experts, top 8) at full width the same way (``granite_serving``):
+   kernel); then serves granite-moe-3b-a800m (the MoE family: 40 experts,
+   top 8) at its published widths and 2 of its 32 layers the same way
+   (``granite_serving``; all 32 were held in earlier runs):
    (a) packed int8 with ``kv_bits`` 8, (b) the expert stacks in nibbles
    with ``kv_bits`` 4; every request finishes, each equals itself served
-   alone by an engine of the same geometry, card vs CPU logits at 4 of
-   its layers within the dense limits that two MoE faults (gates not
+   alone by an engine of the same geometry, card vs CPU logits at its 2
+   layers within the dense limits that two MoE faults (gates not
    renormalized, the capacity one slot short) exceed, one full tick's
-   launches by shape exact (161 ``qmatmul``, 32 ``kv_quantize_store``,
-   32 ``kv_attention_rows``; the expert nibbles unpacked, no ``qmatmul``
-   weight), and one tick of each profiled last;
+   launches by shape exact (11 ``qmatmul``, 2 ``kv_quantize_store``,
+   2 ``kv_attention_rows``; the expert nibbles unpacked, no ``qmatmul``
+   weight), and one tick of each profiled last; then serves
+   recurrentgemma-2b (the Griffin family: 26 layers, RG-LRU blocks and
+   local attention with head dim 256) at full width the same way
+   (``griffin_serving``, ``max_len`` 4096, so its ring is the window and
+   a chunk, 2064 slots): (a) packed int8, ``kv_bits`` 8, with one more
+   request of a 2100-token prompt that wraps its ring past the window;
+   (b) every MLP kernel in nibbles, ``kv_bits`` 4; every request equal
+   alone, card vs CPU at 5 layers within the dense limits that two
+   Griffin faults (the RG-LRU without its input normalization, the conv
+   state not carried) exceed, one full tick's launches by shape exact
+   (201 ``qmatmul``, 8 ``kv_quantize_store`` and 8 ``kv_attention_rows``
+   at hd 256), and one tick of each profiled last;
 5. train phase: trains the paper's jet tagger at its full width with
    ``examples/quickstart.py``'s configuration through the port's
    ``Trainer.run`` (300 steps, batch 1024), calibrates it on a held-out
@@ -105,7 +123,7 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    reducing backward, two past the one-cluster line); then qwen2-0.5b at
    its published width (``configs/qwen2_0_5b.py`` FULL, random weights
    from the seed, the ``lm`` data kind, batch 2, seq 2048, chunks of 1024,
-   each layer rematerialized) through ``Trainer.run`` for 10 steps at the
+   each layer rematerialized) through ``Trainer.run`` for 5 steps at the
    launcher's settings: step 0's loss near ln(vocab), every loss finite,
    ~EBOPs reported, step ms, tokens/s, peak memory and
    ``lm_train_mfu_fp32``; a step's ``hgq_quantize`` launches tallied by
@@ -119,13 +137,14 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    ``TransformerLM.forward`` in EVAL against ``decode_step`` token by
    token on the fp cache and the 8-bit ring, as served and without
    activation quantizers; then granite-moe-3b-a800m at its published
-   width (32 layers, 40 experts of d_ff 512, top 8; batch 2, seq 1024,
-   remat; the params and AdamW state updated in place, the card holding
-   one such model) through ``Trainer.run`` for 20 steps: step 0's loss
+   width (40 experts of d_ff 512, top 8) and 8 of its 32 layers (all 32
+   held in earlier runs; batch 2, seq 1024, remat; the params and AdamW
+   state updated in place, the card holding one such model) through
+   ``Trainer.run`` for 10 steps: step 0's loss
    near ln(vocab) + 1/2 (the untied head's logit variance), step ms,
    tokens/s, peak memory, MFU over the active parameters; a step's
-   ``hgq_quantize`` launches by shape exact (515 single forwards, 64
-   grouped of 8 members with the router and the expert stacks, 515
+   ``hgq_quantize`` launches by shape exact (131 single forwards, 16
+   grouped of 8 members with the router and the expert stacks, 131
    backward); one step traced; its first 3 steps again from the same
    init (the same bits: the dispatch backward and the per-expert
    reductions in a fixed order); the same code at full width and 2
@@ -196,6 +215,7 @@ import os
 import subprocess
 import sys
 import threading
+from typing import Optional
 import time
 from pathlib import Path
 
@@ -652,6 +672,11 @@ STORE_TIMED = [(B, S, KV, 64, 1024, hdm, bits, "float32")
                for KV in (2, 8)            # qwen2-0.5b's, granite's kv heads
                for B, S in ((8, 1), (1, 16))
                for hdm, bits in ((64, 8), (32, 4))]
+# recurrentgemma-2b's: one kv head of 256, its 2064-slot ring, windowed (the
+# slots wrap), int8 and nibble
+GRIFFIN_STORE = [(B, S, 1, 256, 2064, hdm, bits, "float32")
+                 for B, S in ((8, 1), (1, 16))
+                 for hdm, bits in ((256, 8), (128, 4))]
 STORE_CHECKS = ([((4, 1, 2, 64, 64, 64, 8, "float32"), True, 0, 0),
                  ((2, 16, 2, 64, 8, 64, 8, "float32"), True, 0, 0),
                  ((2, 16, 2, 64, 8, 32, 4, "float32"), True, 0, 0),
@@ -670,7 +695,8 @@ def kv_store_checks(dev, g):
               f"({c['dropped_rows']} rows dropped)", flush=True)
 
 
-def _attention_inputs(B, S, H, KV, hd, W, nibble, dev, g, ragged=False):
+def _attention_inputs(B, S, H, KV, hd, W, nibble, dev, g, ragged=False,
+                      wrapped=False):
     from repro_torch.kernels.kv_dequant import kv_pack
     qmax = 7 if nibble else 127
     qh = torch.randn((B, S, H, hd), generator=g, device=dev)
@@ -691,6 +717,13 @@ def _attention_inputs(B, S, H, KV, hd, W, nibble, dev, g, ragged=False):
         qpos = last[:, None] - S + 1 + torch.arange(S, device=dev)
         tpos = torch.arange(W, device=dev).expand(B, W).clone()
         tpos[tpos > last[:, None]] = -1
+    elif wrapped:
+        # a ring that has wrapped twice: slot s holds position last - ((last
+        # - s) % W), the queries the newest S positions
+        last = 3 * W + 5
+        qpos = (last - S + 1 + torch.arange(S, device=dev)).expand(B, S)
+        spos = torch.arange(W, device=dev)
+        tpos = (last - torch.remainder(last - spos, W)).expand(B, W)
     else:
         # a full ring: every slot visible to every query row
         qpos = (W - S + torch.arange(S, device=dev)).expand(B, S)
@@ -721,10 +754,12 @@ def _attention_check(out, ref, vmax, pf, what):
 
 
 def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64,
-                      yardsticks=True):
+                      yardsticks=True, window=None):
     """Kernel vs plain (and a ragged, windowed, partly empty ring for
     correctness only) vs SDPA over the dequantized cache as yardstick.
-    Without ``yardsticks`` only the kernel is timed."""
+    Without ``yardsticks`` only the kernel is timed.  With ``window`` the
+    timed ring has wrapped and the queries see its newest ``window``
+    positions (serving's local attention)."""
     from repro_torch.kernels.kv_dequant import kv_attention_rows, kv_unpack
     from repro_torch.kernels.kv_dequant.ref import (attention_mask,
                                                     kv_attention_ref,
@@ -747,41 +782,45 @@ def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64,
         v = kv_dequant_ref(kv_unpack(vm, hd) if nibble else vm, vf)
         return float(v.abs().max())
 
-    for window in (None, 8):
+    for rw in (None, 8):
         args = _attention_inputs(B, S, H, KV, hd, W, nibble, dev, g,
                                  ragged=True)
-        _attention_check(kern(*args, window=window),
-                         plain(*args, window=window),
+        _attention_check(kern(*args, window=rw), plain(*args, window=rw),
                          vmax_of(args[3], args[4]), pf,
-                         f"{what} ragged window={window}")
+                         f"{what} ragged window={rw}")
     cache_bytes = 2 * B * W * KV * hdm + 2 * B * W * KV
-    sets = [_attention_inputs(B, S, H, KV, hd, W, nibble, dev, g)
+    sets = [_attention_inputs(B, S, H, KV, hd, W, nibble, dev, g,
+                              wrapped=window is not None)
             for _ in range(n_copies(cache_bytes))]
     args = sets[0]
-    out = kern(*args)
-    err = _attention_check(out, plain(*args), vmax_of(args[3], args[4]), pf,
-                           what)
-    check(torch.equal(kern(*args), out), f"{what}: two launches differ")
+    out = kern(*args, window=window)
+    err = _attention_check(out, plain(*args, window=window),
+                           vmax_of(args[3], args[4]), pf, what)
+    check(torch.equal(kern(*args, window=window), out),
+          f"{what}: two launches differ")
     # a request's rows have the same bits alone as in the batch
     for b in sorted({0, B - 1}):
         one = [a[b:b + 1] for a in args]
         one[0], one[5] = one[0].contiguous(), one[5].contiguous()
-        check(torch.equal(kern(*one), out[b:b + 1]),
+        check(torch.equal(kern(*one, window=window), out[b:b + 1]),
               f"{what}: batch row {b} differs alone")
     shape = (f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} "
-             f"{'nibble' if nibble else 'int8'} probs_f{pf}")
+             f"{'nibble' if nibble else 'int8'} probs_f{pf}"
+             f"{f' window{window}' if window else ''}")
+    if window is not None:
+        sets = [a + (window,) for a in sets]
     if not yardsticks:
         return {"shape": shape, "max_abs_err": err, "ms": time_ms(kern, sets)}
 
     # yardstick: SDPA over the dequantized cache (dequantized outside the
     # timed call), heads grouped as the port groups them
-    def sdpa_args(qh, km, kf, vm, vf, qpos, tpos):
+    def sdpa_args(qh, km, kf, vm, vf, qpos, tpos, window=None):
         G = H // KV
         k = kv_dequant_ref(kv_unpack(km, hd) if nibble else km, kf)
         v = kv_dequant_ref(kv_unpack(vm, hd) if nibble else vm, vf)
         k = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
         v = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
-        mask = attention_mask(qpos, tpos, None)[:, None]
+        mask = attention_mask(qpos, tpos, window)[:, None]
         return (qh.permute(0, 2, 1, 3).contiguous(), k, v, mask)
 
     lib_sets = [sdpa_args(*a) for a in sets[:max(1, len(sets) // 4)]]
@@ -812,13 +851,76 @@ LONG_RINGS = ((8, 1, 1500, 64), (2, 16, 1500, 64), (8, 1, 2048, 64),
               (8, 1, 32768, 64), (8, 1, 1500, 40), (2, 16, 1500, 40))
 
 
+# The same at recurrentgemma-2b's head dim 256 (10 heads over 1 kv head, the
+# SPLIT = 2 instance): (B, S, W, window).  W = 2064 a tick and a prefill chunk
+# on a wrapped ring whose window (2048) masks its oldest slots; W = 4100 gives
+# a block five staging rounds with its scores kept; W = 16384 at S = 16 and W =
+# 32768 at a tick recompute them in pass 2.
+GRIFFIN_LONG_RINGS = ((8, 1, 2064, 2048), (1, 16, 4100, 2048),
+                      (1, 16, 16384, None), (8, 1, 32768, None))
+
+
 def long_ring_checks(dev, g):
-    for B, S, W, hd in LONG_RINGS:
+    rings = [(B, S, W, hd, 14, 2, None) for B, S, W, hd in LONG_RINGS] + [
+        (B, S, W, GRIFFIN["hd"], GRIFFIN["H"], GRIFFIN["KV"], window)
+        for B, S, W, window in GRIFFIN_LONG_RINGS]
+    for B, S, W, hd, H, KV, window in rings:
         for nibble in (False, True):
-            c = kv_attention_case(B, S, W, nibble, 6.0, dev, g, hd=hd,
-                                  yardsticks=False)
+            c = kv_attention_case(B, S, W, nibble, 6.0, dev, g, H=H, KV=KV,
+                                  hd=hd, yardsticks=False, window=window)
             print(f"[kernels] kv_attention_rows {c['shape']}: max err "
                   f"{c['max_abs_err']:.3g}, {c['ms']:.4f} ms", flush=True)
+
+
+def unaligned_attention_checks(dev, g):
+    """``kv_attention_rows`` at hd 256 on rings read without 16-byte loads:
+    the mantissa and exponent views 5 bytes into their buffers, and rows
+    padded to hdm + 1 bytes (strides off 16): the plain version's result,
+    and the bits of the same ring aligned."""
+    from repro_torch.kernels.kv_dequant import kv_attention_rows, kv_unpack
+    from repro_torch.kernels.kv_dequant.ref import (kv_attention_ref,
+                                                    kv_dequant_ref)
+    B, S, H, KV, hd, W = 2, 16, GRIFFIN["H"], GRIFFIN["KV"], GRIFFIN["hd"], 300
+    pft = torch.tensor([6.0], dtype=torch.float32, device=dev)
+    for nibble in (False, True):
+        qh, km, kf, vm, vf, qpos, tpos = _attention_inputs(
+            B, S, H, KV, hd, W, nibble, dev, g, wrapped=True)
+
+        def kern(km, kf, vm, vf):
+            return kv_attention_rows(qh, km, kf, vm, vf, qpos, tpos,
+                                     window=256, n_kv=KV, probs_f=pft)
+
+        want = kern(km, kf, vm, vf)
+        ref = kv_attention_ref(qh.reshape(B, S, KV, H // KV, hd), km, kf, vm,
+                               vf, qpos, tpos, window=256, probs_f=pft
+                               ).reshape(qh.shape)
+        vmax = float(kv_dequant_ref(kv_unpack(vm, hd) if nibble else vm,
+                                    vf).abs().max())
+        _attention_check(want, ref, vmax, 6.0,
+                         f"kv_attention_rows hd{hd} aligned")
+
+        def offset(t, off=5):
+            buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=dev)
+            v = buf[off:off + t.numel()].view(t.shape)
+            v.copy_(t)
+            return v
+
+        def padded(t):
+            buf = torch.zeros(t.shape[:-1] + (t.shape[-1] + 1,),
+                              dtype=t.dtype, device=dev)
+            v = buf[..., :t.shape[-1]]
+            v.copy_(t)
+            return v
+
+        for how, ring in (("views +5 B", offset), ("rows padded 1 B",
+                                                   padded)):
+            got = kern(ring(km), ring(kf), ring(vm), ring(vf))
+            check(torch.equal(got, want),
+                  f"kv_attention_rows hd{hd} {'nibble' if nibble else 'int8'}"
+                  f" {how}: not the aligned ring's bits")
+            print(f"[kernels] kv_attention_rows hd{hd} "
+                  f"{'nibble' if nibble else 'int8'} {how}: the aligned "
+                  f"ring's bits", flush=True)
 
 
 # the quantizer's shapes: the training slice's own (the jet tagger's input
@@ -890,6 +992,10 @@ QWEN = dict(L=24, d=896, H=14, KV=2, hd=64, ff=4864, V=151936, chunk=1024)
 # granite-moe-3b-a800m at its published width (configs FULL): 40 experts of
 # d_ff 512, top 8, an untied 49155-token head
 GRANITE = dict(L=32, d=1536, H=24, KV=8, hd=64, ff=512, E=40, k=8, V=49155)
+# recurrentgemma-2b (configs/recurrentgemma_2b.py FULL) and its serving ring:
+# max_len 4096 gives W = window + the prefill chunk = 2064 slots
+GRIFFIN = dict(L=26, units=8, rem=2, d=2560, H=10, KV=1, hd=256, ff=7680,
+               V=256000, window=2048, W=2064)
 LM_BATCH, LM_SEQ = 2, 2048
 # granite's training cell: batch 2, seq 1024 (one chunk pair a layer),
 # C = 256 slots an expert a row
@@ -1533,16 +1639,24 @@ def kernel_phase(dev):
     H, KV, hd, W = 14, 2, 64, 1024
     cases = {name: {} for name in KERNELS}
     d, Gkv, E, V = (GRANITE[k] for k in ("d", "KV", "E", "V"))
+    gd, gff, gV = GRIFFIN["d"], GRIFFIN["ff"], GRIFFIN["V"]
+    ghd = GRIFFIN["KV"] * GRIFFIN["hd"]
     for M in (8, 16):
         # qwen2-0.5b: int8: q, o; k, v; gate, up; down; the tied head.
         # nibbles: gate, up; down (configuration (a)'s MLP).  granite: int8
         # q, o; k, v; the router (N 40, under one block of 128 columns);
-        # the untied head (N 49155, odd); nibbles at N 512 and 1536
+        # the untied head (N 49155, odd); nibbles at N 512 and 1536.
+        # recurrentgemma-2b: int8 2560 -> 2560 (the recurrent blocks' five,
+        # q and o), -> 256 (k, v), the MLP, the head (N 256000); the MLP
+        # in nibbles (configuration (b))
         for K, N, bits in ((896, 896, 8), (896, 128, 8), (896, 4864, 8),
                            (4864, 896, 8), (896, 151936, 8),
                            (896, 4864, 4), (4864, 896, 4),
                            (d, d, 8), (d, Gkv * hd, 8), (d, E, 8), (d, V, 8),
-                           (d, Gkv * hd, 4), (d, d, 4)):
+                           (d, Gkv * hd, 4), (d, d, 4),
+                           (gd, gd, 8), (gd, ghd, 8), (gd, gff, 8),
+                           (gff, gd, 8), (gd, gV, 8), (gd, gff, 4),
+                           (gff, gd, 4)):
             cases["qmatmul"][M, K, N, bits] = qmatmul_case(M, K, N, bits,
                                                            dev, g)
     rel = [c["rel_err"] for c in cases["qmatmul"].values()]
@@ -1556,6 +1670,8 @@ def kernel_phase(dev):
                 R, hd, bits, dev, g)
     for key in STORE_TIMED:
         cases["kv_quantize_store"][key] = kv_store_case(key, False, dev, g)
+    for key in GRIFFIN_STORE:
+        cases["kv_quantize_store"][key] = kv_store_case(key, True, dev, g)
     kv_store_checks(dev, g)
     # one qwen2-0.5b layer's full ring (8 slots x 1024 x 2 kv heads), one
     # slot's, and all 24 layers' rings
@@ -1569,7 +1685,18 @@ def kernel_phase(dev):
                 key = (B, S, h, kv, hd, W, hd // 2 if nibble else hd)
                 cases["kv_attention_rows"][key] = kv_attention_case(
                     B, S, W, nibble, 6.0, dev, g, H=h, KV=kv, hd=hd)
+    # recurrentgemma-2b's 10 heads over 1 kv head of 256 on its wrapped
+    # 2064-slot ring, the window of 2048 masking the oldest slots
+    Gf = GRIFFIN
+    for B, S in ((8, 1), (1, 16)):
+        for nibble in (False, True):
+            key = (B, S, Gf["H"], Gf["KV"], Gf["hd"], Gf["W"],
+                   Gf["hd"] // 2 if nibble else Gf["hd"])
+            cases["kv_attention_rows"][key] = kv_attention_case(
+                B, S, Gf["W"], nibble, 6.0, dev, g, H=Gf["H"], KV=Gf["KV"],
+                hd=Gf["hd"], window=Gf["window"])
     long_ring_checks(dev, g)
+    unaligned_attention_checks(dev, g)
     for shape, fshape, dtype in HGQ_SHAPES + HGQ_EDGE + PAPER_SHAPES \
             + LM_SHAPES + GRANITE_SHAPES:
         key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
@@ -1909,10 +2036,11 @@ def _serve(eng, reqs, unpacks=None):
 
 
 def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
-                       kv_bits, prompts, dev, unpacks=None, device_ms=None):
+                       kv_bits, prompts, dev, unpacks=None, device_ms=None,
+                       max_len=1024):
     """Device operations, busy ms and the attention kernel's launch grids
-    of one decode tick with all 8 slots busy (B = 8, W = 1024), on an
-    engine of its own (a new one for each profiler run), after every
+    of one decode tick with all 8 slots busy (B = 8, the ring ``max_len``
+    slots, or the window and a chunk's), on an engine of its own (a new one for each profiler run), after every
     timed run: the profiler
     slows the host, and may go on doing so once it is stopped.  The
     attention kernel reads the whole ring whatever its fill, so short
@@ -1922,7 +2050,7 @@ def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
     device milliseconds by operation name (``_profiled``)."""
     def engine():
         eng = Engine(model, params, qstate, cfg, batch_slots=8,
-                     max_len=1024, prefill_chunk=16, packed=True, plan=pl,
+                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
                      kv_bits=kv_bits, seed=SEED, device=dev)
         for pr in prompts[:8]:
             check(eng.submit(Request(prompt=list(pr[:16]), max_new=4))
@@ -1995,11 +2123,14 @@ def _bf16_activations_into_qmatmul():
 
 def _without_act_quantizers(tree):
     """The tree without its activation quantizers (every ``out_f``,
-    ``attnout_f`` and an MoE's ``h_f``): packed weights, the cache's grids
-    and the probabilities' grid stay."""
+    ``attnout_f`` and an MoE's ``h_f``, in dicts and in lists of layers
+    such as Griffin's ``rem``): packed weights, the cache's grids and the
+    probabilities' grid stay."""
     if isinstance(tree, dict):
         return {k: _without_act_quantizers(v) for k, v in tree.items()
                 if k not in ("out_f", "attnout_f", "h_f")}
+    if isinstance(tree, list):
+        return [_without_act_quantizers(v) for v in tree]
     return tree
 
 
@@ -2014,30 +2145,31 @@ LOGITS_REL_GROSS = 0.1
 LOGITS_REL_LIMIT = 0.005
 
 
-def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls):
+def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None):
     """Teacher-forced logits of the card (kernels) against the CPU (plain
     versions) on one prefill chunk and two decode ticks of 2 rows, with
     the activation quantizers on ("full") and off ("continuous"), where
     the ``controls`` -- the card path with one subtle fault each, {name:
     (the fault's tree without activation quantizers, a context manager
     that puts the fault in the code)} -- are read too: {witness:
-    {"rel_l2", "argmax_agree", "controls"?}}."""
+    {"rel_l2", "argmax_agree", "controls"?}}.  ``model``: the decoder
+    (``TransformerLM`` by default)."""
     from repro_torch.models import TransformerLM
     from repro_torch.tree import tree_map
+    M = model or TransformerLM
     g = np.random.default_rng(SEED)
     toks = torch.as_tensor(g.integers(0, cfg.vocab, (2, 16)))
     cpu = torch.device("cpu")
 
     def run(d, pp, qq):
-        c = TransformerLM.init_cache(cfg, 2, 64, kv_bits=kv_bits, device=d)
-        lg, c = TransformerLM.decode_step(pp, qq, c, toks.to(d), 0, cfg,
-                                          kv_bits=kv_bits)
+        c = M.init_cache(cfg, 2, 64, kv_bits=kv_bits, device=d)
+        lg, c = M.decode_step(pp, qq, c, toks.to(d), 0, cfg, kv_bits=kv_bits)
         seq = [lg[:, -1]]
         nxt = toks[:, -1:]
         for t in range(2):
-            lg, c = TransformerLM.decode_step(pp, qq, c, nxt.to(d),
-                                              np.array([16 + t, 16 + t]),
-                                              cfg, kv_bits=kv_bits)
+            lg, c = M.decode_step(pp, qq, c, nxt.to(d),
+                                  np.array([16 + t, 16 + t]), cfg,
+                                  kv_bits=kv_bits)
             seq.append(lg[:, -1])
             nxt = (nxt + 1) % cfg.vocab
         out = torch.stack(seq).cpu()
@@ -2225,20 +2357,25 @@ def slice_phase(dev, cases):
         del eng
     granite_total, report["granite"], granite_ticks, granite_profile = \
         granite_serving(dev, cases)
+    griffin_total, report["griffin"], griffin_ticks, griffin_profile = \
+        griffin_serving(dev, cases)
     for k in total:
-        total[k] += granite_total[k]
+        total[k] += granite_total[k] + griffin_total[k]
     # profiled only now, after every timed run
     for tag, desc, pl, kv_bits in configs:
         _read_profiled_tick(tag, cfg, report[tag], _profile_full_tick(
             Engine, Request, TransformerLM, params, qstate, cfg, pl, kv_bits,
             prompts, dev))
     granite_profile()
-    return total, report, tick_shapes_a, granite_ticks
+    griffin_profile()
+    return total, report, tick_shapes_a, granite_ticks, griffin_ticks
 
 
-def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0):
+def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0, n_attn=None,
+                        min_blocks=128):
     """Check one profiled full tick and record it in ``entry``: every
-    layer's ``kv_attention_rows`` launch ran at least 128 blocks, and the
+    attention layer's (``n_attn``, every layer by default)
+    ``kv_attention_rows`` launch ran at least ``min_blocks`` blocks, and the
     tick holds no operation of a KV store outside its kernel (a stack, an
     ``index_put``, a bitwise and / or) but the one ``aten::stack`` each of
     the tick's ``unpacks`` (``unpack_nibbles`` calls) makes."""
@@ -2251,9 +2388,11 @@ def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0):
           f"unpack_nibbles calls")
     med = entry["decode_tick_ms_median"]
     blocks = sorted({math.prod(gr) for gr in grids})
-    check(len(grids) == cfg.n_layers and min(blocks) >= 128,
+    n_attn = cfg.n_layers if n_attn is None else n_attn
+    check(len(grids) == n_attn and min(blocks) >= min_blocks,
           f"({tag}) the profiled tick's kv_attention_rows launches: "
-          f"{len(grids)} of {cfg.n_layers}, blocks {blocks}, fewer than 128")
+          f"{len(grids)} of {n_attn}, blocks {blocks}, fewer than "
+          f"{min_blocks}")
     entry["profiled_full_tick"] = {
         "device_ops": ops, "device_busy_ms": busy,
         "idle_share_of_median_tick": 1.0 - busy / med,
@@ -2271,13 +2410,18 @@ def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0):
 # layers (the first ones of the served tree): the CPU side then takes a
 # few seconds a run.  The limits are the dense model's (readings in
 # PERF.md); its controls are MoE faults (``_moe_controls``).
-GRANITE_LOGITS_LAYERS = 4
+GRANITE_LOGITS_LAYERS = 2
+# granite is served at this many of its 32 layers, at its published widths
+# (earlier runs held all 32, PERF.md §4): the cut pays for the Griffin part
+# within the script's time; its tallies scale with the layers
+GRANITE_SERVE_LAYERS = 2
 GRANITE_EXPERTS = ("layers/moe/gate", "layers/moe/up", "layers/moe/down")
 
 
 def granite_serving(dev, cases):
-    """granite-moe-3b-a800m FULL (random weights from the seed) served
-    through ``Engine`` as the qwen2 part serves it (8 slots, a 1024-slot
+    """granite-moe-3b-a800m at its published widths and
+    ``GRANITE_SERVE_LAYERS`` of its 32 layers (random weights from the
+    seed) served through ``Engine`` as the qwen2 part serves it (8 slots, a 1024-slot
     ring, chunks of 16, 10 greedy requests of 16-256 prompt tokens and 32
     new ones) in two configurations: (a) packed uniform int8, ``kv_bits``
     8; (b) a plan with the expert stacks in nibbles (4 bits), the rest
@@ -2286,8 +2430,8 @@ def granite_serving(dev, cases):
     geometry (``generate()`` prefills a whole prompt at once, so its
     capacity and its drops differ); card vs CPU logits at
     ``GRANITE_LOGITS_LAYERS`` layers within the dense limits, which both
-    MoE controls exceed; one full tick's launches by shape, exact (161
-    ``qmatmul``: q, k, v, o and the router a layer and the head; one
+    MoE controls exceed; one full tick's launches by shape, exact (5 a
+    layer and 1 ``qmatmul``: q, k, v, o and the router, and the head; one
     ``kv_quantize_store`` and one ``kv_attention_rows`` a layer), and its
     ``unpack_nibbles`` calls (the three expert stacks a layer in (b), none
     in (a): no ``qmatmul`` weight is unpacked).  Returns (launch counts,
@@ -2309,12 +2453,14 @@ def granite_serving(dev, cases):
                cfg.d_ff, cfg.moe_experts, cfg.moe_top_k, cfg.vocab)
           == tuple(G[k] for k in ("L", "d", "H", "KV", "hd", "ff", "E", "k",
                                   "V")), "not granite-moe-3b-a800m")
+    cfg = dataclasses.replace(cfg, n_layers=GRANITE_SERVE_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
     params, qstate = TransformerLM.init(gen, cfg, device=dev)
     torch.cuda.synchronize()
-    print(f"[granite] granite-moe-3b-a800m FULL init on the card: "
+    print(f"[granite] granite-moe-3b-a800m init on the card at "
+          f"{cfg.n_layers} of its {G['L']} layers: "
           f"{time.perf_counter() - t0:.2f} s, "
           f"{cfg.n_params() / 1e9:.2f} B parameters", flush=True)
     plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
@@ -2460,6 +2606,237 @@ def granite_serving(dev, cases):
                   f"operation: " + "; ".join(f"{n[:60]} {ms:.3f}"
                                              for n, ms in top), flush=True)
         print(f"[granite] profiled in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    return total, report, tick_shapes_a, profile
+
+
+# Card logits against the CPU at recurrentgemma-2b's full width and 5 of its
+# layers (the first unit and the 2 remainder layers of the served tree), within
+# the dense limits, which two Griffin faults (``_griffin_controls``) exceed.
+GRIFFIN_LOGITS_UNITS = 1
+GRIFFIN_MLP = ("units/rec1/mlp", "units/rec2/mlp", "units/att/mlp",
+               "rem/0/mlp", "rem/1/mlp")
+# configuration (a)'s extra request: a prompt longer than the 2064-slot ring,
+# so that its decode reads a ring that has wrapped past the window
+GRIFFIN_LONG_PROMPT = 2100
+GRIFFIN_MAX_LEN = 4096
+
+
+def _griffin_controls(pc):
+    """The RG-LRU without its ``sqrt(1 - a^2)`` input normalization; the
+    conv's history not carried from one call to the next (zeros)."""
+    import repro_torch.nn.recurrent as rec
+    return {"rglru_without_input_norm": (
+                pc, lambda: _patched(rec, "input_norm",
+                                     lambda real: lambda la:
+                                     torch.ones_like(la))),
+            "conv_state_not_carried": (
+                pc, lambda: _patched(rec, "conv_history",
+                                     lambda real: lambda st, x, cw:
+                                     real(None, x, cw)))}
+
+
+def griffin_serving(dev, cases):
+    """recurrentgemma-2b FULL (random weights from the seed) served through
+    ``Engine``: 8 slots, ``max_len`` 4096 (a ring of window + chunk = 2064
+    slots), chunks of 16, granite's traffic (10 greedy requests of 16-256
+    prompt tokens and 32 new ones) in two configurations: (a) packed
+    uniform int8, ``kv_bits`` 8, and one more request of a 2100-token
+    prompt, whose decode reads a ring wrapped past the window; (b) every
+    MLP kernel in nibbles, the rest int8, ``kv_bits`` 4 (a nibble ring at
+    hd 256).  Checks: every request finishes; its tokens equal those of
+    the request served alone by an engine of the same geometry; card vs CPU
+    logits at 5 layers within the dense limits, which both Griffin
+    controls exceed; one full tick's launches by shape, exact (201
+    ``qmatmul``, 8 ``kv_quantize_store`` and 8 ``kv_attention_rows`` at hd
+    256), and no ``unpack_nibbles`` call.  Returns (launch counts, report,
+    configuration (a)'s full tick by shape, a function that profiles one
+    full tick of each configuration, to be called after every timed
+    run)."""
+    from repro_torch.configs import get
+    from repro_torch.core.plan import LayerPlan, PrecisionPlan
+    from repro_torch.models import GriffinLM, model_for
+    from repro_torch.serving import (Engine, Request, kv_bytes_per_token,
+                                     packed_nbytes)
+    from repro_torch.serving.packed import pack_for_serving
+    from repro_torch.tree import tree_map
+
+    Gf = GRIFFIN
+    cfg = get("recurrentgemma-2b")
+    check(model_for(cfg) is GriffinLM
+          and (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+               cfg.d_ff, cfg.vocab, cfg.window)
+          == tuple(Gf[k] for k in ("L", "d", "H", "KV", "hd", "ff", "V",
+                                   "window")), "not recurrentgemma-2b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params, qstate = GriffinLM.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"[griffin] recurrentgemma-2b FULL init on the card: "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{cfg.n_params() / 1e9:.2f} B parameters", flush=True)
+    plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
+                                 for k in GRIFFIN_MLP})
+    rng = np.random.default_rng(SEED)
+    lens = [16, 256] + [int(n) for n in rng.integers(16, 257, 8)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
+    long_prompt = [int(t) for t in rng.integers(0, cfg.vocab,
+                                                GRIFFIN_LONG_PROMPT)]
+    max_new, max_len, W = 32, GRIFFIN_MAX_LEN, Gf["W"]
+    t_part = time.perf_counter()
+    configs = (("a", "packed uniform int8, kv_bits 8, and one request of a "
+                     f"{GRIFFIN_LONG_PROMPT}-token prompt", None, 8),
+               ("b", "packed plan: every MLP kernel in nibbles (4 bits), the "
+                     "rest int8; kv_bits 4", plan, 4))
+    n_rec, n_att = 2 * Gf["units"] + Gf["rem"], Gf["units"]
+    hd, d, ff = Gf["hd"], Gf["d"], Gf["ff"]
+    total = {k: 0 for k in SERVING}
+    report, tick_shapes_a = {}, None
+    for tag, desc, pl, kv_bits in configs:
+        mlp_bits = 8 if pl is None else 4
+        want = {"qmatmul": {(8, d, d, 8): 5 * n_rec + 2 * n_att,
+                            (8, d, Gf["KV"] * hd, 8): 2 * n_att,
+                            (8, d, ff, mlp_bits): 2 * Gf["L"],
+                            (8, ff, d, mlp_bits): Gf["L"],
+                            (8, d, Gf["V"], 8): 1},
+                "kv_quantize_store": {(8, 1, Gf["KV"], hd, W,
+                                       hd // 2 if kv_bits == 4 else hd,
+                                       kv_bits, "float32"): n_att},
+                "kv_attention_rows": {(8, 1, Gf["H"], Gf["KV"], hd, W,
+                                       hd // 2 if kv_bits == 4 else hd):
+                                      n_att}}
+        tprompts = prompts + ([long_prompt] if tag == "a" else [])
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(GriffinLM, params, qstate, cfg, batch_slots=8,
+                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
+                     kv_bits=kv_bits, seed=SEED, device=dev)
+        check(eng.caches.k.shape[2] == W, f"(griffin {tag}) a ring of "
+                                          f"{eng.caches.k.shape[2]} slots")
+        reqs = [Request(prompt=list(pr), max_new=max_new) for pr in tprompts]
+        torch.cuda.synchronize()
+        unpacks = [0]
+        _reset_counts()                       # the main path starts here
+        t0 = time.perf_counter()
+        with _counting_unpacks(unpacks):
+            tick_ms, tick_shapes, tick_unpacks = _serve(eng, reqs, unpacks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(SERVING)             # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        nbytes = packed_nbytes(eng.p)
+        del eng
+        for k in total:
+            total[k] += counts[k]
+        check(all(c > 0 for c in counts.values()),
+              f"(griffin {tag}) a kernel was never launched: {counts}")
+        check(tick_shapes is not None,
+              f"(griffin {tag}) no tick had every slot busy")
+        per_tick = {k: sum(c.values()) for k, c in tick_shapes.items()}
+        rows_launches = _counts(("kv_quantize_rows",))["kv_quantize_rows"]
+        check(all(dict(tick_shapes[k]) == want[k] for k in SERVING)
+              and rows_launches == 0,
+              f"(griffin {tag}) one full tick's launches by shape: "
+              f"{ {k: dict(c) for k, c in tick_shapes.items()} }, want "
+              f"{want}, {rows_launches} kv_quantize_rows launches while "
+              f"serving")
+        check(tick_unpacks == 0 and unpacks[0] == 0,
+              f"(griffin {tag}) {tick_unpacks} unpack_nibbles calls in a "
+              f"full tick, {unpacks[0]} while serving")
+        if tag == "a":
+            tick_shapes_a = tick_shapes
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 8)
+        for key in tick_shapes["kv_quantize_store"]:
+            if key not in cases["kv_quantize_store"]:
+                cases["kv_quantize_store"][key] = kv_store_case(
+                    key, True, dev, g)
+        check(all(r.done and len(r.out) == max_new for r in reqs),
+              f"(griffin {tag}) not every request finished")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+              f"(griffin {tag}) token out of range")
+        # each request alone, on an engine of the same geometry over the
+        # same packed tree (generate() sizes its ring from the prompt)
+        pp, qq = pack_for_serving(params, qstate, pl)
+        t0 = time.perf_counter()
+        apart = []
+        for i, pr in enumerate(tprompts):
+            one = Request(prompt=list(pr), max_new=max_new)
+            Engine(GriffinLM, pp, qq, cfg, batch_slots=8, max_len=max_len,
+                   prefill_chunk=16, kv_bits=kv_bits, seed=SEED,
+                   device=dev).run([one])
+            if one.out != reqs[i].out:
+                apart.append(i)
+        alone_s = time.perf_counter() - t0
+        check(not apart, f"(griffin {tag}) requests {apart} served alone "
+                         f"give other tokens than in the batch")
+        cut = GRIFFIN_LOGITS_UNITS
+        t0 = time.perf_counter()
+        logits = _logits_vs_plain(
+            {**pp, "units": tree_map(lambda a: a[:cut], pp["units"])},
+            {**qq, "units": tree_map(lambda a: a[:cut], qq["units"])},
+            dataclasses.replace(cfg, n_layers=3 * cut + Gf["rem"]), kv_bits,
+            dev, _griffin_controls, model=GriffinLM)
+        logits_s = time.perf_counter() - t0
+        del pp, qq
+        full, cont = logits["full"], logits["continuous"]
+        print(f"[griffin] ({tag}) card vs CPU logits at "
+              f"{3 * cut + Gf['rem']} layers: {json.dumps(logits)} (limits: "
+              f"full {LOGITS_REL_GROSS}, continuous {LOGITS_REL_LIMIT})",
+              flush=True)
+        check(full["rel_l2"] <= LOGITS_REL_GROSS,
+              f"(griffin {tag}) card vs CPU logits rel L2 {full['rel_l2']}")
+        check(cont["rel_l2"] <= LOGITS_REL_LIMIT
+              and cont["argmax_agree"] == 1.0,
+              f"(griffin {tag}) card vs CPU logits without activation "
+              f"quantizers: {cont}")
+        check(all(c > LOGITS_REL_LIMIT for c in cont["controls"].values()),
+              f"(griffin {tag}) the logits check misses a control: {cont}")
+        toks = sum(len(r.out) for r in reqs)
+        med = float(np.median(tick_ms))
+        plens = [len(pr) for pr in tprompts]
+        report[tag] = {
+            "config": desc, "requests": len(reqs),
+            "prompt_tokens": sum(plens), "new_tokens": toks,
+            "decode_tick_ms_median": med, "ticks": len(tick_ms),
+            "tokens_per_s": toks / wall, "wall_s": wall,
+            "peak_mem_gib": peak, "packed_weight_bytes": nbytes,
+            "kv_bytes_per_token": kv_bytes_per_token(cfg.n_kv, hd, n_att,
+                                                     kv_bits),
+            "launches": counts, "launches_per_full_tick": per_tick,
+            "alone_runs_s": alone_s, "logits_s": logits_s,
+            "logits_vs_cpu": logits}
+        print(f"[griffin] ({tag}) {desc}: {len(reqs)} requests, prompts "
+              f"{min(plens)}-{max(plens)} tokens, {toks} new tokens in "
+              f"{wall:.2f} s = {toks / wall:.1f} tok/s; decode tick median "
+              f"{med:.2f} ms over {len(tick_ms)} ticks; peak memory "
+              f"{peak:.2f} GiB; packed weights {nbytes / 1e6:.1f} MB; "
+              f"launches {counts}; per full tick {per_tick}; every request "
+              f"equal alone ({alone_s:.1f} s); card vs CPU in "
+              f"{logits_s:.1f} s", flush=True)
+
+    part_s = time.perf_counter() - t_part
+    report["part_s"] = part_s
+    print(f"[griffin] served, checked alone and against the CPU in "
+          f"{part_s:.1f} s", flush=True)
+
+    def profile():
+        t0 = time.perf_counter()
+        for tag, desc, pl, kv_bits in configs:
+            by_name = {}
+            profiled = _profile_full_tick(
+                Engine, Request, GriffinLM, params, qstate, cfg, pl, kv_bits,
+                prompts, dev, device_ms=by_name, max_len=max_len)
+            # one cluster of 8 blocks a batch row: B = 8 rows of KV = 1
+            _read_profiled_tick(f"griffin {tag}", cfg, report[tag], profiled,
+                                n_attn=n_att, min_blocks=64)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+            report[tag]["profiled_full_tick"]["top_device_ms"] = top
+            print(f"[griffin] ({tag}) the profiled tick's device ms by "
+                  f"operation: " + "; ".join(f"{n[:60]} {ms:.3f}"
+                                             for n, ms in top), flush=True)
+        print(f"[griffin] profiled in {time.perf_counter() - t0:.1f} s",
               flush=True)
 
     return total, report, tick_shapes_a, profile
@@ -3092,9 +3469,11 @@ class LMCell:
     """An LM training cell of the train phase: the config at its published
     width (``dims`` checked against it), batch, seq and steps (of
     ``LM_TRAIN``'s ramp), what step 0's loss should be near, the launches
-    a step, the parameters the MFU line counts, and whether the card holds one such model at a time (the
-    step donates its params and AdamW state, the step is profiled at
-    once and the first run freed before the repeat)."""
+    a step, the parameters the MFU line counts, whether the card holds
+    one such model at a time (the step donates its params and AdamW
+    state, the step is profiled at once and the first run freed before
+    the repeat), and the layers it trains where that is fewer than the
+    published depth (None: all)."""
     name: str
     arch: str
     dims: dict
@@ -3107,6 +3486,7 @@ class LMCell:
     per_step: object
     mfu_params: str
     one_at_a_time: bool
+    layers: Optional[int] = None
 
 
 def _lm_dims(cfg):
@@ -3124,9 +3504,9 @@ QWEN_CELL = LMCell(
     "configs/qwen2_0_5b.py FULL (24 layers, d 896, 14 heads, 2 kv heads, "
     "ff 4864, vocab 151936, QKV bias, tied embeddings; arXiv:2407.10671), "
     "random weights from the seed, lm data, batch 2, seq 2048, q_chunk = "
-    "k_chunk = 1024, remat; 10 steps, lr 1e-3, beta 1e-9 -> 1e-7 over "
+    "k_chunk = 1024, remat; 5 steps, lr 1e-3, beta 1e-9 -> 1e-7 over "
     "them",
-    10, 0.0, lambda cfg: _lm_per_step(LM_BATCH, LM_SEQ, cfg.n_layers,
+    5, 0.0, lambda cfg: _lm_per_step(LM_BATCH, LM_SEQ, cfg.n_layers,
                                       cfg.q_chunk),
     "n_params", False)
 GRANITE_CELL = LMCell(
@@ -3137,11 +3517,12 @@ GRANITE_CELL = LMCell(
     "hf:ibm-granite), per-channel weights (the expert stacks per expert "
     "channel), per-tensor activations, init f 6; random weights from the "
     "seed, lm data, batch 2, seq 1024 (C = 256 slots an expert a row), "
-    "remat; 20 steps, lr 1e-3, beta 1e-9 -> 1e-7; params and AdamW state "
-    "updated in place",
-    20, GRANITE_LOSS0_EXCESS,
+    "remat; 8 of its 32 layers (all 32 held in earlier runs, cut for the "
+    "script's time); 10 steps, lr 1e-3, beta 1e-9 -> 1e-7; params and "
+    "AdamW state updated in place",
+    10, GRANITE_LOSS0_EXCESS,
     lambda cfg: _granite_per_step(GRANITE_BATCH, GRANITE_SEQ, cfg.n_layers),
-    "n_active_params", True)
+    "n_active_params", True, layers=8)
 
 
 def _lm_run(dev, cell):
@@ -3164,6 +3545,8 @@ def _lm_run(dev, cell):
           and cfg.remat
           and (cfg.tie_embeddings, cfg.qkv_bias) == cell.tied_and_qkv_bias,
           f"not {cell.arch} at its published width: {_lm_dims(cfg)}")
+    if cell.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=cell.layers)
     fwd, loss = _lm(cfg)
     pipe = make_pipeline(DataSpec(kind="lm", batch=cell.batch, seq=cell.seq,
                                   vocab=cfg.vocab, seed=SEED), device=dev)
@@ -3602,8 +3985,9 @@ def train_phase(dev):
           f"lm_train_mfu_fp32 {lm['lm_train_mfu_fp32']:.4f}; the LM part "
           f"took {lm['part_s']:.0f} s", flush=True)
     gr = report["granite"]
-    print(f"[train] granite summary (granite-moe-3b-a800m FULL, batch "
-          f"{GRANITE_BATCH}, seq {GRANITE_SEQ}): step "
+    print(f"[train] granite summary (granite-moe-3b-a800m at its published "
+          f"width and {GRANITE_CELL.layers} of its {GRANITE['L']} layers, "
+          f"batch {GRANITE_BATCH}, seq {GRANITE_SEQ}): step "
           f"{gr['step_ms_median']:.1f} ms median, {gr['tokens_per_s']:.0f} "
           f"tokens/s, peak {gr['peak_mem_gib']:.2f} GiB ({gr['held_before_gib']:.2f} "
           f"held before), profiled step busy "
@@ -4245,21 +4629,31 @@ def main(argv=None) -> int:
               flush=True)
 
     cases = kernel_phase(dev)
+    print(f"[time] kernel phase done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
     tallies = collections.defaultdict(list)
     launches = collections.Counter()
     slice_report = train_report = wire_report = None
     if args.phase in ("all", "serve"):
-        total, slice_report, tick_shapes, granite_ticks = slice_phase(
-            dev, cases)
+        total, slice_report, tick_shapes, granite_ticks, griffin_ticks = \
+            slice_phase(dev, cases)
         launches.update(total)
         per = ("one full decode tick of serving configuration (a), calls by "
                "shape as counted on the main path")
-        granite_per = ("one full decode tick of granite-moe-3b-a800m FULL, "
-                       "configuration (a) (packed int8, kv_bits 8), calls by "
-                       "shape as counted on the main path")
+        granite_per = (f"one full decode tick of granite-moe-3b-a800m at its "
+                       f"published widths and {GRANITE_SERVE_LAYERS} of its "
+                       f"32 layers, configuration (a) (packed int8, kv_bits "
+                       f"8), calls by shape as counted on the main path")
+        griffin_per = ("one full decode tick of recurrentgemma-2b FULL, "
+                       "configuration (a) (packed int8, kv_bits 8, the "
+                       "2064-slot ring), calls by shape as counted on the "
+                       "main path")
         for k in SERVING:
             tallies[k].append((tick_shapes[k], per))
             tallies[k].append((granite_ticks[k], granite_per))
+            tallies[k].append((griffin_ticks[k], griffin_per))
+        print(f"[time] serving phase done at {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
     if args.phase in ("all", "train"):
         train_report, per_step = train_phase(dev)
         units = {"jet": "one training step of the quickstart jet tagger",
@@ -4270,14 +4664,17 @@ def main(argv=None) -> int:
                  "lm": "one LM step: a training step of qwen2-0.5b at full "
                        "width (batch 2, seq 2048, remat)",
                  "granite": "one granite step: a training step of "
-                            "granite-moe-3b-a800m at full width (batch 2, "
-                            "seq 1024, remat)"}
+                            "granite-moe-3b-a800m at its published width "
+                            f"and {GRANITE_CELL.layers} of its 32 layers "
+                            "(batch 2, seq 1024, remat)"}
         for name, unit in units.items():
             rep = train_report if name == "jet" else train_report[name]
             launches.update(rep["launches"])
             for k in TRAINING:
                 tallies[k].append((per_step[name][k], unit + ", calls by "
                                    "shape as counted on the main path"))
+        print(f"[time] train phase done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
     if args.phase in ("all", "wire"):
         wire_report, wire_launches, wire_tallies = wire_phase(dev, cases)
         launches.update(wire_launches)

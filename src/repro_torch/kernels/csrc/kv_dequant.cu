@@ -64,13 +64,13 @@
 // Design.  A thread block cluster of C blocks (C from W alone: min(8, W / 128
 // rounded up), launched with cudaLaunchKernelEx) serves one (kv head, batch row,
 // tile of RT query rows); RT = 8 covers a decode tick's S * G = 7 rows of a qwen2
-// kv head, RT = 16 a prefill chunk.  At B = 8, KV = 2, W = 1024 that is 16
-// clusters of 8 = 128 blocks.  Each block owns a contiguous range of ring slots:
-// pass 1 stages its keys (16-byte loads, nibbles sign-extended with arithmetic
-// shifts), two threads per slot compute the RT scaled scores and keep them in
-// shared memory, so the ring is read once.  Where a block's share of the scores
-// does not fit in shared memory (W / C above about 1400 slots at RT = 16, hd = 64),
-// pass 1 keeps only the row maxima and pass 2 restages the keys and recomputes the
+// kv head, RT = 16 a prefill chunk and a recurrentgemma-2b tick's 10 rows.  At B =
+// 8, KV = 2, W = 1024 that is 16 clusters of 8 = 128 blocks.  Each block owns a
+// contiguous range of ring slots: pass 1 stages its keys (16-byte loads, nibbles
+// sign-extended with arithmetic shifts), two threads per slot compute the RT
+// scaled scores and keep them in shared memory, so the ring is read once.  Where
+// a block's share of the scores does not fit in shared memory (W / C above about
+// 1400 slots at RT = 16, hd = 64), pass 1 keeps only the row maxima and pass 2 restages the keys and recomputes the
 // scores ATT_SLOTS slots at a time, by the same instructions, so the result has
 // the same bits either way and any W is served.  The probability grid needs the true
 // row max before any probability is rounded: the blocks' partial maxima are
@@ -78,12 +78,24 @@
 // is exact in any order, so every probability is rounded against the same max as
 // in the plain version.  (An online softmax would round against a moving max, a
 // different function.)  Pass 2 turns the stored scores into probabilities, and the
-// block's four warps each take a quarter of its slots for p * 2^-vf @ v, lanes
-// across the head dim; the warps' partials are summed in warp order.  The cluster
-// then sums the blocks' partials and probability sums through distributed shared
-// memory in rank order (each block combines every C-th output), divides, and
-// writes each output once.  No atomics; every sum's order is set by W and hd, never
-// by B or S, so a request's rows are bit-identical in a batch of 8 and alone.
+// block's eight warps each take an eighth of its slots for p * 2^-vf @ v, lanes
+// across the head dim (DPL columns a lane, hd <= 128); the warps' partials are
+// summed in warp order.  Head dim 256 (recurrentgemma-2b) does not fit that way:
+// at RT = 16 a lane would hold 16 x 8 accumulators (the launch bounds leave 128
+// registers), and the eight warps' partials alone would take 8 x 16 x 256 words
+// (128 KB), which with the query rows, the block's partial and the staged K / V
+// rows is 232704 bytes, past the 232448 a block may have.  So the SPLIT = 2
+// instance splits p.v over the two halves of the head dim at once: warps 0-3 take
+// columns 0-127, warps 4-7 columns 128-255, each a quarter of the staged slots,
+// all from the one staging of the probabilities; each half's four partials are
+// summed in warp order, the probability sums from the first half's.  A lane keeps
+// 16 x 4 accumulators, as at hd 128, and the partials take 4 x 16 x 256 words: a
+// block holds 167952 bytes with its scores kept (W = 2064, eight blocks of 258
+// slots), 166912 recomputing them, one block an SM.  The cluster then sums the
+// blocks' partials and probability sums through distributed shared memory in rank
+// order (each block combines every C-th output), divides, and writes each output
+// once.  No atomics; every sum's order is set by W and hd, never by B or S, so a
+// request's rows are bit-identical in a batch of 8 and alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -98,7 +110,8 @@ constexpr float NEG_INF = -1e30f;
 constexpr int ATT_NT = 256;     // threads per block
 constexpr int ATT_WARPS = ATT_NT / 32;
 constexpr int ATT_SLOTS = 128;  // ring slots staged at a time: two threads a slot
-constexpr int ATT_HDMAX = 128;
+constexpr int ATT_HDPART = 128;  // head-dim columns a warp covers in p.v at most
+constexpr int ATT_HDMAX = 2 * ATT_HDPART;  // the widest head: two parts
 constexpr size_t SMEM_MAX = 232448;      // a block's shared memory on the H100
 
 __device__ __forceinline__ float exact_exp2(float fi) {
@@ -334,7 +347,8 @@ __device__ __forceinline__ void stage_rows(int8_t* kdst, int8_t* vdst, int ldk,
                                            const int8_t* __restrict__ vsrc, long long st,
                                            int t0, int tn, int hdm, int packed, int vec) {
   if (vec) {
-    constexpr int PMAX = ATT_HDMAX / 16;  // pieces of a thread at most
+    // pieces of a thread at most: ATT_SLOTS rows of ATT_HDMAX bytes over the block
+    constexpr int PMAX = ATT_SLOTS * ATT_HDMAX / (16 * ATT_NT);
     const int pieces = hdm / 16, n = tn * pieces;
     uint4 kv[PMAX], vv[PMAX];
 #pragma unroll
@@ -504,28 +518,35 @@ __device__ __forceinline__ bool visible(int tp, int qp, int window) {
   return tp >= 0 && tp <= qp && (window < 0 || qp - tp < window);
 }
 
-// The region that holds P and PV for cap slots, and later the warps' partials.
-__host__ __device__ inline size_t attention_union_words(int hd, int rt, int cap) {
+// The region that holds P and PV for cap slots, and later the partials of the
+// ATT_WARPS / split warps of one head-dim part.
+__host__ __device__ inline size_t attention_union_words(int hd, int rt, int cap,
+                                                        int split) {
+  const size_t pw = ATT_WARPS / split;
   const size_t pp = 2 * static_cast<size_t>(rt) * cap;
-  const size_t wp = static_cast<size_t>(ATT_WARPS) * rt * hd + ATT_WARPS * rt;
+  const size_t wp = pw * rt * hd + pw * rt;
   return pp > wp ? pp : wp;
 }
 
 // Shared memory of one block, in 4-byte words then bytes (see the kernel).
-__host__ __device__ inline size_t attention_smem_bytes(int hd, int rt, int cap) {
+__host__ __device__ inline size_t attention_smem_bytes(int hd, int rt, int cap,
+                                                       int split) {
   return sizeof(float) * (2 * static_cast<size_t>(rt) * hd +
-                          attention_union_words(hd, rt, cap) +
+                          attention_union_words(hd, rt, cap, split) +
                           2 * static_cast<size_t>(cap) + ATT_WARPS * rt + 4 * rt) +
          2 * static_cast<size_t>(ATT_SLOTS) * (hd + 4);
 }
 
-// RT query rows a block; DPL head-dim columns a lane in p.v (hd <= 32 * DPL);
-// RECOMPUTE: pass 2 recomputes the scores (a separate instance, so the common case
-// carries none of its registers).  At most 128 registers a thread, so two blocks
-// fit an SM and a cluster of 8 finds room in every GPC: all 16 clusters of a
-// decode tick run in one wave.
-template <int RT, int DPL, bool RECOMPUTE>
-__global__ void __launch_bounds__(ATT_NT, 2)
+// RT query rows a block; DPL head-dim columns a lane in p.v; SPLIT head-dim
+// parts of 32 * DPL columns, each served by ATT_WARPS / SPLIT warps (hd <= 32 *
+// DPL * SPLIT); RECOMPUTE: pass 2 recomputes the scores (a separate instance, so
+// the common case carries none of its registers).  SPLIT 1: at most 128
+// registers a thread, so two blocks fit an SM and a cluster of 8 finds room in
+// every GPC: all 16 clusters of a decode tick run in one wave.  SPLIT 2 (hd
+// 256): its shared memory holds one block an SM, which may then take every
+// register it can use.
+template <int RT, int DPL, int SPLIT, bool RECOMPUTE>
+__global__ void __launch_bounds__(ATT_NT, SPLIT == 1 ? 2 : 1)
 kv_attention_kernel(const float* __restrict__ qh,
                     const int8_t* __restrict__ km, const int8_t* __restrict__ vm,
                     long long m_sb, long long m_st, long long m_skv,
@@ -538,13 +559,17 @@ kv_attention_kernel(const float* __restrict__ qh,
                     int window, float scale, int ntiles, int chunk) {
   constexpr int CMAX = 8;       // the portable cluster size
   constexpr int RH = RT / 2;    // query rows a thread scores: two threads a slot
-  constexpr int QPT = RT * ATT_HDMAX / ATT_NT;  // query values a thread loads at most
+  constexpr int QPT = RT * ATT_HDPART * SPLIT / ATT_NT;  // query values a thread loads
+  constexpr int PW = ATT_WARPS / SPLIT;  // warps of one head-dim part in p.v
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int C = static_cast<int>(cluster.num_blocks());
   const int kvh = blockIdx.y, b = blockIdx.z / ntiles;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // p.v: the warp's head-dim part and its rank in it (SPLIT 1: the warp alone)
+  const int dp = SPLIT == 1 ? 0 : warp / PW, pw = warp - dp * PW;
+  const int d0 = dp * 32 * DPL;                   // the part's first column
   const int js = tid % ATT_SLOTS, half = tid / ATT_SLOTS;  // pass 1: slot, row half
   const int G = H / KV, SG = S * G;
   const int r0 = (blockIdx.z - b * ntiles) * RT;
@@ -562,9 +587,9 @@ kv_attention_kernel(const float* __restrict__ qh,
   float* qs = reinterpret_cast<float*>(smem);       // [RT][hd] query rows
   float* P = qs + RT * hd;                          // [cap][RT] scores, then probs
   float* PV = P + RT * cap;                         // [cap][RT] p * 2^-vf
-  float* wpart = P;                                 // after p.v: [WARPS][RT][hd]
-  float* wl = wpart + ATT_WARPS * RT * hd;          //   and [WARPS][RT] prob sums
-  float* part = P + attention_union_words(hd, RT, cap);  // [RT][hd] block's p.v
+  float* wpart = P;                                 // after p.v: [PW][RT][hd]
+  float* wl = wpart + PW * RT * hd;                 //   and [PW][RT] prob sums
+  float* part = P + attention_union_words(hd, RT, cap, SPLIT);  // [RT][hd] block's p.v
   float* vss = part + RT * hd;                      // [cap] 2^-vf per slot
   int* tps = reinterpret_cast<int*>(vss + cap);     // [cap] tpos per slot
   float* lpart = reinterpret_cast<float*>(tps + cap);  // [RT] block's prob sum
@@ -735,16 +760,17 @@ kv_attention_kernel(const float* __restrict__ qh,
       PV[i * RT + r] = p * vss[i];
     }
     __syncthreads();
-    // warp w takes the contiguous share [lo, hi) of the staged slots
-    const int per = (tn + ATT_WARPS - 1) / ATT_WARPS;
-    const int lo = warp * per, hi = min(tn, lo + per);
+    // warp pw of head-dim part dp takes the contiguous share [lo, hi) of the
+    // staged slots, its lanes across the part's columns
+    const int per = (tn + PW - 1) / PW;
+    const int lo = pw * per, hi = min(tn, lo + per);
 #pragma unroll 2
     for (int i = lo; i < hi; ++i) {
       const int8_t* vr = Vs + i * ldk;
       float v[DPL];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) {
-        const int d = lane + 32 * e;
+        const int d = d0 + lane + 32 * e;
         v[e] = d < hd ? static_cast<float>(vr[d]) : 0.f;
       }
       const float4* p4 = reinterpret_cast<const float4*>(P + (pb + i) * RT);
@@ -759,33 +785,34 @@ kv_attention_kernel(const float* __restrict__ qh,
           lsum[r] += ps[u];
 #pragma unroll
           for (int e = 0; e < DPL; ++e)
-            if (32 * e < hd) acc[r][e] = fmaf(pvs[u], v[e], acc[r][e]);
+            if (d0 + 32 * e < hd) acc[r][e] = fmaf(pvs[u], v[e], acc[r][e]);
         }
       }
     }
   }
-  // the warps' partials, summed in warp order (they reuse P and PV's space)
+  // each part's warps' partials, summed in warp order (they reuse P and PV's
+  // space); the probability sums from part 0's warps (every part's are the same)
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
 #pragma unroll
     for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < hd) wpart[(warp * RT + r) * hd + d] = acc[r][e];
+      const int d = d0 + lane + 32 * e;
+      if (d < hd) wpart[(pw * RT + r) * hd + d] = acc[r][e];
     }
-    if (lane == 0) wl[warp * RT + r] = lsum[r];
+    if (lane == 0 && dp == 0) wl[pw * RT + r] = lsum[r];
   }
   __syncthreads();
   for (int idx = tid; idx < RT * hd; idx += ATT_NT) {
     float a = wpart[idx];
 #pragma unroll
-    for (int w = 1; w < ATT_WARPS; ++w) a += wpart[w * RT * hd + idx];
+    for (int w = 1; w < PW; ++w) a += wpart[w * RT * hd + idx];
     part[idx] = a;
   }
   if (tid < RT) {
     float l = wl[tid];
 #pragma unroll
-    for (int w = 1; w < ATT_WARPS; ++w) l += wl[w * RT + tid];
+    for (int w = 1; w < PW; ++w) l += wl[w * RT + tid];
     lpart[tid] = l;
   }
   cluster.sync();  // every block's partials are written
@@ -812,7 +839,7 @@ kv_attention_kernel(const float* __restrict__ qh,
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
-template <int RT, int DPL>
+template <int RT, int DPL, int SPLIT>
 int launch_attention(const float* qh, const int8_t* km, const int8_t* vm, long long m_sb,
                      long long m_st, long long m_skv, const int8_t* kf,
                      const int8_t* vf, long long f_sb, long long f_st, long long f_skv,
@@ -822,11 +849,11 @@ int launch_attention(const float* qh, const int8_t* km, const int8_t* vm, long l
                      float scale, int cluster, cudaStream_t stream) {
   const int chunk = (W + cluster - 1) / cluster;
   // keep the block's scores where they fit, else recompute them in pass 2
-  size_t smem = attention_smem_bytes(hd, RT, chunk);
-  auto kernel = kv_attention_kernel<RT, DPL, false>;
+  size_t smem = attention_smem_bytes(hd, RT, chunk, SPLIT);
+  auto kernel = kv_attention_kernel<RT, DPL, SPLIT, false>;
   if (smem > SMEM_MAX) {
-    smem = attention_smem_bytes(hd, RT, ATT_SLOTS);
-    kernel = kv_attention_kernel<RT, DPL, true>;
+    smem = attention_smem_bytes(hd, RT, ATT_SLOTS, SPLIT);
+    kernel = kv_attention_kernel<RT, DPL, SPLIT, true>;
   }
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -971,16 +998,20 @@ extern "C" int kv_attention_launch(const float* qh, const int8_t* km, const int8
       S <= 0 || cluster < 1 || cluster > 8)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define KV_ATTENTION_LAUNCH(RT, DPL)                                                    \
-  return launch_attention<RT, DPL>(qh, km, vm, m_sb, m_st, m_skv, kf, vf, f_sb, f_st, f_skv, \
-                                   qpos, tpos, tp_sb, tp_st, pf, out, B, S, H, KV, W, hd,   \
-                                   packed, vec, window, scale, cluster, st)
+#define KV_ATTENTION_LAUNCH(RT, DPL, SPLIT)                                             \
+  return launch_attention<RT, DPL, SPLIT>(qh, km, vm, m_sb, m_st, m_skv, kf, vf, f_sb, f_st, \
+                                          f_skv, qpos, tpos, tp_sb, tp_st, pf, out, B, S, H, \
+                                          KV, W, hd, packed, vec, window, scale, cluster, st)
   const bool small = S * (H / KV) <= 8;
   if (hd <= 64) {
-    if (small) KV_ATTENTION_LAUNCH(8, 2);
-    KV_ATTENTION_LAUNCH(16, 2);
+    if (small) KV_ATTENTION_LAUNCH(8, 2, 1);
+    KV_ATTENTION_LAUNCH(16, 2, 1);
   }
-  if (small) KV_ATTENTION_LAUNCH(8, 4);
-  KV_ATTENTION_LAUNCH(16, 4);
+  if (hd <= ATT_HDPART) {
+    if (small) KV_ATTENTION_LAUNCH(8, 4, 1);
+    KV_ATTENTION_LAUNCH(16, 4, 1);
+  }
+  // hd up to 256: the p.v over two head-dim parts at once, half the warps each
+  KV_ATTENTION_LAUNCH(16, 4, 2);
 #undef KV_ATTENTION_LAUNCH
 }

@@ -295,6 +295,12 @@ class TransformerLM(nn.Module):
 
     # ---------------------------- decode --------------------------------
     @staticmethod
+    def serving_views(tree, cfg: ModelConfig):
+        """A params or qstate tree with its stacked layers as per-layer
+        views, made once (the engine's tick loops over them)."""
+        return {**tree, "layers": layer_views(tree["layers"], cfg.n_layers)}
+
+    @staticmethod
     def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16, ring_slack: int = 0,
                    kv_bits: Optional[int] = None, device=None) -> Caches:

@@ -32,7 +32,6 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.lm import layer_views
 from ..nn.attention import NEG_INF
 from ..tree import tree_map
 
@@ -96,7 +95,10 @@ def _to(tree, device):
 
 
 class Engine:
-    """Continuous-batching engine over a model's KV-cache decode path."""
+    """Continuous-batching engine over a model's KV-cache decode path:
+    ``model`` gives its per-layer views (``serving_views``), its caches
+    (``init_cache``, a named tuple of ``[L, B, ...]`` tensors or None)
+    and its ``decode_step``."""
 
     def __init__(self, model, params, qstate, cfg: ModelConfig, *,
                  batch_slots: int = 8, max_len: int = 512,
@@ -117,11 +119,9 @@ class Engine:
             params, qstate = pack_for_serving(params, qstate, plan)
         self.p = params
         self.q = qstate
-        # per-layer views, made once: the tick loops over them
-        self._pv = {**params, "layers": layer_views(params["layers"],
-                                                    cfg.n_layers)}
-        self._qv = {**qstate, "layers": layer_views(qstate["layers"],
-                                                    cfg.n_layers)}
+        # per-layer views, made once by the model: the tick loops over them
+        self._pv = model.serving_views(params, cfg)
+        self._qv = model.serving_views(qstate, cfg)
         self.slots = batch_slots
         self.max_len = max_len
         self.eos = eos_id
@@ -148,8 +148,9 @@ class Engine:
                                       self.cfg, kv_bits=self.kv_bits)
 
     def _new_slot(self):
-        """A zeroed single-slot cache slice [L, 1, W, ...]."""
-        return type(self.caches)(*(torch.zeros(
+        """A zeroed single-slot cache slice [L, 1, W, ...]; a field the
+        cache leaves empty (None) stays empty."""
+        return type(self.caches)(*(None if c is None else torch.zeros(
             (c.shape[0], 1) + tuple(c.shape[2:]), dtype=c.dtype,
             device=c.device) for c in self.caches))
 
@@ -185,7 +186,8 @@ class Engine:
 
     def _write_slot(self, cs, slot: int) -> None:
         for c, u in zip(self.caches, cs):
-            c[:, slot].copy_(u[:, 0])
+            if c is not None:
+                c[:, slot].copy_(u[:, 0])
 
     def submit(self, req: Request) -> Optional[RequestHandle]:
         """Admit one request (prefill, splice, first token); None when no

@@ -27,7 +27,8 @@ with warnings.catch_warnings():
 
 from repro_torch.configs import get as tget
 from repro_torch.core.plan import PrecisionPlan
-from repro_torch.models import TransformerLM
+from repro_torch.models import GriffinLM, TransformerLM
+from repro_torch.models.lm import layer_views
 from repro_torch.serving import Engine, Request, SamplingConfig, generate
 from repro_torch.serving import kvcache as tkvc
 from repro_torch.weights import from_jax
@@ -175,6 +176,63 @@ def test_engine_needs_device_choice_without_cuda():
     with pytest.raises(RuntimeError):
         Engine(TransformerLM, s["tp"], s["tq"], s["tc"], batch_slots=1,
                max_len=8)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_engine_layer_views_keep_tokens(mode):
+    """The engine takes its per-layer views from the model
+    (``serving_views``): the same tokens as an engine whose views are made
+    from ``params["layers"]`` directly, as the engine made them before it
+    stopped naming a model's keys."""
+    packed, kv_bits = MODES[mode]
+    s = _setup()
+    prompts = _prompts(s["tc"].vocab, LENS, seed=6)
+
+    def run(named):
+        eng = _engine(s, prefill_chunk=4, packed=packed, kv_bits=kv_bits)
+        if named:
+            n = s["tc"].n_layers
+            eng._pv = {**eng.p, "layers": layer_views(eng.p["layers"], n)}
+            eng._qv = {**eng.q, "layers": layer_views(eng.q["layers"], n)}
+        reqs = [Request(prompt=list(pr), max_new=mn)
+                for pr, mn in zip(prompts, MAX_NEWS)]
+        eng.run(reqs)
+        return [r.out for r in reqs]
+
+    assert run(False) == run(True)
+
+
+def test_griffin_fp_cache_engine_slots():
+    """A Griffin engine on the fp cache (``kf`` / ``vf`` None): its slot
+    slices keep the empty fields empty, it admits, serves and frees
+    every slot, and a slot recycled after a long tenant (recurrent state
+    and ring overwritten by a fresh slice) decodes like a fresh engine."""
+    cfg = tget("recurrentgemma-2b", smoke=True)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    p, q = GriffinLM.init(gen, cfg, device="cpu")
+
+    def engine(slots):
+        return Engine(GriffinLM, p, q, cfg, batch_slots=slots, max_len=40,
+                      prefill_chunk=8, device="cpu")
+
+    eng = engine(2)
+    assert eng.caches.kf is None and eng.caches.vf is None
+    cs = eng._new_slot()
+    assert cs.kf is None and cs.vf is None and cs.h.shape[1] == 1
+    reqs = [Request(prompt=list(pr), max_new=n) for pr, n in zip(
+        _prompts(cfg.vocab, [3, 21, 9], seed=7), [12, 8, 10])]
+    eng.run(reqs)
+    assert all(r.done and len(r.out) == r.max_new for r in reqs)
+    assert eng.slot_req == [None, None]
+    long_p, probe = _prompts(cfg.vocab, [25, 4], seed=8)
+    one = engine(1)
+    one.run([Request(prompt=long_p, max_new=10)])
+    recycled = Request(prompt=list(probe), max_new=6)
+    one.run([recycled])
+    fresh = Request(prompt=list(probe), max_new=6)
+    engine(1).run([fresh])
+    assert recycled.out == fresh.out
 
 
 def test_kv_cache_widths_match_jax():

@@ -480,10 +480,12 @@ def test_qmatmul_rows_bitwise_equal_at_m_1_8_16(cuda_device):
 # B = 2, S = 16; W = 1500 leaves the cluster's last block ragged, W = 2048
 # gives a block two staging rounds, W = 16384 at RT = 16 and W = 32768 at
 # RT = 8 keep no scores in shared memory (pass 2 recomputes them), hd = 40
-# stages rows without 16-byte loads
+# stages rows without 16-byte loads; hd = 256 (recurrentgemma-2b's 10
+# heads over 1 kv head) runs the instance that splits p.v over two halves
+# of the head dim, its scores kept at W = 2064 and recomputed at 16384
 LONG_RINGS = [(8, 1, 1500, 64), (2, 16, 1500, 64), (8, 1, 2048, 64),
               (2, 16, 2048, 64), (2, 16, 16384, 64), (8, 1, 32768, 64),
-              (2, 16, 1500, 40)]
+              (2, 16, 1500, 40), (8, 1, 2064, 256), (2, 16, 16384, 256)]
 
 
 @pytest.mark.cuda
@@ -495,7 +497,8 @@ def test_kv_attention_long_rings_on_cuda(cuda_device, B, S, W, hd, nibble):
     rows bit for bit the same alone as in the batch."""
     from repro_torch.kernels.kv_dequant import kv_pack
     g = torch.Generator(device=cuda_device).manual_seed(W + hd)
-    H, KV, bits = 14, 2, 4 if nibble else 8
+    H, KV = (10, 1) if hd == 256 else (14, 2)
+    bits = 4 if nibble else 8
     m, f = kv_quantize_ref(torch.randn((2, B, W, KV, hd), generator=g,
                                        device=cuda_device), bits)
     if nibble:
