@@ -81,17 +81,29 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    launches by shape exact (11 ``qmatmul``, 2 ``kv_quantize_store``,
    2 ``kv_attention_rows``; the expert nibbles unpacked, no ``qmatmul``
    weight), and one tick of each profiled last; then serves
-   recurrentgemma-2b (the Griffin family: 26 layers, RG-LRU blocks and
-   local attention with head dim 256) at full width the same way
-   (``griffin_serving``, ``max_len`` 4096, so its ring is the window and
-   a chunk, 2064 slots): (a) packed int8, ``kv_bits`` 8, with one more
-   request of a 2100-token prompt that wraps its ring past the window;
-   (b) every MLP kernel in nibbles, ``kv_bits`` 4; every request equal
-   alone, card vs CPU at 5 layers within the dense limits that two
-   Griffin faults (the RG-LRU without its input normalization, the conv
-   state not carried) exceed, one full tick's launches by shape exact
-   (201 ``qmatmul``, 8 ``kv_quantize_store`` and 8 ``kv_attention_rows``
-   at hd 256), and one tick of each profiled last;
+   recurrentgemma-2b (the Griffin family: RG-LRU blocks and local
+   attention with head dim 256) at its published widths and 8 of its 26
+   layers (2 of its 8 units and its 2 remainder layers; all 26 were held
+   in earlier runs) the same way (``griffin_serving``, ``max_len`` 4096,
+   so its ring is the window and a chunk, 2064 slots): (a) packed int8,
+   ``kv_bits`` 8, with one more request of a 2100-token prompt that wraps
+   its ring past the window; (b) every MLP kernel in nibbles, ``kv_bits``
+   4; every request equal alone, card vs CPU at 5 layers within the
+   dense limits that two Griffin faults (the RG-LRU without its input
+   normalization, the conv state not carried) exceed, one full tick's
+   launches by shape exact (63 ``qmatmul``, 2 ``kv_quantize_store`` and
+   2 ``kv_attention_rows`` at hd 256), and one tick of each profiled
+   last; then serves rwkv6-1.6b (the RWKV-6 family: 24 layers of time mix
+   and channel mix, no KV cache) at full width the same way
+   (``rwkv_serving``, ``max_len`` 2048, the constants of the reference's
+   init redrawn from the seed): (a) packed int8 with one more request of
+   a 1024-token prompt (64 chunks of state carried through one slot);
+   (b) every channel-mix kernel in nibbles; every request equal alone,
+   card vs CPU at 4 layers within the dense limits that three RWKV faults
+   (the WKV state not carried, the token shift taken from the residual
+   stream, the per-head norm left out) exceed, one full tick's launches
+   by shape exact (193 ``qmatmul``, no KV kernel), and one tick of each
+   profiled last (the three families through one ``_serve_family``);
 5. train phase: trains the paper's jet tagger at its full width with
    ``examples/quickstart.py``'s configuration through the port's
    ``Trainer.run`` (300 steps, batch 1024), calibrates it on a held-out
@@ -176,7 +188,8 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    its events counted by name); then holds every ``wire_pack`` kernel
    shape those paths launched against its plain version and times it;
 7. prints one JSON line with every kernel's numbers, its times per unit
-   of its main path (a full decode tick, a training step -- the jet's,
+   of its main path (a full decode tick -- an RWKV tick beside qwen2's,
+   granite's and Griffin's for ``qmatmul`` --, a training step -- the jet's,
    with an svhn, a muon and an LM step beside it --, a compressed
    data-parallel step, a qwen2 gradient reduce) weighted by those
    tallies (a granite step among the training units), the TPU kernels
@@ -996,6 +1009,7 @@ GRANITE = dict(L=32, d=1536, H=24, KV=8, hd=64, ff=512, E=40, k=8, V=49155)
 # max_len 4096 gives W = window + the prefill chunk = 2064 slots
 GRIFFIN = dict(L=26, units=8, rem=2, d=2560, H=10, KV=1, hd=256, ff=7680,
                V=256000, window=2048, W=2064)
+RWKV = dict(L=24, d=2048, ff=7168, V=65536, norm="ln")
 LM_BATCH, LM_SEQ = 2, 2048
 # granite's training cell: batch 2, seq 1024 (one chunk pair a layer),
 # C = 256 slots an expert a row
@@ -1641,6 +1655,7 @@ def kernel_phase(dev):
     d, Gkv, E, V = (GRANITE[k] for k in ("d", "KV", "E", "V"))
     gd, gff, gV = GRIFFIN["d"], GRIFFIN["ff"], GRIFFIN["V"]
     ghd = GRIFFIN["KV"] * GRIFFIN["hd"]
+    rd, rff, rV = RWKV["d"], RWKV["ff"], RWKV["V"]
     for M in (8, 16):
         # qwen2-0.5b: int8: q, o; k, v; gate, up; down; the tied head.
         # nibbles: gate, up; down (configuration (a)'s MLP).  granite: int8
@@ -1648,7 +1663,9 @@ def kernel_phase(dev):
         # the untied head (N 49155, odd); nibbles at N 512 and 1536.
         # recurrentgemma-2b: int8 2560 -> 2560 (the recurrent blocks' five,
         # q and o), -> 256 (k, v), the MLP, the head (N 256000); the MLP
-        # in nibbles (configuration (b))
+        # in nibbles (configuration (b)).  rwkv6-1.6b: int8 2048 -> 2048
+        # (the time mix's five, the channel mix's r), the channel mix's
+        # 2048 <-> 7168, the head (N 65536); the channel mix in nibbles
         for K, N, bits in ((896, 896, 8), (896, 128, 8), (896, 4864, 8),
                            (4864, 896, 8), (896, 151936, 8),
                            (896, 4864, 4), (4864, 896, 4),
@@ -1656,7 +1673,10 @@ def kernel_phase(dev):
                            (d, Gkv * hd, 4), (d, d, 4),
                            (gd, gd, 8), (gd, ghd, 8), (gd, gff, 8),
                            (gff, gd, 8), (gd, gV, 8), (gd, gff, 4),
-                           (gff, gd, 4)):
+                           (gff, gd, 4),
+                           (rd, rd, 8), (rd, rff, 8), (rff, rd, 8),
+                           (rd, rV, 8), (rd, rd, 4), (rd, rff, 4),
+                           (rff, rd, 4)):
             cases["qmatmul"][M, K, N, bits] = qmatmul_case(M, K, N, bits,
                                                            dev, g)
     rel = [c["rel_err"] for c in cases["qmatmul"].values()]
@@ -2359,8 +2379,10 @@ def slice_phase(dev, cases):
         granite_serving(dev, cases)
     griffin_total, report["griffin"], griffin_ticks, griffin_profile = \
         griffin_serving(dev, cases)
+    rwkv_total, report["rwkv"], rwkv_ticks, rwkv_profile = \
+        rwkv_serving(dev, cases)
     for k in total:
-        total[k] += granite_total[k] + griffin_total[k]
+        total[k] += granite_total[k] + griffin_total[k] + rwkv_total[k]
     # profiled only now, after every timed run
     for tag, desc, pl, kv_bits in configs:
         _read_profiled_tick(tag, cfg, report[tag], _profile_full_tick(
@@ -2368,7 +2390,9 @@ def slice_phase(dev, cases):
             prompts, dev))
     granite_profile()
     griffin_profile()
-    return total, report, tick_shapes_a, granite_ticks, griffin_ticks
+    rwkv_profile()
+    return (total, report, tick_shapes_a, granite_ticks, griffin_ticks,
+            rwkv_ticks)
 
 
 def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0, n_attn=None,
@@ -2389,7 +2413,7 @@ def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0, n_attn=None,
     med = entry["decode_tick_ms_median"]
     blocks = sorted({math.prod(gr) for gr in grids})
     n_attn = cfg.n_layers if n_attn is None else n_attn
-    check(len(grids) == n_attn and min(blocks) >= min_blocks,
+    check(len(grids) == n_attn and all(b >= min_blocks for b in blocks),
           f"({tag}) the profiled tick's kv_attention_rows launches: "
           f"{len(grids)} of {n_attn}, blocks {blocks}, fewer than "
           f"{min_blocks}")
@@ -2404,6 +2428,212 @@ def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0, n_attn=None,
           f"operations, device busy {busy:.2f} ms, idle "
           f"{1.0 - busy / med:.1%} of the median tick; kv_attention_rows "
           f"grids {sorted(set(grids))}", flush=True)
+
+
+def _kv_tick(H, KV, hd, W, kv_bits, n):
+    """One full tick's KV launches by shape: ``n`` attention layers, each
+    one ``kv_quantize_store`` and one ``kv_attention_rows`` over a ring of
+    ``W`` slots (float32 activations, 8 slots)."""
+    hdm = hd // 2 if kv_bits == 4 else hd
+    return {"kv_quantize_store": {(8, 1, KV, hd, W, hdm, kv_bits,
+                                   "float32"): n},
+            "kv_attention_rows": {(8, 1, H, KV, hd, W, hdm): n}}
+
+
+def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
+                  want, controls, logits_cut, *, max_len, long_prompt=0,
+                  unpacks_per_tick=lambda pl: 0, ring=None, n_attn=None,
+                  min_blocks=128, store_window=False):
+    """Serve one family through ``Engine`` as the qwen2 part serves it (8
+    slots, chunks of 16, 10 greedy requests of 16-256 prompt tokens and 32
+    new ones, and in configuration (a) one more of ``long_prompt`` tokens
+    if given), in each of ``configs`` ((tag, description, plan,
+    kv_bits)).  Checks: every request finishes with tokens in range; each
+    equals itself served alone by an engine of the same geometry over the
+    same packed tree (``generate()`` prefills a whole prompt at once);
+    one full tick's launches by shape equal ``want(plan, kv_bits)`` ({kernel
+    of ``SERVING``: {shape: launches}}), and a kernel is launched while
+    serving if and only if it is wanted; no ``kv_quantize_rows`` launch;
+    ``unpacks_per_tick(plan)`` ``unpack_nibbles`` calls in the full tick
+    (none at all while serving if that is 0); card vs CPU logits on
+    ``logits_cut(packed params, packed qstate)`` (its params, qstate and
+    config) within the dense limits, which every one of ``controls``
+    exceeds.  ``ring``: the KV ring's slots, checked; ``store_window``:
+    whether the store's timed cases are windowed (``kv_store_case``);
+    ``n_attn``, ``min_blocks``: the profiled tick's attention launches
+    (``_read_profiled_tick``).  Returns (launch counts, report,
+    configuration (a)'s full tick by shape, a function that profiles one
+    full tick of each configuration, to be called after every timed
+    run)."""
+    from repro_torch.serving import (Engine, Request, kv_bytes_per_token,
+                                     packed_nbytes)
+    from repro_torch.serving.packed import pack_for_serving
+
+    rng = np.random.default_rng(SEED)
+    lens = [16, 256] + [int(n) for n in rng.integers(16, 257, 8)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
+    extra = [[int(t) for t in rng.integers(0, cfg.vocab, long_prompt)]] \
+        if long_prompt else []
+    max_new = 32
+    n_kv = cfg.n_layers if n_attn is None else n_attn
+    t_part = time.perf_counter()
+    total = {k: 0 for k in SERVING}
+    report, tick_shapes_a = {}, None
+    for tag, desc, pl, kv_bits in configs:
+        wanted = want(pl, kv_bits)
+        want_unpacks = unpacks_per_tick(pl)
+        tprompts = prompts + (extra if tag == "a" else [])
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(model, params, qstate, cfg, batch_slots=8,
+                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
+                     kv_bits=kv_bits, seed=SEED, device=dev)
+        if ring is not None:
+            check(eng.caches.k.shape[2] == ring, f"({name} {tag}) a ring of "
+                                                 f"{eng.caches.k.shape[2]} "
+                                                 f"slots, not {ring}")
+        reqs = [Request(prompt=list(pr), max_new=max_new) for pr in tprompts]
+        torch.cuda.synchronize()
+        unpacks = [0]
+        _reset_counts()                       # the main path starts here
+        t0 = time.perf_counter()
+        with _counting_unpacks(unpacks):
+            tick_ms, tick_shapes, tick_unpacks = _serve(eng, reqs, unpacks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(SERVING)             # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        nbytes = packed_nbytes(eng.p)
+        cache_bytes = sum(c.numel() * c.element_size() for c in eng.caches
+                          if c is not None)
+        del eng
+        for k in total:
+            total[k] += counts[k]
+        check(all((counts[k] > 0) == bool(wanted[k]) for k in SERVING),
+              f"({name} {tag}) launches while serving: {counts}, want "
+              f"{sorted(k for k in SERVING if wanted[k])} and no other")
+        check(tick_shapes is not None,
+              f"({name} {tag}) no tick had every slot busy")
+        per_tick = {k: sum(c.values()) for k, c in tick_shapes.items()}
+        rows_launches = _counts(("kv_quantize_rows",))["kv_quantize_rows"]
+        check(all(dict(tick_shapes[k]) == wanted[k] for k in SERVING)
+              and rows_launches == 0,
+              f"({name} {tag}) one full tick's launches by shape: "
+              f"{ {k: dict(c) for k, c in tick_shapes.items()} }, want "
+              f"{wanted}, {rows_launches} kv_quantize_rows launches while "
+              f"serving")
+        check(tick_unpacks == want_unpacks
+              and (want_unpacks > 0 or unpacks[0] == 0),
+              f"({name} {tag}) {tick_unpacks} unpack_nibbles calls in a "
+              f"full tick (want {want_unpacks}), {unpacks[0]} while serving")
+        if tag == "a":
+            tick_shapes_a = tick_shapes
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 8)
+        for key in tick_shapes["kv_quantize_store"]:
+            if key not in cases["kv_quantize_store"]:
+                cases["kv_quantize_store"][key] = kv_store_case(
+                    key, store_window, dev, g)
+        check(all(r.done and len(r.out) == max_new for r in reqs),
+              f"({name} {tag}) not every request finished")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+              f"({name} {tag}) token out of range")
+        # each request alone, on an engine of the same geometry over the
+        # same packed tree
+        pp, qq = pack_for_serving(params, qstate, pl)
+        t0 = time.perf_counter()
+        apart = []
+        for i, pr in enumerate(tprompts):
+            one = Request(prompt=list(pr), max_new=max_new)
+            Engine(model, pp, qq, cfg, batch_slots=8, max_len=max_len,
+                   prefill_chunk=16, kv_bits=kv_bits, seed=SEED,
+                   device=dev).run([one])
+            if one.out != reqs[i].out:
+                apart.append(i)
+        alone_s = time.perf_counter() - t0
+        check(not apart, f"({name} {tag}) requests {apart} served alone "
+                         f"give other tokens than in the batch")
+        t0 = time.perf_counter()
+        pc, qc, cfg_cut = logits_cut(pp, qq)
+        logits = _logits_vs_plain(pc, qc, cfg_cut, kv_bits, dev, controls,
+                                  model=model)
+        logits_s = time.perf_counter() - t0
+        del pp, qq, pc, qc
+        full, cont = logits["full"], logits["continuous"]
+        print(f"[{name}] ({tag}) card vs CPU logits at {cfg_cut.n_layers} "
+              f"layers: {json.dumps(logits)} (limits: full "
+              f"{LOGITS_REL_GROSS}, continuous {LOGITS_REL_LIMIT})",
+              flush=True)
+        check(full["rel_l2"] <= LOGITS_REL_GROSS,
+              f"({name} {tag}) card vs CPU logits rel L2 {full['rel_l2']}")
+        check(cont["rel_l2"] <= LOGITS_REL_LIMIT
+              and cont["argmax_agree"] == 1.0,
+              f"({name} {tag}) card vs CPU logits without activation "
+              f"quantizers: {cont}")
+        check(all(c > LOGITS_REL_LIMIT for c in cont["controls"].values()),
+              f"({name} {tag}) the logits check misses a control: {cont}")
+        toks = sum(len(r.out) for r in reqs)
+        med = float(np.median(tick_ms))
+        plens = [len(pr) for pr in tprompts]
+        report[tag] = {
+            "config": desc, "requests": len(reqs),
+            "prompt_tokens": sum(plens), "new_tokens": toks,
+            "decode_tick_ms_median": med, "ticks": len(tick_ms),
+            "tokens_per_s": toks / wall, "wall_s": wall,
+            "peak_mem_gib": peak, "packed_weight_bytes": nbytes,
+            "cache_bytes": cache_bytes, "launches": counts,
+            "launches_per_full_tick": per_tick,
+            "unpack_nibbles_per_full_tick": tick_unpacks,
+            "alone_runs_s": alone_s, "logits_s": logits_s,
+            "logits_vs_cpu": logits}
+        if n_kv:
+            report[tag]["kv_bytes_per_token"] = kv_bytes_per_token(
+                cfg.n_kv, cfg.hd, n_kv, kv_bits)
+        print(f"[{name}] ({tag}) {desc}: {len(reqs)} requests, prompts "
+              f"{min(plens)}-{max(plens)} tokens, {toks} new tokens in "
+              f"{wall:.2f} s = {toks / wall:.1f} tok/s; decode tick median "
+              f"{med:.2f} ms over {len(tick_ms)} ticks; peak memory "
+              f"{peak:.2f} GiB; packed weights {nbytes / 1e6:.1f} MB; "
+              f"caches {cache_bytes / 1e6:.1f} MB; launches {counts}; per "
+              f"full tick {per_tick}, {tick_unpacks} unpack_nibbles calls; "
+              f"every request equal alone ({alone_s:.1f} s); card vs CPU "
+              f"in {logits_s:.1f} s", flush=True)
+
+    part_s = time.perf_counter() - t_part
+    report["part_s"] = part_s
+    print(f"[{name}] served, checked alone and against the CPU in "
+          f"{part_s:.1f} s", flush=True)
+
+    def profile():
+        t0 = time.perf_counter()
+        for tag, desc, pl, kv_bits in configs:
+            unpacks, by_name = [0], {}
+            with _counting_unpacks(unpacks):
+                profiled = _profile_full_tick(
+                    Engine, Request, model, params, qstate, cfg, pl, kv_bits,
+                    prompts, dev, unpacks=unpacks, device_ms=by_name,
+                    max_len=max_len)
+            _read_profiled_tick(f"{name} {tag}", cfg, report[tag], profiled,
+                                unpacks=unpacks[0], n_attn=n_attn,
+                                min_blocks=min_blocks)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+            report[tag]["profiled_full_tick"]["top_device_ms"] = top
+            print(f"[{name}] ({tag}) the profiled tick's device ms by "
+                  f"operation: " + "; ".join(f"{n[:60]} {ms:.3f}"
+                                             for n, ms in top), flush=True)
+        print(f"[{name}] profiled in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    return total, report, tick_shapes_a, profile
+
+
+def _first_layers(pp, qq, cfg, key, n, n_layers):
+    """A ``logits_cut`` of ``_serve_family``: the first ``n`` entries of
+    the stacked subtree ``key`` of the packed tree (``pp``, ``qq``), and
+    ``cfg`` at ``n_layers`` layers."""
+    from repro_torch.tree import tree_map
+    return ({**pp, key: tree_map(lambda a: a[:n], pp[key])},
+            {**qq, key: tree_map(lambda a: a[:n], qq[key])},
+            dataclasses.replace(cfg, n_layers=n_layers))
 
 
 # Card logits against the CPU at granite's full width and this many of its
@@ -2421,30 +2651,18 @@ GRANITE_EXPERTS = ("layers/moe/gate", "layers/moe/up", "layers/moe/down")
 def granite_serving(dev, cases):
     """granite-moe-3b-a800m at its published widths and
     ``GRANITE_SERVE_LAYERS`` of its 32 layers (random weights from the
-    seed) served through ``Engine`` as the qwen2 part serves it (8 slots, a 1024-slot
-    ring, chunks of 16, 10 greedy requests of 16-256 prompt tokens and 32
-    new ones) in two configurations: (a) packed uniform int8, ``kv_bits``
-    8; (b) a plan with the expert stacks in nibbles (4 bits), the rest
-    int8, ``kv_bits`` 4.  Checks: every request finishes; its tokens
-    equal those of the request served alone by an engine of the same
-    geometry (``generate()`` prefills a whole prompt at once, so its
-    capacity and its drops differ); card vs CPU logits at
-    ``GRANITE_LOGITS_LAYERS`` layers within the dense limits, which both
-    MoE controls exceed; one full tick's launches by shape, exact (5 a
-    layer and 1 ``qmatmul``: q, k, v, o and the router, and the head; one
-    ``kv_quantize_store`` and one ``kv_attention_rows`` a layer), and its
-    ``unpack_nibbles`` calls (the three expert stacks a layer in (b), none
-    in (a): no ``qmatmul`` weight is unpacked).  Returns (launch counts,
-    report, configuration (a)'s full tick by shape, a function that
-    profiles one full tick of each configuration, to be called after
-    every timed run)."""
+    seed) through ``_serve_family``, a 1024-slot ring, in two
+    configurations: (a) packed uniform int8, ``kv_bits`` 8; (b) a plan
+    with the expert stacks in nibbles (4 bits), the rest int8, ``kv_bits``
+    4.  One full tick: 5 ``qmatmul`` a layer (q, k, v, o and the router)
+    and the head, one ``kv_quantize_store`` and one ``kv_attention_rows``
+    a layer, and the three expert stacks' ``unpack_nibbles`` calls a
+    layer in (b), none in (a) (no ``qmatmul`` weight is unpacked).  Card
+    vs CPU at ``GRANITE_LOGITS_LAYERS`` layers, against the two MoE
+    controls."""
     from repro_torch.configs import get
     from repro_torch.core.plan import LayerPlan, PrecisionPlan
     from repro_torch.models import TransformerLM, model_for
-    from repro_torch.serving import (Engine, Request, kv_bytes_per_token,
-                                     packed_nbytes)
-    from repro_torch.serving.packed import pack_for_serving
-    from repro_torch.tree import tree_map
 
     G = GRANITE
     cfg = get("granite-moe-3b-a800m")
@@ -2465,150 +2683,25 @@ def granite_serving(dev, cases):
           f"{cfg.n_params() / 1e9:.2f} B parameters", flush=True)
     plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
                                  for k in GRANITE_EXPERTS})
-    rng = np.random.default_rng(SEED)
-    lens = [16, 256] + [int(n) for n in rng.integers(16, 257, 8)]
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
-    max_new, max_len, L = 32, 1024, cfg.n_layers
-    t_part = time.perf_counter()
-    configs = (("a", "packed uniform int8, kv_bits 8", None, 8),
-               ("b", "packed plan: layers/moe/{gate,up,down} in nibbles (4 "
-                     "bits), the rest int8; kv_bits 4", plan, 4))
-    want_qmatmul = {(8, G["d"], G["d"], 8): 2 * L,            # q, o
-                    (8, G["d"], G["KV"] * G["hd"], 8): 2 * L,  # k, v
-                    (8, G["d"], G["E"], 8): L,                 # the router
-                    (8, G["d"], G["V"], 8): 1}                 # the head
-    total = {k: 0 for k in SERVING}
-    report, tick_shapes_a = {}, None
-    for tag, desc, pl, kv_bits in configs:
-        torch.cuda.reset_peak_memory_stats()
-        eng = Engine(TransformerLM, params, qstate, cfg, batch_slots=8,
-                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
-                     kv_bits=kv_bits, seed=SEED, device=dev)
-        reqs = [Request(prompt=list(pr), max_new=max_new) for pr in prompts]
-        torch.cuda.synchronize()
-        unpacks = [0]
-        _reset_counts()                       # the main path starts here
-        t0 = time.perf_counter()
-        with _counting_unpacks(unpacks):
-            tick_ms, tick_shapes, tick_unpacks = _serve(eng, reqs, unpacks)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _counts(SERVING)             # ... and ends here
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        nbytes = packed_nbytes(eng.p)
-        del eng
-        for k in total:
-            total[k] += counts[k]
-        check(all(c > 0 for c in counts.values()),
-              f"(granite {tag}) a kernel was never launched: {counts}")
-        check(tick_shapes is not None,
-              f"(granite {tag}) no tick had every slot busy")
-        per_tick = {k: sum(c.values()) for k, c in tick_shapes.items()}
-        store, attn = tick_shapes["kv_quantize_store"], \
-            tick_shapes["kv_attention_rows"]
-        rows_launches = _counts(("kv_quantize_rows",))["kv_quantize_rows"]
-        check(dict(tick_shapes["qmatmul"]) == want_qmatmul
-              and sum(store.values()) == L and len(store) == 1
-              and dict(attn) == {(8, 1, G["H"], G["KV"], G["hd"], max_len,
-                                  G["hd"] // 2 if kv_bits == 4 else G["hd"]):
-                                 L}
-              and rows_launches == 0,
-              f"(granite {tag}) one full tick's launches by shape: "
-              f"{ {k: dict(c) for k, c in tick_shapes.items()} }, "
-              f"{rows_launches} kv_quantize_rows launches while serving")
-        check(tick_unpacks == (3 * L if pl is not None else 0),
-              f"(granite {tag}) {tick_unpacks} unpack_nibbles calls in a "
-              f"full tick")
-        if tag == "a":
-            tick_shapes_a = tick_shapes
-        g = torch.Generator(device=dev)
-        g.manual_seed(SEED + 8)
-        for key in store:
-            if key not in cases["kv_quantize_store"]:
-                cases["kv_quantize_store"][key] = kv_store_case(
-                    key, False, dev, g)
-        check(all(r.done and len(r.out) == max_new for r in reqs),
-              f"(granite {tag}) not every request finished")
-        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-              f"(granite {tag}) token out of range")
-        # each request alone, on an engine of the same geometry over the
-        # same packed tree
-        pp, qq = pack_for_serving(params, qstate, pl)
-        t0 = time.perf_counter()
-        apart = []
-        for i, pr in enumerate(prompts):
-            one = Request(prompt=list(pr), max_new=max_new)
-            Engine(TransformerLM, pp, qq, cfg, batch_slots=8,
-                   max_len=max_len, prefill_chunk=16, kv_bits=kv_bits,
-                   seed=SEED, device=dev).run([one])
-            if one.out != reqs[i].out:
-                apart.append(i)
-        alone_s = time.perf_counter() - t0
-        check(not apart, f"(granite {tag}) requests {apart} served alone "
-                         f"give other tokens than in the batch")
-        cut = GRANITE_LOGITS_LAYERS
-        logits = _logits_vs_plain(
-            {**pp, "layers": tree_map(lambda a: a[:cut], pp["layers"])},
-            {**qq, "layers": tree_map(lambda a: a[:cut], qq["layers"])},
-            dataclasses.replace(cfg, n_layers=cut), kv_bits, dev,
-            _moe_controls)
-        del pp, qq
-        full, cont = logits["full"], logits["continuous"]
-        print(f"[granite] ({tag}) card vs CPU logits at {cut} layers: "
-              f"{json.dumps(logits)} (limits: full {LOGITS_REL_GROSS}, "
-              f"continuous {LOGITS_REL_LIMIT})", flush=True)
-        check(full["rel_l2"] <= LOGITS_REL_GROSS,
-              f"(granite {tag}) card vs CPU logits rel L2 {full['rel_l2']}")
-        check(cont["rel_l2"] <= LOGITS_REL_LIMIT
-              and cont["argmax_agree"] == 1.0,
-              f"(granite {tag}) card vs CPU logits without activation "
-              f"quantizers: {cont}")
-        check(all(c > LOGITS_REL_LIMIT for c in cont["controls"].values()),
-              f"(granite {tag}) the logits check misses a control: {cont}")
-        toks = sum(len(r.out) for r in reqs)
-        med = float(np.median(tick_ms))
-        report[tag] = {
-            "config": desc, "requests": len(reqs),
-            "prompt_tokens": sum(lens), "new_tokens": toks,
-            "decode_tick_ms_median": med, "ticks": len(tick_ms),
-            "tokens_per_s": toks / wall, "wall_s": wall,
-            "peak_mem_gib": peak, "packed_weight_bytes": nbytes,
-            "kv_bytes_per_token": kv_bytes_per_token(cfg.n_kv, cfg.hd, L,
-                                                     kv_bits),
-            "launches": counts, "launches_per_full_tick": per_tick,
-            "unpack_nibbles_per_full_tick": tick_unpacks,
-            "alone_runs_s": alone_s, "logits_vs_cpu": logits}
-        print(f"[granite] ({tag}) {desc}: {len(reqs)} requests, prompts "
-              f"{min(lens)}-{max(lens)} tokens, {toks} new tokens in "
-              f"{wall:.2f} s = {toks / wall:.1f} tok/s; decode tick median "
-              f"{med:.2f} ms over {len(tick_ms)} ticks; peak memory "
-              f"{peak:.2f} GiB; packed weights {nbytes / 1e6:.1f} MB; "
-              f"launches {counts}; per full tick {per_tick}, "
-              f"{tick_unpacks} unpack_nibbles calls; every request equal "
-              f"alone ({alone_s:.1f} s)", flush=True)
+    L, max_len, d = cfg.n_layers, 1024, G["d"]
 
-    print(f"[granite] served, checked alone and against the CPU in "
-          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+    def want(pl, kv_bits):
+        return {"qmatmul": {(8, d, d, 8): 2 * L,                 # q, o
+                            (8, d, G["KV"] * G["hd"], 8): 2 * L,  # k, v
+                            (8, d, G["E"], 8): L,                 # router
+                            (8, d, G["V"], 8): 1},                # the head
+                **_kv_tick(G["H"], G["KV"], G["hd"], max_len, kv_bits, L)}
 
-    def profile():
-        t0 = time.perf_counter()
-        for tag, desc, pl, kv_bits in configs:
-            unpacks, by_name = [0], {}
-            with _counting_unpacks(unpacks):
-                profiled = _profile_full_tick(
-                    Engine, Request, TransformerLM, params, qstate, cfg, pl,
-                    kv_bits, prompts, dev, unpacks=unpacks, device_ms=by_name)
-            _read_profiled_tick(f"granite {tag}", cfg, report[tag], profiled,
-                                unpacks=unpacks[0])
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
-            report[tag]["profiled_full_tick"]["top_device_ms"] = top
-            print(f"[granite] ({tag}) the profiled tick's device ms by "
-                  f"operation: " + "; ".join(f"{n[:60]} {ms:.3f}"
-                                             for n, ms in top), flush=True)
-        print(f"[granite] profiled in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-
-    return total, report, tick_shapes_a, profile
+    cut = GRANITE_LOGITS_LAYERS
+    return _serve_family(
+        "granite", TransformerLM, params, qstate, cfg, dev, cases,
+        (("a", "packed uniform int8, kv_bits 8", None, 8),
+         ("b", "packed plan: layers/moe/{gate,up,down} in nibbles (4 bits), "
+               "the rest int8; kv_bits 4", plan, 4)),
+        want, _moe_controls,
+        lambda pp, qq: _first_layers(pp, qq, cfg, "layers", cut, cut),
+        max_len=max_len, unpacks_per_tick=lambda pl: 0 if pl is None
+        else 3 * L)
 
 
 # Card logits against the CPU at recurrentgemma-2b's full width and 5 of its
@@ -2621,6 +2714,11 @@ GRIFFIN_MLP = ("units/rec1/mlp", "units/rec2/mlp", "units/att/mlp",
 # so that its decode reads a ring that has wrapped past the window
 GRIFFIN_LONG_PROMPT = 2100
 GRIFFIN_MAX_LEN = 4096
+# recurrentgemma-2b is served at this many of its 8 (rec, rec, att) units
+# and its 2 remainder layers (8 of 26 layers), at its published widths
+# (earlier runs held all 26, PERF.md §4): the cut pays for the RWKV part
+# within the script's time; its tallies scale with the layers
+GRIFFIN_SERVE_UNITS = 2
 
 
 def _griffin_controls(pc):
@@ -2638,29 +2736,20 @@ def _griffin_controls(pc):
 
 
 def griffin_serving(dev, cases):
-    """recurrentgemma-2b FULL (random weights from the seed) served through
-    ``Engine``: 8 slots, ``max_len`` 4096 (a ring of window + chunk = 2064
-    slots), chunks of 16, granite's traffic (10 greedy requests of 16-256
-    prompt tokens and 32 new ones) in two configurations: (a) packed
-    uniform int8, ``kv_bits`` 8, and one more request of a 2100-token
-    prompt, whose decode reads a ring wrapped past the window; (b) every
-    MLP kernel in nibbles, the rest int8, ``kv_bits`` 4 (a nibble ring at
-    hd 256).  Checks: every request finishes; its tokens equal those of
-    the request served alone by an engine of the same geometry; card vs CPU
-    logits at 5 layers within the dense limits, which both Griffin
-    controls exceed; one full tick's launches by shape, exact (201
-    ``qmatmul``, 8 ``kv_quantize_store`` and 8 ``kv_attention_rows`` at hd
-    256), and no ``unpack_nibbles`` call.  Returns (launch counts, report,
-    configuration (a)'s full tick by shape, a function that profiles one
-    full tick of each configuration, to be called after every timed
-    run)."""
+    """recurrentgemma-2b at its published widths and
+    ``GRIFFIN_SERVE_UNITS`` of its units with its 2 remainder layers
+    (random weights from the seed) through ``_serve_family``, ``max_len``
+    4096 (a ring of window + chunk = 2064 slots), in two configurations:
+    (a) packed uniform int8, ``kv_bits`` 8, and one more request of a
+    2100-token prompt, whose decode reads a ring wrapped past the window;
+    (b) every MLP kernel in nibbles, the rest int8, ``kv_bits`` 4 (a
+    nibble ring at hd 256).  One full tick at 2 units: 63 ``qmatmul``, 2
+    ``kv_quantize_store`` and 2 ``kv_attention_rows`` at hd 256, and no
+    ``unpack_nibbles`` call.  Card vs CPU at 5 layers, against the two
+    Griffin controls."""
     from repro_torch.configs import get
     from repro_torch.core.plan import LayerPlan, PrecisionPlan
     from repro_torch.models import GriffinLM, model_for
-    from repro_torch.serving import (Engine, Request, kv_bytes_per_token,
-                                     packed_nbytes)
-    from repro_torch.serving.packed import pack_for_serving
-    from repro_torch.tree import tree_map
 
     Gf = GRIFFIN
     cfg = get("recurrentgemma-2b")
@@ -2669,177 +2758,171 @@ def griffin_serving(dev, cases):
                cfg.d_ff, cfg.vocab, cfg.window)
           == tuple(Gf[k] for k in ("L", "d", "H", "KV", "hd", "ff", "V",
                                    "window")), "not recurrentgemma-2b")
+    units = GRIFFIN_SERVE_UNITS
+    cfg = dataclasses.replace(cfg, n_layers=3 * units + Gf["rem"])
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
     params, qstate = GriffinLM.init(gen, cfg, device=dev)
     torch.cuda.synchronize()
-    print(f"[griffin] recurrentgemma-2b FULL init on the card: "
+    print(f"[griffin] recurrentgemma-2b init on the card at {units} of its "
+          f"{Gf['units']} units and its {Gf['rem']} remainder layers "
+          f"({cfg.n_layers} of {Gf['L']} layers): "
           f"{time.perf_counter() - t0:.2f} s, "
           f"{cfg.n_params() / 1e9:.2f} B parameters", flush=True)
     plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
                                  for k in GRIFFIN_MLP})
-    rng = np.random.default_rng(SEED)
-    lens = [16, 256] + [int(n) for n in rng.integers(16, 257, 8)]
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
-    long_prompt = [int(t) for t in rng.integers(0, cfg.vocab,
-                                                GRIFFIN_LONG_PROMPT)]
-    max_new, max_len, W = 32, GRIFFIN_MAX_LEN, Gf["W"]
-    t_part = time.perf_counter()
-    configs = (("a", "packed uniform int8, kv_bits 8, and one request of a "
-                     f"{GRIFFIN_LONG_PROMPT}-token prompt", None, 8),
-               ("b", "packed plan: every MLP kernel in nibbles (4 bits), the "
-                     "rest int8; kv_bits 4", plan, 4))
-    n_rec, n_att = 2 * Gf["units"] + Gf["rem"], Gf["units"]
+    n_rec, n_att = 2 * units + Gf["rem"], units
     hd, d, ff = Gf["hd"], Gf["d"], Gf["ff"]
-    total = {k: 0 for k in SERVING}
-    report, tick_shapes_a = {}, None
-    for tag, desc, pl, kv_bits in configs:
+
+    def want(pl, kv_bits):
         mlp_bits = 8 if pl is None else 4
-        want = {"qmatmul": {(8, d, d, 8): 5 * n_rec + 2 * n_att,
+        return {"qmatmul": {(8, d, d, 8): 5 * n_rec + 2 * n_att,
                             (8, d, Gf["KV"] * hd, 8): 2 * n_att,
-                            (8, d, ff, mlp_bits): 2 * Gf["L"],
-                            (8, ff, d, mlp_bits): Gf["L"],
+                            (8, d, ff, mlp_bits): 2 * cfg.n_layers,
+                            (8, ff, d, mlp_bits): cfg.n_layers,
                             (8, d, Gf["V"], 8): 1},
-                "kv_quantize_store": {(8, 1, Gf["KV"], hd, W,
-                                       hd // 2 if kv_bits == 4 else hd,
-                                       kv_bits, "float32"): n_att},
-                "kv_attention_rows": {(8, 1, Gf["H"], Gf["KV"], hd, W,
-                                       hd // 2 if kv_bits == 4 else hd):
-                                      n_att}}
-        tprompts = prompts + ([long_prompt] if tag == "a" else [])
-        torch.cuda.reset_peak_memory_stats()
-        eng = Engine(GriffinLM, params, qstate, cfg, batch_slots=8,
-                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
-                     kv_bits=kv_bits, seed=SEED, device=dev)
-        check(eng.caches.k.shape[2] == W, f"(griffin {tag}) a ring of "
-                                          f"{eng.caches.k.shape[2]} slots")
-        reqs = [Request(prompt=list(pr), max_new=max_new) for pr in tprompts]
-        torch.cuda.synchronize()
-        unpacks = [0]
-        _reset_counts()                       # the main path starts here
-        t0 = time.perf_counter()
-        with _counting_unpacks(unpacks):
-            tick_ms, tick_shapes, tick_unpacks = _serve(eng, reqs, unpacks)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _counts(SERVING)             # ... and ends here
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        nbytes = packed_nbytes(eng.p)
-        del eng
-        for k in total:
-            total[k] += counts[k]
-        check(all(c > 0 for c in counts.values()),
-              f"(griffin {tag}) a kernel was never launched: {counts}")
-        check(tick_shapes is not None,
-              f"(griffin {tag}) no tick had every slot busy")
-        per_tick = {k: sum(c.values()) for k, c in tick_shapes.items()}
-        rows_launches = _counts(("kv_quantize_rows",))["kv_quantize_rows"]
-        check(all(dict(tick_shapes[k]) == want[k] for k in SERVING)
-              and rows_launches == 0,
-              f"(griffin {tag}) one full tick's launches by shape: "
-              f"{ {k: dict(c) for k, c in tick_shapes.items()} }, want "
-              f"{want}, {rows_launches} kv_quantize_rows launches while "
-              f"serving")
-        check(tick_unpacks == 0 and unpacks[0] == 0,
-              f"(griffin {tag}) {tick_unpacks} unpack_nibbles calls in a "
-              f"full tick, {unpacks[0]} while serving")
-        if tag == "a":
-            tick_shapes_a = tick_shapes
-        g = torch.Generator(device=dev)
-        g.manual_seed(SEED + 8)
-        for key in tick_shapes["kv_quantize_store"]:
-            if key not in cases["kv_quantize_store"]:
-                cases["kv_quantize_store"][key] = kv_store_case(
-                    key, True, dev, g)
-        check(all(r.done and len(r.out) == max_new for r in reqs),
-              f"(griffin {tag}) not every request finished")
-        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-              f"(griffin {tag}) token out of range")
-        # each request alone, on an engine of the same geometry over the
-        # same packed tree (generate() sizes its ring from the prompt)
-        pp, qq = pack_for_serving(params, qstate, pl)
-        t0 = time.perf_counter()
-        apart = []
-        for i, pr in enumerate(tprompts):
-            one = Request(prompt=list(pr), max_new=max_new)
-            Engine(GriffinLM, pp, qq, cfg, batch_slots=8, max_len=max_len,
-                   prefill_chunk=16, kv_bits=kv_bits, seed=SEED,
-                   device=dev).run([one])
-            if one.out != reqs[i].out:
-                apart.append(i)
-        alone_s = time.perf_counter() - t0
-        check(not apart, f"(griffin {tag}) requests {apart} served alone "
-                         f"give other tokens than in the batch")
-        cut = GRIFFIN_LOGITS_UNITS
-        t0 = time.perf_counter()
-        logits = _logits_vs_plain(
-            {**pp, "units": tree_map(lambda a: a[:cut], pp["units"])},
-            {**qq, "units": tree_map(lambda a: a[:cut], qq["units"])},
-            dataclasses.replace(cfg, n_layers=3 * cut + Gf["rem"]), kv_bits,
-            dev, _griffin_controls, model=GriffinLM)
-        logits_s = time.perf_counter() - t0
-        del pp, qq
-        full, cont = logits["full"], logits["continuous"]
-        print(f"[griffin] ({tag}) card vs CPU logits at "
-              f"{3 * cut + Gf['rem']} layers: {json.dumps(logits)} (limits: "
-              f"full {LOGITS_REL_GROSS}, continuous {LOGITS_REL_LIMIT})",
-              flush=True)
-        check(full["rel_l2"] <= LOGITS_REL_GROSS,
-              f"(griffin {tag}) card vs CPU logits rel L2 {full['rel_l2']}")
-        check(cont["rel_l2"] <= LOGITS_REL_LIMIT
-              and cont["argmax_agree"] == 1.0,
-              f"(griffin {tag}) card vs CPU logits without activation "
-              f"quantizers: {cont}")
-        check(all(c > LOGITS_REL_LIMIT for c in cont["controls"].values()),
-              f"(griffin {tag}) the logits check misses a control: {cont}")
-        toks = sum(len(r.out) for r in reqs)
-        med = float(np.median(tick_ms))
-        plens = [len(pr) for pr in tprompts]
-        report[tag] = {
-            "config": desc, "requests": len(reqs),
-            "prompt_tokens": sum(plens), "new_tokens": toks,
-            "decode_tick_ms_median": med, "ticks": len(tick_ms),
-            "tokens_per_s": toks / wall, "wall_s": wall,
-            "peak_mem_gib": peak, "packed_weight_bytes": nbytes,
-            "kv_bytes_per_token": kv_bytes_per_token(cfg.n_kv, hd, n_att,
-                                                     kv_bits),
-            "launches": counts, "launches_per_full_tick": per_tick,
-            "alone_runs_s": alone_s, "logits_s": logits_s,
-            "logits_vs_cpu": logits}
-        print(f"[griffin] ({tag}) {desc}: {len(reqs)} requests, prompts "
-              f"{min(plens)}-{max(plens)} tokens, {toks} new tokens in "
-              f"{wall:.2f} s = {toks / wall:.1f} tok/s; decode tick median "
-              f"{med:.2f} ms over {len(tick_ms)} ticks; peak memory "
-              f"{peak:.2f} GiB; packed weights {nbytes / 1e6:.1f} MB; "
-              f"launches {counts}; per full tick {per_tick}; every request "
-              f"equal alone ({alone_s:.1f} s); card vs CPU in "
-              f"{logits_s:.1f} s", flush=True)
+                **_kv_tick(Gf["H"], Gf["KV"], hd, Gf["W"], kv_bits, n_att)}
 
-    part_s = time.perf_counter() - t_part
-    report["part_s"] = part_s
-    print(f"[griffin] served, checked alone and against the CPU in "
-          f"{part_s:.1f} s", flush=True)
+    cut = GRIFFIN_LOGITS_UNITS
+    return _serve_family(
+        "griffin", GriffinLM, params, qstate, cfg, dev, cases,
+        (("a", "packed uniform int8, kv_bits 8, and one request of a "
+               f"{GRIFFIN_LONG_PROMPT}-token prompt", None, 8),
+         ("b", "packed plan: every MLP kernel in nibbles (4 bits), the rest "
+               "int8; kv_bits 4", plan, 4)),
+        want, _griffin_controls,
+        lambda pp, qq: _first_layers(pp, qq, cfg, "units", cut,
+                                     3 * cut + Gf["rem"]),
+        max_len=GRIFFIN_MAX_LEN, long_prompt=GRIFFIN_LONG_PROMPT,
+        ring=Gf["W"], n_attn=n_att, store_window=True,
+        # one cluster of 8 blocks a batch row: B = 8 rows of KV = 1
+        min_blocks=64)
 
-    def profile():
-        t0 = time.perf_counter()
-        for tag, desc, pl, kv_bits in configs:
-            by_name = {}
-            profiled = _profile_full_tick(
-                Engine, Request, GriffinLM, params, qstate, cfg, pl, kv_bits,
-                prompts, dev, device_ms=by_name, max_len=max_len)
-            # one cluster of 8 blocks a batch row: B = 8 rows of KV = 1
-            _read_profiled_tick(f"griffin {tag}", cfg, report[tag], profiled,
-                                n_attn=n_att, min_blocks=64)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
-            report[tag]["profiled_full_tick"]["top_device_ms"] = top
-            print(f"[griffin] ({tag}) the profiled tick's device ms by "
-                  f"operation: " + "; ".join(f"{n[:60]} {ms:.3f}"
-                                             for n, ms in top), flush=True)
-        print(f"[griffin] profiled in {time.perf_counter() - t0:.1f} s",
-              flush=True)
 
-    return total, report, tick_shapes_a, profile
+# Card logits against the CPU at rwkv6-1.6b's full width and this many of its
+# layers (the first ones of the served tree), within the dense limits, which
+# three RWKV faults (``_rwkv_controls``) exceed.
+RWKV_LOGITS_LAYERS = 4
+RWKV_FFN = ("layers/ffn",)
+# configuration (a)'s extra request: 64 prefill chunks of state carried
+# through one slot
+RWKV_LONG_PROMPT = 1024
+RWKV_MAX_LEN = 2048
+
+
+def rwkv_constants(params, gen):
+    """Redraw in place the leaves the reference's init leaves constant
+    (``mu`` 0.5, ``bonus_u`` 0, ``decay_w0`` -4, ``ln_scale`` 1), which
+    would hide a swapped row or a missing term: ``mu`` in [0, 1],
+    ``bonus_u`` ~ N(0, 0.5), ``decay_w0`` in [-6, -1], ``ln_scale`` in
+    [0.5, 1.5], from ``gen``."""
+    att, ffn = params["layers"]["att"], params["layers"]["ffn"]
+    att["mu"].uniform_(0.0, 1.0, generator=gen)
+    ffn["mu"].uniform_(0.0, 1.0, generator=gen)
+    att["bonus_u"].normal_(0.0, 0.5, generator=gen)
+    att["decay_w0"].uniform_(-6.0, -1.0, generator=gen)
+    att["ln_scale"].uniform_(0.5, 1.5, generator=gen)
+
+
+@contextlib.contextmanager
+def _shift_from_residual():
+    """Control: each layer carries the last row of its residual stream (the
+    input of ``ln1``) as its time-mix token shift, not the last row of the
+    normed input the time mix read."""
+    import repro_torch.models.rwkv as rw
+    ln, tm = rw.LayerNorm, rw.RWKVTimeMix
+    seen = {}
+
+    class LayerNorm:
+        @staticmethod
+        def apply(p, q, x, **kw):
+            seen["x"] = x
+            return ln.apply(p, q, x, **kw)
+
+    class RWKVTimeMix:
+        @staticmethod
+        def apply(p, q, x, state, **kw):
+            out, nq, (_, wkv) = tm.apply(p, q, x, state, **kw)
+            return out, nq, (seen["x"][:, -1], wkv)
+
+    with _patched(rw, "LayerNorm", lambda real: LayerNorm), \
+            _patched(rw, "RWKVTimeMix", lambda real: RWKVTimeMix):
+        yield
+
+
+def _rwkv_controls(pc):
+    """The WKV state not carried from one call to the next (zeros); the
+    token shift taken from the residual stream; the per-head norm left
+    out."""
+    import repro_torch.nn.recurrent as rec
+    return {"wkv_state_not_carried": (
+                pc, lambda: _patched(rec, "_wkv_chunked",
+                                     lambda real: lambda r, k, v, w, u, s, c:
+                                     real(r, k, v, w, u, torch.zeros_like(s),
+                                          c))),
+            "token_shift_from_residual": (pc, _shift_from_residual),
+            "head_norm_left_out": (
+                pc, lambda: _patched(rec, "head_norm",
+                                     lambda real: lambda y: y))}
+
+
+def rwkv_serving(dev, cases):
+    """rwkv6-1.6b FULL (random weights from the seed, the constants of the
+    reference's init redrawn: ``rwkv_constants``) through
+    ``_serve_family``, ``max_len`` 2048, in two configurations: (a)
+    packed uniform int8 and one more request of a 1024-token prompt (64
+    chunks of state carried through one slot); (b) every channel-mix
+    kernel in nibbles, the rest int8 (``kv_bits`` None: the model holds no
+    KV).  One full tick: 193 ``qmatmul`` (144 of 2048 x 2048, 24 each way
+    between 2048 and 7168, the head), no ``kv_quantize_store`` or
+    ``kv_attention_rows`` launch and no ``unpack_nibbles`` call.  Card vs
+    CPU at ``RWKV_LOGITS_LAYERS`` layers, against the three RWKV
+    controls."""
+    from repro_torch.configs import get
+    from repro_torch.core.plan import LayerPlan, PrecisionPlan
+    from repro_torch.models import RWKVLM, model_for
+
+    R = RWKV
+    cfg = get("rwkv6-1.6b")
+    check(model_for(cfg) is RWKVLM
+          and (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab, cfg.norm)
+          == tuple(R[k] for k in ("L", "d", "ff", "V", "norm")),
+          "not rwkv6-1.6b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params, qstate = RWKVLM.init(gen, cfg, device=dev)
+    rwkv_constants(params, gen)
+    torch.cuda.synchronize()
+    print(f"[rwkv] rwkv6-1.6b FULL init on the card: "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{cfg.n_params() / 1e9:.3f} B parameters", flush=True)
+    plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
+                                 for k in RWKV_FFN})
+    L, d, ff, V = R["L"], R["d"], R["ff"], R["V"]
+
+    def want(pl, kv_bits):
+        fb = 8 if pl is None else 4
+        # time mix r, k, v, g, o and the channel mix's r; its k and v; the
+        # head (the decay LoRA is a float64 matmul, no qmatmul)
+        w = {(8, d, d, 8): 5 * L + (L if fb == 8 else 0),
+             (8, d, ff, fb): L, (8, ff, d, fb): L, (8, d, V, 8): 1}
+        if fb == 4:
+            w[8, d, d, 4] = L
+        return {"qmatmul": w, "kv_quantize_store": {},
+                "kv_attention_rows": {}}
+
+    cut = RWKV_LOGITS_LAYERS
+    return _serve_family(
+        "rwkv", RWKVLM, params, qstate, cfg, dev, cases,
+        (("a", "packed uniform int8, and one request of a "
+               f"{RWKV_LONG_PROMPT}-token prompt", None, None),
+         ("b", "packed plan: every channel-mix kernel (layers/ffn) in "
+               "nibbles (4 bits), the rest int8", plan, None)),
+        want, _rwkv_controls,
+        lambda pp, qq: _first_layers(pp, qq, cfg, "layers", cut, cut),
+        max_len=RWKV_MAX_LEN, long_prompt=RWKV_LONG_PROMPT, n_attn=0)
 
 
 # ---------------------------------------------------------------------------
@@ -4635,8 +4718,8 @@ def main(argv=None) -> int:
     launches = collections.Counter()
     slice_report = train_report = wire_report = None
     if args.phase in ("all", "serve"):
-        total, slice_report, tick_shapes, granite_ticks, griffin_ticks = \
-            slice_phase(dev, cases)
+        (total, slice_report, tick_shapes, granite_ticks, griffin_ticks,
+         rwkv_ticks) = slice_phase(dev, cases)
         launches.update(total)
         per = ("one full decode tick of serving configuration (a), calls by "
                "shape as counted on the main path")
@@ -4644,14 +4727,19 @@ def main(argv=None) -> int:
                        f"published widths and {GRANITE_SERVE_LAYERS} of its "
                        f"32 layers, configuration (a) (packed int8, kv_bits "
                        f"8), calls by shape as counted on the main path")
-        griffin_per = ("one full decode tick of recurrentgemma-2b FULL, "
-                       "configuration (a) (packed int8, kv_bits 8, the "
-                       "2064-slot ring), calls by shape as counted on the "
-                       "main path")
+        griffin_per = (f"one full decode tick of recurrentgemma-2b at its "
+                       f"published widths and {GRIFFIN_SERVE_UNITS} of its 8 "
+                       f"units with its 2 remainder layers, configuration "
+                       f"(a) (packed int8, kv_bits 8, the 2064-slot ring), "
+                       f"calls by shape as counted on the main path")
+        rwkv_per = ("one full decode tick of rwkv6-1.6b FULL, configuration "
+                    "(a) (packed int8; no KV cache, so qmatmul alone), calls "
+                    "by shape as counted on the main path")
         for k in SERVING:
             tallies[k].append((tick_shapes[k], per))
             tallies[k].append((granite_ticks[k], granite_per))
             tallies[k].append((griffin_ticks[k], griffin_per))
+        tallies["qmatmul"].append((rwkv_ticks["qmatmul"], rwkv_per))
         print(f"[time] serving phase done at {time.perf_counter() - t0:.1f} "
               f"s", flush=True)
     if args.phase in ("all", "train"):

@@ -26,6 +26,14 @@
 //   rounds.  Each term has its own accumulator; they are added lo + mid, then hi,
 //   at the end.  The plain version of the split is
 //   src/repro_torch/kernels/qmatmul/ref.py `bf16_split3`.
+// * Short tensor-core chains.  The mma's own fp32 accumulation does not round to
+//   nearest, and its error grows with the number of mma steps it chains: over a
+//   whole unsplit K (a wide head: K 2560 at N 256000, 160 steps) it came past
+//   chip_smoke.py's REL_ERR_LIMIT of (|x| @ |w|) * scale.  So each chunk's mma
+//   steps (4 for int8, 8 for nibbles) of the hi term accumulate from zero, and
+//   the chunk's sums are added into its running sums with round-to-nearest fp32
+//   adds, in k order.  The mid and lo terms, 2^-8 and 2^-16 of hi, chain in the
+//   tensor cores: their error is that much smaller.
 // * Mantissas are widened in registers without I2F.  A nibble is xor-biased to
 //   0..15, placed under the exponent of 128.0 (lop3) and the bias 136 taken off in
 //   bf16x2: two conversions an instruction.  A byte needs 8 bits under the leading
@@ -176,7 +184,7 @@ qmatmul_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     }
   };
 
-  float acc[TILES][MT / 8][3][4];
+  float acc[TILES][MT / 8][3][4];  // running sums over the part's chunks
 #pragma unroll
   for (int i = 0; i < TILES; ++i)
 #pragma unroll
@@ -207,6 +215,13 @@ qmatmul_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     cp_async_commit();
 
     const int kb = c * KPC + (NIB ? 32 : 16) * t;  // first k of this lane's bytes
+    float cacc[TILES][MT / 8][4];  // this chunk's sums of the hi term, from zero
+#pragma unroll
+    for (int i = 0; i < TILES; ++i)
+#pragma unroll
+      for (int mt = 0; mt < MT / 8; ++mt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) cacc[i][mt][r] = 0.f;
 #pragma unroll
     for (int j = 0; j < (NIB ? 8 : 4); ++j) {
       // B: the three terms of x at this k-step's k, per 8-row tile of the M tile
@@ -244,12 +259,21 @@ qmatmul_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
           }
         }
 #pragma unroll
-        for (int mt = 0; mt < MT / 8; ++mt)
+        for (int mt = 0; mt < MT / 8; ++mt) {
+          mma(cacc[i][mt], a[0], a[1], a[2], a[3], bx[mt][0][0], bx[mt][0][1]);
 #pragma unroll
-          for (int e = 0; e < 3; ++e)
+          for (int e = 1; e < 3; ++e)
             mma(acc[i][mt][e], a[0], a[1], a[2], a[3], bx[mt][e][0], bx[mt][e][1]);
+        }
       }
     }
+#pragma unroll
+    for (int i = 0; i < TILES; ++i)
+#pragma unroll
+      for (int mt = 0; mt < MT / 8; ++mt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[i][mt][0][r] = __fadd_rn(acc[i][mt][0][r], cacc[i][mt][r]);
   }
   cp_async_wait<0>();
 

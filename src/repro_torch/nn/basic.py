@@ -303,9 +303,14 @@ class LayerNorm:
     @staticmethod
     def apply(p, q, x: torch.Tensor, *, mode: str, aux: Optional[Aux],
               eps: float = 1e-5):
+        """The reference's ``mu``, ``mean((x - mu)^2)``, ``rsqrt(var +
+        eps)``, each mean summed in float64 and rounded once to float32
+        (as ``_mean_sq``: a row's result then does not depend on its
+        batch, on the card or on the CPU)."""
         xf = x.to(torch.float32)
-        mu = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        mu = torch.mean(xf.to(torch.float64), dim=-1,
+                        keepdim=True).to(torch.float32)
+        var = _mean_sq(xf - mu)
         y = (xf - mu) * torch.rsqrt(var + eps)
         y = (y * p["scale"] + p["bias"]).to(x.dtype)
         return _out_quant(p, q, y, mode, aux)

@@ -71,7 +71,7 @@ from repro_torch.core import hgq
 from repro_torch.core import plan as tplan
 from repro_torch.core.hgq import QTensor
 from repro_torch.core.plan import LayerPlan, PrecisionPlan
-from repro_torch.models import GriffinLM, TransformerLM, model_for
+from repro_torch.models import GriffinLM, RWKVLM, TransformerLM, model_for
 from repro_torch.models.lm import _moe_cfg
 from repro_torch.nn import moe as tmoe
 from repro_torch.nn.common import HGQConfig
@@ -161,9 +161,9 @@ def test_registry_and_model_for():
                  "pixtral-12b", "qwen2-0.5b", "llama3.2-3b"):
         assert model_for(tconfigs.get(arch)) is TransformerLM
     assert model_for(tconfigs.get("recurrentgemma-2b")) is GriffinLM
-    for arch in ("rwkv6-1.6b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError):
-            model_for(tconfigs.get(arch))
+    assert model_for(tconfigs.get("rwkv6-1.6b")) is RWKVLM
+    with pytest.raises(NotImplementedError):
+        model_for(tconfigs.get("whisper-large-v3"))
 
 
 # --------------------------------- MoE.apply --------------------------------

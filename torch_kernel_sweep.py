@@ -3,7 +3,7 @@
 kernels, on one CUDA card.  Run from the repository root:
 
     python3 torch_kernel_sweep.py [--part all|pack|bwd|fwd|bucket|dequant|
-                                          reduce]
+                                          reduce|precision|rows]
                                   [--out build/kernel_sweep.json]
                                   [--src DIR] [--default-only]
 
@@ -59,6 +59,23 @@ geometry is copied here:
    call traced with ``chip_smoke._profiled`` (device operations, busy ms,
    ``aten::constant_pad_nd`` events of every thread, ``F.pad`` calls).  Run it on the parent's tree and
    this one in one chip call, parent, change, change, parent.
+7. ``precision`` (not in ``all``): ``qmatmul`` of the package under
+   ``--src`` at every serving shape of ``chip_smoke.py`` (qwen2-0.5b,
+   granite-moe-3b-a800m, recurrentgemma-2b, rwkv6-1.6b; M 8 and 16):
+   the largest error against the float64 product over (|x| @ |w|) *
+   scale on ``PRECISION_SEEDS`` draws, beside the control that drops x's
+   lowest bf16 term (``chip_smoke.REL_ERR_LIMIT`` lies above the first
+   at every shape, below the second at one shape at least), the split-K
+   of the shape, and the time a call; and the
+   registers and spills of each ``qmatmul_mma_kernel`` build (M tile 8
+   and 16, int8 and nibbles).  Run it on the parent's tree and this one
+   in one chip call.
+8. ``rows`` (not in ``all``): whether a row's result depends on the
+   batch it rides in, for the contractions of an rwkv6-1.6b decode tick
+   (the decay LoRA's two matmuls, the WKV's five einsums at S = 1): the
+   share of one row's elements that differ alone and in a batch of 8,
+   for ``torch.einsum`` in float32 and for the port's ``_contract``
+   (float64 sums rounded once), which must give 0.
 
 Times are CUDA-event times per call from ``chip_smoke.time_ms``.  Prints
 the card, then one JSON line per reading, and writes them all to
@@ -125,6 +142,18 @@ DEQUANT_VARIANTS = [()] + [
                     (8, 256, 16), (8, 128, 8), (8, 128, 16), (8, 512, 4),
                     (8, 512, 8), (8, 256, 4))]
 DEQUANT_SHAPES = ((16384, 64), (393216, 64))
+# qmatmul's serving shapes (K, N, bits of the storage) in chip_smoke.py:
+# qwen2-0.5b, granite-moe-3b-a800m, recurrentgemma-2b, rwkv6-1.6b
+PRECISION_SHAPES = (
+    (896, 896, 8), (896, 128, 8), (896, 4864, 8), (4864, 896, 8),
+    (896, 151936, 8), (896, 4864, 4), (4864, 896, 4),
+    (1536, 1536, 8), (1536, 512, 8), (1536, 40, 8), (1536, 49155, 8),
+    (1536, 512, 4), (1536, 1536, 4),
+    (2560, 2560, 8), (2560, 256, 8), (2560, 7680, 8), (7680, 2560, 8),
+    (2560, 256000, 8), (2560, 7680, 4), (7680, 2560, 4),
+    (2048, 2048, 8), (2048, 7168, 8), (7168, 2048, 8), (2048, 65536, 8),
+    (2048, 2048, 4), (2048, 7168, 4), (7168, 2048, 4))
+PRECISION_SEEDS = 4
 # the jet tagger's weights and biases: one grouped launch a training step
 JET_GROUP = [(16, 64), (64,), (64, 32), (32,), (32, 32), (32,), (32, 5),
              (5,)]
@@ -146,6 +175,10 @@ def _build_variants(parts, fwd_variants):
         jobs += [("kv_dequant", d) for d in DEQUANT_VARIANTS]
     if "reduce" in parts:
         jobs += [("wire_pack", ())]
+    if "precision" in parts:
+        jobs += [("qmatmul", ())]
+    if not jobs:
+        return
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda j: _build.build_all([j[0]], j[1]), jobs))
 
@@ -414,15 +447,106 @@ def _reduce_reading(dev, label):
     return rows
 
 
+def _precision_reading(dev, label):
+    """``qmatmul``'s error over (|x| @ |w|) * scale at every serving shape,
+    ``PRECISION_SEEDS`` draws each, beside the two-term control."""
+    from chip_smoke import REL_ERR_LIMIT
+    from repro_torch.kernels.qmatmul import bf16_split3, pack_nibbles, qmatmul
+    from repro_torch.kernels.qmatmul.ops import qmatmul_split
+    rows = []
+    for K, N, bits in PRECISION_SHAPES:
+        nib = bits == 4
+        qmax = 7 if nib else 127
+        for M in (8, 16):
+            sets, rel, rel2 = [], [], []
+            for seed in range(max(PRECISION_SEEDS,
+                                  n_copies(K * N // (2 if nib else 1)))):
+                g = torch.Generator(device=dev)
+                g.manual_seed(1000 + seed)
+                x = torch.randn((M, K), generator=g, device=dev)
+                m = torch.randint(-qmax, qmax + 1, (N, K), generator=g,
+                                  device=dev, dtype=torch.int8)
+                f = torch.randint(4, 9, (N,), generator=g, device=dev)
+                s = torch.pow(2.0, -f.to(torch.float32))
+                w = pack_nibbles(m, axis=-1).T if nib else m.T
+                sets.append((x, w, s))
+                if seed >= PRECISION_SEEDS:
+                    continue
+                hi, mid, _ = bf16_split3(x)
+                y64 = x.double() @ m.T.double() * s.double()
+                den = x.abs().double() @ m.T.abs().double() * s.double() \
+                    + 1e-300
+                for out, xx in ((rel, x), (rel2, hi.float() + mid.float())):
+                    y = qmatmul(xx, w, s, nib=nib)
+                    out.append(float(((y.double() - y64).abs() / den).max()))
+            ms = time_ms(lambda x, w, s: qmatmul(x, w, s, nib=nib), sets)
+            rows.append({"kernel": "qmatmul", "src": label,
+                         "shape": f"M{M} K{K} N{N} "
+                                  f"{'nibble' if nib else 'int8'}",
+                         "split": qmatmul_split(K, N), "rel_err": rel,
+                         "rel_err_two_term": rel2, "ms": ms,
+                         "under_limit": max(rel) <= REL_ERR_LIMIT})
+            print(json.dumps(rows[-1]), flush=True)
+    for mt in (8, 16):
+        for nib in (0, 1):
+            regs = _registers("qmatmul", (), source="qmatmul",
+                              kernel=f"qmatmul_mma_kernelILi{mt}ELb{nib}E")
+            rows.append({"kernel": "qmatmul_mma_kernel", "src": label,
+                         "m_tile": mt, "nibble": bool(nib),
+                         "registers_spill_stores": regs})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+# rwkv6-1.6b's decode tick: 8 slots, d 2048 in heads of 64, the decay LoRA
+# of rank 64
+ROWS_B, ROWS_D, ROWS_N, ROWS_LORA = 8, 2048, 64, 64
+
+
+def _rows_reading(dev, row=3):
+    """The share of row ``row``'s elements that differ alone and in a
+    batch of ``ROWS_B``, float32 ``torch.einsum`` and ``_contract``, for
+    each contraction of an RWKV decode tick."""
+    from repro_torch.nn.recurrent import _contract
+    B, H, N = ROWS_B, ROWS_D // ROWS_N, ROWS_N
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    cases = {"decay_a": ("bsi,ij->bsj", rn(B, 1, ROWS_D),
+                         rn(ROWS_D, ROWS_LORA)),
+             "decay_b": ("bsi,ij->bsj", rn(B, 1, ROWS_LORA),
+                         rn(ROWS_LORA, ROWS_D)),
+             "y_state": ("bhtn,bhnm->bhtm", rn(B, H, 1, N), rn(B, H, N, N)),
+             "intra_A": ("bhtn,bhsn->bhts", rn(B, H, 1, N), rn(B, H, 1, N)),
+             "bonus": ("bhtn,bhtn->bht", rn(B, H, 1, N), rn(B, H, 1, N)),
+             "A_v": ("bhts,bhsm->bhtm", rn(B, H, 1, 1), rn(B, H, 1, N)),
+             "state": ("bhsn,bhsm->bhnm", rn(B, H, 1, N), rn(B, H, 1, N))}
+    rows = []
+    for name, (eq, a, b) in cases.items():
+        one = (a[row:row + 1], b if b.shape[0] != B else b[row:row + 1])
+        share = {}
+        for label, fn in (("float32", torch.einsum), ("float64", _contract)):
+            full, alone = fn(eq, a, b)[row:row + 1], fn(eq, *one)
+            share[label] = float((full != alone).float().mean())
+        rows.append({"kernel": "rwkv contraction", "name": name, "eq": eq,
+                     "share_differing_float32": share["float32"],
+                     "share_differing_float64": share["float64"],
+                     "exact": share["float64"] == 0.0})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/kernel_sweep.json")
     ap.add_argument("--part", choices=("all", "pack", "bwd", "fwd",
-                                       "bucket", "dequant", "reduce"),
+                                       "bucket", "dequant", "reduce",
+                                       "precision", "rows"),
                     default="all")
     ap.add_argument("--src", default=str(ROOT / "src"),
-                    help="the tree whose repro_torch is timed (fwd or "
-                         "reduce only unless it is this repository's)")
+                    help="the tree whose repro_torch is timed (fwd, "
+                         "reduce or precision only unless it is this "
+                         "repository's)")
     ap.add_argument("--default-only", action="store_true",
                     help="build and time no geometry variants")
     args = ap.parse_args()
@@ -440,9 +564,10 @@ def main() -> int:
     print(smi, flush=True)
     parts = (("pack", "bwd", "fwd", "bucket", "dequant") if args.part == "all"
              else (args.part,))
-    if other and parts not in (("fwd",), ("reduce",)):
-        print("torch_kernel_sweep: --src times the forward or the reduce "
-              "only (--part fwd, reduce)", file=sys.stderr)
+    if other and parts not in (("fwd",), ("reduce",), ("precision",)):
+        print("torch_kernel_sweep: --src times the forward, the reduce or "
+              "qmatmul's precision only (--part fwd, reduce, precision)",
+              file=sys.stderr)
         return 2
     fwd_variants = [()] if other or args.default_only else FWD_VARIANTS
     if args.default_only:
@@ -468,11 +593,17 @@ def main() -> int:
     if "reduce" in parts:
         readings["reduce"] = _reduce_reading(
             dev, "other tree" if other else "this tree")
+    if "precision" in parts:
+        readings["qmatmul_precision"] = _precision_reading(
+            dev, "other tree" if other else "this tree")
+    if "rows" in parts:
+        readings["rwkv_rows"] = _rows_reading(dev)
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(readings, indent=1))
     bad = [r for k in ("wire_pack_rows", "hgq_quantize_bwd",
-                       "hgq_quantize_fwd", "wire_bucket", "kv_dequant_rows")
+                       "hgq_quantize_fwd", "wire_bucket", "kv_dequant_rows",
+                       "rwkv_rows")
            for r in readings.get(k, ())
            if not r.get("exact", r.get("df_ok", r["kernel"].startswith(
                "torch.")))]
