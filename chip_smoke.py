@@ -46,7 +46,13 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    wrapped 2064-slot ring with a window of 2048, int8 and nibble, a tick
    and a prefill chunk, rings up to 32768 slots, and rings read without
    16-byte loads, which give the aligned ring's bits; ``kv_quantize_store``
-   at hd 256 on a windowed ring); holds and
+   at hd 256 on a windowed ring) and at whisper-large-v3's (``qmatmul`` at
+   M 8 and 250 for 1280 x 1280 and 1280 <-> 5120, int8 and nibbles;
+   ``kv_attention_rows`` at 20 heads over 20 kv heads on the 448-slot
+   ring and the 1500-slot memory, a tick and a prompt chunk, and on rows
+   that see no slot, which read exact zeros; ``kv_quantize_store`` into
+   the self ring and a chunk's cross rows of all 32 layers in one
+   launch); holds and
    times the ``hgq_quantize`` shapes of the SVHN and muon models (4-D
    per-parameter conv kernels, per-tensor activations up to 1.84 M
    values, their grouped forwards) and of the qwen2-0.5b training step
@@ -82,8 +88,8 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    2 ``kv_attention_rows``; the expert nibbles unpacked, no ``qmatmul``
    weight), and one tick of each profiled last; then serves
    recurrentgemma-2b (the Griffin family: RG-LRU blocks and local
-   attention with head dim 256) at its published widths and 8 of its 26
-   layers (2 of its 8 units and its 2 remainder layers; all 26 were held
+   attention with head dim 256) at its published widths and 5 of its 26
+   layers (1 of its 8 units and its 2 remainder layers; all 26 were held
    in earlier runs) the same way (``griffin_serving``, ``max_len`` 4096,
    so its ring is the window and a chunk, 2064 slots): (a) packed int8,
    ``kv_bits`` 8, with one more request of a 2100-token prompt that wraps
@@ -91,10 +97,11 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    4; every request equal alone, card vs CPU at 5 layers within the
    dense limits that two Griffin faults (the RG-LRU without its input
    normalization, the conv state not carried) exceed, one full tick's
-   launches by shape exact (63 ``qmatmul``, 2 ``kv_quantize_store`` and
-   2 ``kv_attention_rows`` at hd 256), and one tick of each profiled
-   last; then serves rwkv6-1.6b (the RWKV-6 family: 24 layers of time mix
-   and channel mix, no KV cache) at full width the same way
+   launches by shape exact (40 ``qmatmul``, 1 ``kv_quantize_store`` and
+   1 ``kv_attention_rows`` at hd 256), and one tick of each profiled
+   last; then serves rwkv6-1.6b (the RWKV-6 family: time mix and
+   channel mix, no KV cache) at its published widths and 4 of its 24
+   layers (all 24 were held in earlier runs) the same way
    (``rwkv_serving``, ``max_len`` 2048, the constants of the reference's
    init redrawn from the seed): (a) packed int8 with one more request of
    a 1024-token prompt (64 chunks of state carried through one slot);
@@ -102,8 +109,22 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    card vs CPU at 4 layers within the dense limits that three RWKV faults
    (the WKV state not carried, the token shift taken from the residual
    stream, the per-head norm left out) exceed, one full tick's launches
-   by shape exact (193 ``qmatmul``, no KV kernel), and one tick of each
-   profiled last (the three families through one ``_serve_family``);
+   by shape exact (33 ``qmatmul``, no KV kernel), and one tick of each
+   profiled last; then serves whisper-large-v3 FULL (32 encoder and 32
+   decoder layers) through ``StreamingEngine`` (``whisper_serving``, 8
+   slots, ``max_len`` 448, audio chunks of 250 frames): 6 audio requests
+   of 300-1500 frames beside 4 LM requests, (a) packed int8, ``kv_bits``
+   8, (b) every MLP kernel in nibbles, ``kv_bits`` 4; each audio request
+   equal to ``generate_asr``, each LM request to a plain ``Engine``; one
+   full tick's launches by shape exact (256 ``qmatmul``, 32 stores, 64
+   ``kv_attention_rows``) and one 250-frame append's (256 ``qmatmul`` at
+   M 250, one store for all 32 layers); the cross memory's bytes the byte
+   model's; every LM row of a mixed tick reading exact zeros from the
+   memory; card vs CPU at 2 + 2 layers after a 1500-frame audio within
+   the dense limits that three Whisper faults (the memory not appended,
+   each chunk encoded at offset 0, the decoder's positions dropped)
+   exceed; one tick of each and one append of (a) profiled last (the four
+   families through one ``_serve_family``);
 5. train phase: trains the paper's jet tagger at its full width with
    ``examples/quickstart.py``'s configuration through the port's
    ``Trainer.run`` (300 steps, batch 1024), calibrates it on a held-out
@@ -189,7 +210,9 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    shape those paths launched against its plain version and times it;
 7. prints one JSON line with every kernel's numbers, its times per unit
    of its main path (a full decode tick -- an RWKV tick beside qwen2's,
-   granite's and Griffin's for ``qmatmul`` --, a training step -- the jet's,
+   granite's, Griffin's and Whisper's for ``qmatmul``, and a Whisper
+   250-frame append for ``qmatmul`` and the store --, a training step --
+   the jet's,
    with an svhn, a muon and an LM step beside it --, a compressed
    data-parallel step, a qwen2 gradient reduce) weighted by those
    tallies (a granite step among the training units), the TPU kernels
@@ -690,6 +713,16 @@ STORE_TIMED = [(B, S, KV, 64, 1024, hdm, bits, "float32")
 GRIFFIN_STORE = [(B, S, 1, 256, 2064, hdm, bits, "float32")
                  for B, S in ((8, 1), (1, 16))
                  for hdm, bits in ((256, 8), (128, 4))]
+# whisper-large-v3's: a decode tick's store into the 448-slot self ring (8
+# slots, 20 kv heads), and one 250-frame chunk's cross rows of all 32
+# decoder layers in one launch (the [L * 1, 1500, 20, hdm] view of a slot's
+# memory), int8 and nibble, timed; the chunk's power-of-two tails checked
+WHISPER_STORE = [(B, S, 20, 64, W, hdm, bits, "float32")
+                 for B, S, W in ((8, 1, 448), (32, 250, 1500))
+                 for hdm, bits in ((64, 8), (32, 4))]
+WHISPER_STORE_TAILS = [((32, S, 20, 64, 1500, hdm, bits, "float32"), False,
+                        0, 0) for S in (32, 1) for hdm, bits in ((64, 8),
+                                                                 (32, 4))]
 STORE_CHECKS = ([((4, 1, 2, 64, 64, 64, 8, "float32"), True, 0, 0),
                  ((2, 16, 2, 64, 8, 64, 8, "float32"), True, 0, 0),
                  ((2, 16, 2, 64, 8, 32, 4, "float32"), True, 0, 0),
@@ -701,7 +734,7 @@ STORE_CHECKS = ([((4, 1, 2, 64, 64, 64, 8, "float32"), True, 0, 0),
 
 
 def kv_store_checks(dev, g):
-    for key, window, off, xoff in STORE_CHECKS:
+    for key, window, off, xoff in STORE_CHECKS + WHISPER_STORE_TAILS:
         c = kv_store_case(key, window, dev, g, off=off, xoff=xoff,
                           timed=False)
         print(f"[kernels] kv_quantize_store {c['shape']}: bit-exact "
@@ -936,6 +969,46 @@ def unaligned_attention_checks(dev, g):
                   f"ring's bits", flush=True)
 
 
+def empty_rows_attention_checks(dev, g):
+    """``kv_attention_rows`` as Whisper's cross read sees it in a mixed
+    tick (20 heads over 20 kv heads, the 1500-slot memory, every query row
+    at position W): rows 0-3 see no slot (every ``tpos`` -1, LM traffic's
+    ``mem_len`` 0) and must read exact zeros, rows 4-7 are filled to 1,
+    2, 750 and 1500 slots; int8 and nibble, a tick (S 1) and a prompt
+    chunk (S 16), against the plain version."""
+    from repro_torch.kernels.kv_dequant import kv_attention_rows, kv_unpack
+    from repro_torch.kernels.kv_dequant.ref import (kv_attention_ref,
+                                                    kv_dequant_ref)
+    H = KV = WHISPER["KV"]
+    hd, W = WHISPER["hd"], WHISPER["T"]
+    pft = torch.tensor([6.0], dtype=torch.float32, device=dev)
+    fill = torch.tensor([0, 0, 0, 0, 1, 2, 750, W], device=dev)
+    for S in (1, 16):
+        for nibble in (False, True):
+            qh, km, kf, vm, vf, _, _ = _attention_inputs(
+                8, S, H, KV, hd, W, nibble, dev, g)
+            ar = torch.arange(W, device=dev)
+            tpos = torch.where(ar[None] < fill[:, None], ar[None],
+                               torch.full_like(ar[None], -1)).to(torch.int32)
+            qpos = torch.full((8, S), W, dtype=torch.int32, device=dev)
+            out = kv_attention_rows(qh, km, kf, vm, vf, qpos, tpos,
+                                    window=None, n_kv=KV, probs_f=pft)
+            ref = kv_attention_ref(qh.reshape(8, S, KV, 1, hd), km, kf, vm,
+                                   vf, qpos, tpos, window=None, probs_f=pft
+                                   ).reshape(qh.shape)
+            what = (f"kv_attention_rows S{S} W{W} H{H} KV{KV} "
+                    f"{'nibble' if nibble else 'int8'}, rows that see no slot")
+            vmax = float(kv_dequant_ref(kv_unpack(vm, hd) if nibble else vm,
+                                        vf).abs().max())
+            err = _attention_check(out, ref, vmax, 6.0, what)
+            check(torch.equal(out[:4], torch.zeros_like(out[:4])),
+                  f"{what}: rows 0-3 are not exact zeros")
+            check(bool((out[4:] != 0).any(dim=-1).all()),
+                  f"{what}: a filled row reads zero")
+            print(f"[kernels] {what}: exact zeros, the filled rows within "
+                  f"{err:.3g} of the plain version", flush=True)
+
+
 # the quantizer's shapes: the training slice's own (the jet tagger's input
 # quantizer per channel, weights and biases per parameter, outputs per
 # tensor, batch 1024), a qwen2-0.5b layer (the MLP weight per channel, a
@@ -1010,6 +1083,12 @@ GRANITE = dict(L=32, d=1536, H=24, KV=8, hd=64, ff=512, E=40, k=8, V=49155)
 GRIFFIN = dict(L=26, units=8, rem=2, d=2560, H=10, KV=1, hd=256, ff=7680,
                V=256000, window=2048, W=2064)
 RWKV = dict(L=24, d=2048, ff=7168, V=65536, norm="ln")
+# whisper-large-v3 (configs/whisper_large_v3.py FULL): 32 encoder and 32
+# decoder layers, full MHA of 20 heads of 64, a 1500-frame encoder memory;
+# its serving ring is the decoder's published context of 448 tokens, its
+# audio chunk 250 frames (5 s at 20 ms a frame)
+WHISPER = dict(L=32, enc=32, d=1280, H=20, KV=20, hd=64, ff=5120, V=51866,
+               T=1500, W=448, chunk=250)
 LM_BATCH, LM_SEQ = 2, 2048
 # granite's training cell: batch 2, seq 1024 (one chunk pair a layer),
 # C = 256 slots an expert a row
@@ -1679,6 +1758,15 @@ def kernel_phase(dev):
                            (rff, rd, 4)):
             cases["qmatmul"][M, K, N, bits] = qmatmul_case(M, K, N, bits,
                                                            dev, g)
+    # whisper-large-v3: a decode tick (M 8) and a 250-frame chunk through
+    # the encoder and the cross k / v (M 250): q, k, v, o at 1280 x 1280,
+    # the MLP 1280 <-> 5120, int8 and, configuration (b)'s MLP, nibbles
+    Wd, Wff = WHISPER["d"], WHISPER["ff"]
+    for M in (8, WHISPER["chunk"]):
+        for K, N in ((Wd, Wd), (Wd, Wff), (Wff, Wd)):
+            for bits in (8, 4):
+                cases["qmatmul"][M, K, N, bits] = qmatmul_case(M, K, N, bits,
+                                                               dev, g)
     rel = [c["rel_err"] for c in cases["qmatmul"].values()]
     rel2 = [c["rel_err_two_term"] for c in cases["qmatmul"].values()]
     check(max(rel) <= REL_ERR_LIMIT < max(rel2),
@@ -1692,6 +1780,8 @@ def kernel_phase(dev):
         cases["kv_quantize_store"][key] = kv_store_case(key, False, dev, g)
     for key in GRIFFIN_STORE:
         cases["kv_quantize_store"][key] = kv_store_case(key, True, dev, g)
+    for key in WHISPER_STORE:
+        cases["kv_quantize_store"][key] = kv_store_case(key, False, dev, g)
     kv_store_checks(dev, g)
     # one qwen2-0.5b layer's full ring (8 slots x 1024 x 2 kv heads), one
     # slot's, and all 24 layers' rings
@@ -1715,6 +1805,18 @@ def kernel_phase(dev):
             cases["kv_attention_rows"][key] = kv_attention_case(
                 B, S, Gf["W"], nibble, 6.0, dev, g, H=Gf["H"], KV=Gf["KV"],
                 hd=Gf["hd"], window=Gf["window"])
+    # whisper-large-v3's 20 heads over 20 kv heads (G = 1): a tick over the
+    # 448-slot self ring and the 1500-slot cross memory, a prompt chunk of
+    # 16 over the memory
+    Wh = WHISPER
+    for B, S, W in ((8, 1, Wh["W"]), (8, 1, Wh["T"]), (1, 16, Wh["T"])):
+        for nibble in (False, True):
+            key = (B, S, Wh["H"], Wh["KV"], Wh["hd"], W,
+                   Wh["hd"] // 2 if nibble else Wh["hd"])
+            cases["kv_attention_rows"][key] = kv_attention_case(
+                B, S, W, nibble, 6.0, dev, g, H=Wh["H"], KV=Wh["KV"],
+                hd=Wh["hd"])
+    empty_rows_attention_checks(dev, g)
     long_ring_checks(dev, g)
     unaligned_attention_checks(dev, g)
     for shape, fshape, dtype in HGQ_SHAPES + HGQ_EDGE + PAPER_SHAPES \
@@ -2060,8 +2162,9 @@ def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
                        max_len=1024):
     """Device operations, busy ms and the attention kernel's launch grids
     of one decode tick with all 8 slots busy (B = 8, the ring ``max_len``
-    slots, or the window and a chunk's), on an engine of its own (a new one for each profiler run), after every
-    timed run: the profiler
+    slots, or the window and a chunk's), on an engine of its own
+    (``Engine``, the class or a factory taking its arguments; a new one
+    for each profiler run), after every timed run: the profiler
     slows the host, and may go on doing so once it is stopped.  The
     attention kernel reads the whole ring whatever its fill, so short
     prompts give the same device work as the timed run's.  ``unpacks``,
@@ -2072,7 +2175,8 @@ def _profile_full_tick(Engine, Request, model, params, qstate, cfg, pl,
         eng = Engine(model, params, qstate, cfg, batch_slots=8,
                      max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
                      kv_bits=kv_bits, seed=SEED, device=dev)
-        for pr in prompts[:8]:
+        for i in range(8):
+            pr = prompts[i % len(prompts)]
             check(eng.submit(Request(prompt=list(pr[:16]), max_new=4))
                   is not None, "profile pass: no free slot")
         check(all(r is not None for r in eng.slot_req),
@@ -2165,7 +2269,8 @@ LOGITS_REL_GROSS = 0.1
 LOGITS_REL_LIMIT = 0.005
 
 
-def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None):
+def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None,
+                     prepare=None):
     """Teacher-forced logits of the card (kernels) against the CPU (plain
     versions) on one prefill chunk and two decode ticks of 2 rows, with
     the activation quantizers on ("full") and off ("continuous"), where
@@ -2173,7 +2278,9 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None):
     (the fault's tree without activation quantizers, a context manager
     that puts the fault in the code)} -- are read too: {witness:
     {"rel_l2", "argmax_agree", "controls"?}}.  ``model``: the decoder
-    (``TransformerLM`` by default)."""
+    (``TransformerLM`` by default); ``prepare(caches, device, params,
+    qstate, kv_bits)``, if given, fills the fresh caches first (an
+    encoder-decoder's memory) and returns them."""
     from repro_torch.models import TransformerLM
     from repro_torch.tree import tree_map
     M = model or TransformerLM
@@ -2183,6 +2290,8 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None):
 
     def run(d, pp, qq):
         c = M.init_cache(cfg, 2, 64, kv_bits=kv_bits, device=d)
+        if prepare is not None:
+            c = prepare(c, d, pp, qq, kv_bits)
         lg, c = M.decode_step(pp, qq, c, toks.to(d), 0, cfg, kv_bits=kv_bits)
         seq = [lg[:, -1]]
         nxt = toks[:, -1:]
@@ -2237,6 +2346,18 @@ def _patched(module, name, fn):
         yield
     finally:
         setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _patched_static(cls, name, fn):
+    """The static method ``cls.name`` replaced by ``fn(the real one)``
+    inside (calls through the class see the replacement)."""
+    real = cls.__dict__[name]
+    setattr(cls, name, staticmethod(fn(real.__func__)))
+    try:
+        yield
+    finally:
+        setattr(cls, name, real)
 
 
 def _moe_controls(pc):
@@ -2381,8 +2502,11 @@ def slice_phase(dev, cases):
         griffin_serving(dev, cases)
     rwkv_total, report["rwkv"], rwkv_ticks, rwkv_profile = \
         rwkv_serving(dev, cases)
+    (whisper_total, report["whisper"], whisper_ticks, whisper_profile,
+     whisper_append) = whisper_serving(dev, cases)
     for k in total:
-        total[k] += granite_total[k] + griffin_total[k] + rwkv_total[k]
+        total[k] += granite_total[k] + griffin_total[k] + rwkv_total[k] \
+            + whisper_total[k]
     # profiled only now, after every timed run
     for tag, desc, pl, kv_bits in configs:
         _read_profiled_tick(tag, cfg, report[tag], _profile_full_tick(
@@ -2391,8 +2515,9 @@ def slice_phase(dev, cases):
     granite_profile()
     griffin_profile()
     rwkv_profile()
+    whisper_profile()
     return (total, report, tick_shapes_a, granite_ticks, griffin_ticks,
-            rwkv_ticks)
+            rwkv_ticks, whisper_ticks, whisper_append)
 
 
 def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0, n_attn=None,
@@ -2443,7 +2568,9 @@ def _kv_tick(H, KV, hd, W, kv_bits, n):
 def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
                   want, controls, logits_cut, *, max_len, long_prompt=0,
                   unpacks_per_tick=lambda pl: 0, ring=None, n_attn=None,
-                  min_blocks=128, store_window=False):
+                  min_blocks=128, store_window=False, engine=None,
+                  lm_lens=None, audio=None, alone=None, after=None,
+                  prepare=None, kv_layers=None, ring_field="k"):
     """Serve one family through ``Engine`` as the qwen2 part serves it (8
     slots, chunks of 16, 10 greedy requests of 16-256 prompt tokens and 32
     new ones, and in configuration (a) one more of ``long_prompt`` tokens
@@ -2458,24 +2585,37 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
     (none at all while serving if that is 0); card vs CPU logits on
     ``logits_cut(packed params, packed qstate)`` (its params, qstate and
     config) within the dense limits, which every one of ``controls``
-    exceeds.  ``ring``: the KV ring's slots, checked; ``store_window``:
-    whether the store's timed cases are windowed (``kv_store_case``);
-    ``n_attn``, ``min_blocks``: the profiled tick's attention launches
-    (``_read_profiled_tick``).  Returns (launch counts, report,
-    configuration (a)'s full tick by shape, a function that profiles one
-    full tick of each configuration, to be called after every timed
-    run)."""
+    exceeds.  ``ring``: the KV ring's slots (the caches' field
+    ``ring_field``), checked; ``store_window``: whether the store's timed
+    cases are windowed (``kv_store_case``); ``n_attn``, ``min_blocks``:
+    the profiled tick's attention launches (``_read_profiled_tick``);
+    ``kv_layers``: the layers of the self ring (``n_attn`` by default).
+
+    An encoder-decoder widens it: ``engine`` (the engine class or a
+    factory taking its arguments; ``Engine`` by default), ``lm_lens`` (the
+    LM prompts' lengths, 10 of 16-256 by default), ``audio(tag)`` (fresh
+    audio requests served beside the LM ones, interleaved with them),
+    ``alone(packed params, packed qstate, kv_bits, request)`` (a request's
+    tokens served alone; the LM ones default to a plain ``Engine``),
+    ``after(tag, engine, requests, plan, kv_bits)`` (checks of the served
+    engine, returning report fields), ``prepare`` (``_logits_vs_plain``'s).
+    Returns (launch counts, report, configuration (a)'s full tick by
+    shape, a function that profiles one full tick of each configuration,
+    to be called after every timed run)."""
     from repro_torch.serving import (Engine, Request, kv_bytes_per_token,
                                      packed_nbytes)
     from repro_torch.serving.packed import pack_for_serving
 
+    make_engine = engine or Engine
     rng = np.random.default_rng(SEED)
-    lens = [16, 256] + [int(n) for n in rng.integers(16, 257, 8)]
+    lens = [16, 256] + [int(n) for n in rng.integers(16, 257, 8)] \
+        if lm_lens is None else list(lm_lens)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in lens]
     extra = [[int(t) for t in rng.integers(0, cfg.vocab, long_prompt)]] \
         if long_prompt else []
     max_new = 32
     n_kv = cfg.n_layers if n_attn is None else n_attn
+    kv_layers = n_kv if kv_layers is None else kv_layers
     t_part = time.perf_counter()
     total = {k: 0 for k in SERVING}
     report, tick_shapes_a = {}, None
@@ -2484,14 +2624,18 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
         want_unpacks = unpacks_per_tick(pl)
         tprompts = prompts + (extra if tag == "a" else [])
         torch.cuda.reset_peak_memory_stats()
-        eng = Engine(model, params, qstate, cfg, batch_slots=8,
-                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
-                     kv_bits=kv_bits, seed=SEED, device=dev)
+        eng = make_engine(model, params, qstate, cfg, batch_slots=8,
+                          max_len=max_len, prefill_chunk=16, packed=True,
+                          plan=pl, kv_bits=kv_bits, seed=SEED, device=dev)
         if ring is not None:
-            check(eng.caches.k.shape[2] == ring, f"({name} {tag}) a ring of "
-                                                 f"{eng.caches.k.shape[2]} "
-                                                 f"slots, not {ring}")
-        reqs = [Request(prompt=list(pr), max_new=max_new) for pr in tprompts]
+            W = getattr(eng.caches, ring_field).shape[2]
+            check(W == ring, f"({name} {tag}) a ring of {W} slots, not "
+                             f"{ring}")
+        lm = [Request(prompt=list(pr), max_new=max_new) for pr in tprompts]
+        aud = audio(tag) if audio is not None else []
+        # audio requests first, each beside an LM request, then the rest
+        reqs = [r for pair in zip(aud, lm) for r in pair] \
+            + aud[len(lm):] + lm[len(aud):]
         torch.cuda.synchronize()
         unpacks = [0]
         _reset_counts()                       # the main path starts here
@@ -2505,6 +2649,8 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
         nbytes = packed_nbytes(eng.p)
         cache_bytes = sum(c.numel() * c.element_size() for c in eng.caches
                           if c is not None)
+        extra_report = {} if after is None else after(tag, eng, reqs, pl,
+                                                      kv_bits)
         del eng
         for k in total:
             total[k] += counts[k]
@@ -2533,7 +2679,7 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
             if key not in cases["kv_quantize_store"]:
                 cases["kv_quantize_store"][key] = kv_store_case(
                     key, store_window, dev, g)
-        check(all(r.done and len(r.out) == max_new for r in reqs),
+        check(all(r.done and len(r.out) == r.max_new for r in reqs),
               f"({name} {tag}) not every request finished")
         check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
               f"({name} {tag}) token out of range")
@@ -2542,12 +2688,16 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
         pp, qq = pack_for_serving(params, qstate, pl)
         t0 = time.perf_counter()
         apart = []
-        for i, pr in enumerate(tprompts):
-            one = Request(prompt=list(pr), max_new=max_new)
-            Engine(model, pp, qq, cfg, batch_slots=8, max_len=max_len,
-                   prefill_chunk=16, kv_bits=kv_bits, seed=SEED,
-                   device=dev).run([one])
-            if one.out != reqs[i].out:
+        for i, r in enumerate(reqs):
+            if isinstance(r, Request):
+                one = Request(prompt=list(r.prompt), max_new=r.max_new)
+                Engine(model, pp, qq, cfg, batch_slots=8, max_len=max_len,
+                       prefill_chunk=16, kv_bits=kv_bits, seed=SEED,
+                       device=dev).run([one])
+                out = one.out
+            else:
+                out = alone(pp, qq, kv_bits, r)
+            if out != r.out:
                 apart.append(i)
         alone_s = time.perf_counter() - t0
         check(not apart, f"({name} {tag}) requests {apart} served alone "
@@ -2555,7 +2705,7 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
         t0 = time.perf_counter()
         pc, qc, cfg_cut = logits_cut(pp, qq)
         logits = _logits_vs_plain(pc, qc, cfg_cut, kv_bits, dev, controls,
-                                  model=model)
+                                  model=model, prepare=prepare)
         logits_s = time.perf_counter() - t0
         del pp, qq, pc, qc
         full, cont = logits["full"], logits["continuous"]
@@ -2573,7 +2723,7 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
               f"({name} {tag}) the logits check misses a control: {cont}")
         toks = sum(len(r.out) for r in reqs)
         med = float(np.median(tick_ms))
-        plens = [len(pr) for pr in tprompts]
+        plens = [len(r.prompt) for r in reqs]
         report[tag] = {
             "config": desc, "requests": len(reqs),
             "prompt_tokens": sum(plens), "new_tokens": toks,
@@ -2584,10 +2734,10 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
             "launches_per_full_tick": per_tick,
             "unpack_nibbles_per_full_tick": tick_unpacks,
             "alone_runs_s": alone_s, "logits_s": logits_s,
-            "logits_vs_cpu": logits}
-        if n_kv:
+            "logits_vs_cpu": logits, **extra_report}
+        if kv_layers:
             report[tag]["kv_bytes_per_token"] = kv_bytes_per_token(
-                cfg.n_kv, cfg.hd, n_kv, kv_bits)
+                cfg.n_kv, cfg.hd, kv_layers, kv_bits)
         print(f"[{name}] ({tag}) {desc}: {len(reqs)} requests, prompts "
               f"{min(plens)}-{max(plens)} tokens, {toks} new tokens in "
               f"{wall:.2f} s = {toks / wall:.1f} tok/s; decode tick median "
@@ -2609,9 +2759,9 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
             unpacks, by_name = [0], {}
             with _counting_unpacks(unpacks):
                 profiled = _profile_full_tick(
-                    Engine, Request, model, params, qstate, cfg, pl, kv_bits,
-                    prompts, dev, unpacks=unpacks, device_ms=by_name,
-                    max_len=max_len)
+                    make_engine, Request, model, params, qstate, cfg, pl,
+                    kv_bits, prompts, dev, unpacks=unpacks,
+                    device_ms=by_name, max_len=max_len)
             _read_profiled_tick(f"{name} {tag}", cfg, report[tag], profiled,
                                 unpacks=unpacks[0], n_attn=n_attn,
                                 min_blocks=min_blocks)
@@ -2715,10 +2865,11 @@ GRIFFIN_MLP = ("units/rec1/mlp", "units/rec2/mlp", "units/att/mlp",
 GRIFFIN_LONG_PROMPT = 2100
 GRIFFIN_MAX_LEN = 4096
 # recurrentgemma-2b is served at this many of its 8 (rec, rec, att) units
-# and its 2 remainder layers (8 of 26 layers), at its published widths
-# (earlier runs held all 26, PERF.md §4): the cut pays for the RWKV part
-# within the script's time; its tallies scale with the layers
-GRIFFIN_SERVE_UNITS = 2
+# and its 2 remainder layers (5 of 26 layers, those card vs CPU reads), at
+# its published widths (earlier runs held all 26, PERF.md §4): the cut pays
+# for the RWKV and Whisper parts within the script's time; its tallies
+# scale with the layers
+GRIFFIN_SERVE_UNITS = 1
 
 
 def _griffin_controls(pc):
@@ -2743,8 +2894,8 @@ def griffin_serving(dev, cases):
     (a) packed uniform int8, ``kv_bits`` 8, and one more request of a
     2100-token prompt, whose decode reads a ring wrapped past the window;
     (b) every MLP kernel in nibbles, the rest int8, ``kv_bits`` 4 (a
-    nibble ring at hd 256).  One full tick at 2 units: 63 ``qmatmul``, 2
-    ``kv_quantize_store`` and 2 ``kv_attention_rows`` at hd 256, and no
+    nibble ring at hd 256).  One full tick at 1 unit: 40 ``qmatmul``, 1
+    ``kv_quantize_store`` and 1 ``kv_attention_rows`` at hd 256, and no
     ``unpack_nibbles`` call.  Card vs CPU at 5 layers, against the two
     Griffin controls."""
     from repro_torch.configs import get
@@ -2809,6 +2960,11 @@ RWKV_FFN = ("layers/ffn",)
 # through one slot
 RWKV_LONG_PROMPT = 1024
 RWKV_MAX_LEN = 2048
+# rwkv6-1.6b is served at this many of its 24 layers (those card vs CPU
+# reads), at its published widths (earlier runs held all 24, PERF.md §4):
+# the cut pays for the Whisper part within the script's time; its tallies
+# scale with the layers
+RWKV_SERVE_LAYERS = 4
 
 
 def rwkv_constants(params, gen):
@@ -2868,14 +3024,15 @@ def _rwkv_controls(pc):
 
 
 def rwkv_serving(dev, cases):
-    """rwkv6-1.6b FULL (random weights from the seed, the constants of the
+    """rwkv6-1.6b at its published widths and ``RWKV_SERVE_LAYERS`` of its
+    24 layers (random weights from the seed, the constants of the
     reference's init redrawn: ``rwkv_constants``) through
     ``_serve_family``, ``max_len`` 2048, in two configurations: (a)
     packed uniform int8 and one more request of a 1024-token prompt (64
     chunks of state carried through one slot); (b) every channel-mix
     kernel in nibbles, the rest int8 (``kv_bits`` None: the model holds no
-    KV).  One full tick: 193 ``qmatmul`` (144 of 2048 x 2048, 24 each way
-    between 2048 and 7168, the head), no ``kv_quantize_store`` or
+    KV).  One full tick at 4 layers: 33 ``qmatmul`` (24 of 2048 x 2048, 4
+    each way between 2048 and 7168, the head), no ``kv_quantize_store`` or
     ``kv_attention_rows`` launch and no ``unpack_nibbles`` call.  Card vs
     CPU at ``RWKV_LOGITS_LAYERS`` layers, against the three RWKV
     controls."""
@@ -2889,18 +3046,19 @@ def rwkv_serving(dev, cases):
           and (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab, cfg.norm)
           == tuple(R[k] for k in ("L", "d", "ff", "V", "norm")),
           "not rwkv6-1.6b")
+    cfg = dataclasses.replace(cfg, n_layers=RWKV_SERVE_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
     params, qstate = RWKVLM.init(gen, cfg, device=dev)
     rwkv_constants(params, gen)
     torch.cuda.synchronize()
-    print(f"[rwkv] rwkv6-1.6b FULL init on the card: "
-          f"{time.perf_counter() - t0:.2f} s, "
+    print(f"[rwkv] rwkv6-1.6b init on the card at {cfg.n_layers} of its "
+          f"{R['L']} layers: {time.perf_counter() - t0:.2f} s, "
           f"{cfg.n_params() / 1e9:.3f} B parameters", flush=True)
     plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
                                  for k in RWKV_FFN})
-    L, d, ff, V = R["L"], R["d"], R["ff"], R["V"]
+    L, d, ff, V = cfg.n_layers, R["d"], R["ff"], R["V"]
 
     def want(pl, kv_bits):
         fb = 8 if pl is None else 4
@@ -2923,6 +3081,309 @@ def rwkv_serving(dev, cases):
         want, _rwkv_controls,
         lambda pp, qq: _first_layers(pp, qq, cfg, "layers", cut, cut),
         max_len=RWKV_MAX_LEN, long_prompt=RWKV_LONG_PROMPT, n_attn=0)
+
+
+# Card logits against the CPU at whisper-large-v3's full width and this many
+# of its encoder and of its decoder layers (the first ones of the served
+# tree), after a 1500-frame audio appended in chunks of 250, within the
+# dense limits, which three Whisper faults (``_whisper_controls``) exceed.
+WHISPER_LOGITS_LAYERS = 2
+WHISPER_MLP = ("enc_layers/mlp", "dec_layers/mlp")
+# the audio requests' frames (1037 leaves power-of-two tails of 32, 4 and
+# 1), each with a decoder prompt of 4 tokens; the LM requests' prompts
+WHISPER_AUDIO = (1500, 1500, 1200, 1037, 750, 300)
+WHISPER_PROMPT = 4
+WHISPER_LM = 4
+
+
+def _whisper_frames(n, seed):
+    """Frame embeddings [n, d] from the seed, N(0, 1) x 0.3 as the
+    reference's tests scale them."""
+    rng = np.random.default_rng(seed)
+    return (0.3 * rng.standard_normal((n, WHISPER["d"]))).astype(np.float32)
+
+
+def _whisper_controls(pc):
+    """The cross memory not appended (every row reads zero from it); each
+    chunk encoded at offset 0 (its absolute positions dropped); the
+    decoder's learned positions dropped."""
+    import repro_torch.models.whisper as wh
+    M = wh.WhisperModel
+
+    def zeros(table, pos):
+        return torch.zeros(tuple(pos.shape) + (table.shape[1],),
+                           dtype=table.dtype, device=table.device)
+
+    return {"cross_memory_not_appended": (
+                pc, lambda: _patched_static(M, "append_cross",
+                                            lambda real: lambda p, q, c, *a,
+                                            **k: c)),
+            "chunks_encoded_at_offset_0": (
+                pc, lambda: _patched_static(M, "encode",
+                                            lambda real: lambda *a, offset=0,
+                                            **k: real(*a, **k))),
+            "decoder_positions_dropped": (
+                pc, lambda: _patched(wh, "decoder_positions",
+                                     lambda real: zeros))}
+
+
+def _cross_reads_zero(eng, frames, prompts):
+    """On a served ``StreamingEngine``: 2 audio requests (``frames``) and 6
+    LM requests (``prompts``) admitted, ticked until every slot decodes,
+    then one mixed tick whose cross reads (``kv_attention_decode`` over the
+    ``enc_seq``-slot memory) are recorded: every LM row (``mem_len`` 0)
+    must read exact zeros in every decoder layer, every audio row not.
+    Returns (layers read, LM rows, audio rows)."""
+    import repro_torch.models.whisper as wh
+    from repro_torch.serving import AudioRequest, Request
+    reqs = [AudioRequest(frames=fr, prompt=list(range(1, WHISPER_PROMPT + 1)),
+                         max_new=8) for fr in frames] + \
+        [Request(prompt=list(pr[:16]), max_new=8) for pr in prompts]
+    for r in reqs:
+        check(eng.submit(r) is not None, "cross reads: no free slot")
+    while any(r is None for r in eng.slot_req):
+        eng.step()
+    mem = eng.caches.mem_len[0].clone()
+    seen = []
+
+    def recording(real):
+        def read(qh, km, *a, **k):
+            out = real(qh, km, *a, **k)
+            if km.shape[1] == eng.cfg.enc_seq:
+                seen.append(out)
+            return out
+        return read
+
+    with _patched(wh, "kv_attention_decode", recording):
+        eng.step()
+    lm_rows, audio_rows = mem == 0, mem > 0
+    check(len(seen) == eng.cfg.n_layers,
+          f"cross reads: {len(seen)} in a tick of {eng.cfg.n_layers} layers")
+    check(int(lm_rows.sum()) == len(prompts)
+          and int(audio_rows.sum()) == len(frames),
+          f"cross reads: mem_len {mem.tolist()}")
+    for i, out in enumerate(seen):
+        check(torch.equal(out[lm_rows], torch.zeros_like(out[lm_rows])),
+              f"cross reads: layer {i}: an LM row does not read exact zeros")
+        check(bool((out[audio_rows] != 0).any(dim=-1).all()),
+              f"cross reads: layer {i}: an audio row reads zero")
+    return len(seen), int(lm_rows.sum()), int(audio_rows.sum())
+
+
+def whisper_serving(dev, cases):
+    """whisper-large-v3 FULL (32 encoder and 32 decoder layers, random
+    weights from the seed) through ``StreamingEngine`` and
+    ``_serve_family``: 8 slots, ``max_len`` 448, prompt chunks of 16,
+    audio chunks of 250 frames; 6 audio requests (``WHISPER_AUDIO`` frames,
+    4-token prompts) beside 4 LM requests of 16-64 prompt tokens, 32 new
+    tokens each, greedy; in two configurations: (a) packed uniform int8,
+    ``kv_bits`` 8; (b) every encoder and decoder MLP kernel in nibbles,
+    the rest int8, ``kv_bits`` 4 (a nibble self ring and cross memory).
+    Checks, besides ``_serve_family``'s: each audio request equals the
+    port's ``generate_asr`` on the card (the same chunks and
+    ``cache_len``), each LM request a plain ``Engine``; one full tick: 8
+    ``qmatmul`` a decoder layer (self q, k, v, o, cross q, o, fc1, fc2; the
+    head is a plain matmul over the dequantized table), one self-ring
+    store, two ``kv_attention_rows`` (the 448-slot ring, the 1500-slot
+    memory); one 250-frame append: 6 ``qmatmul`` an encoder layer and the
+    cross k, v of every decoder layer at M 250, one ``kv_quantize_store``
+    for all 32 layers' rows; no ``unpack_nibbles`` call; the cross memory's
+    bytes the byte model's; in a mixed tick every LM row reads exact zeros
+    from the memory; card vs CPU at 2 + 2 layers against the three Whisper
+    controls.  Returns ``_serve_family``'s four values and configuration
+    (a)'s append by shape; its profile function profiles one full tick of
+    each configuration and one append of configuration (a)."""
+    from repro_torch.configs import get
+    from repro_torch.core.plan import LayerPlan, PrecisionPlan
+    from repro_torch.models import WhisperModel, model_for
+    from repro_torch.serving import (AudioRequest, StreamingEngine,
+                                     generate_asr,
+                                     kv_cross_bytes_per_request, split_audio)
+    from repro_torch.tree import tree_map
+
+    Wh = WHISPER
+    cfg = get("whisper-large-v3")
+    check(model_for(cfg) is WhisperModel
+          and (cfg.n_layers, cfg.enc_layers, cfg.d_model, cfg.n_heads,
+               cfg.n_kv, cfg.hd, cfg.d_ff, cfg.vocab, cfg.enc_seq)
+          == tuple(Wh[k] for k in ("L", "enc", "d", "H", "KV", "hd", "ff",
+                                   "V", "T")), "not whisper-large-v3")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params, qstate = WhisperModel.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"[whisper] whisper-large-v3 FULL init on the card: "
+          f"{time.perf_counter() - t0:.2f} s, {cfg.n_params() / 1e9:.3f} B "
+          f"parameters", flush=True)
+    plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
+                                 for k in WHISPER_MLP})
+    L, Le, d, ff, C = cfg.n_layers, cfg.enc_layers, Wh["d"], Wh["ff"], \
+        Wh["chunk"]
+    H, KV, hd, T, max_len = Wh["H"], Wh["KV"], Wh["hd"], Wh["T"], Wh["W"]
+    rng = np.random.default_rng(SEED + 1)
+    frames = [_whisper_frames(n, SEED + 10 + i)
+              for i, n in enumerate(WHISPER_AUDIO)]
+    audio_prompts = [[int(t) for t in rng.integers(0, cfg.vocab,
+                                                   WHISPER_PROMPT)]
+                     for _ in frames]
+    lm_lens = [int(n) for n in rng.integers(16, 65, WHISPER_LM)]
+
+    def hdm_of(kv_bits):
+        return hd // 2 if kv_bits == 4 else hd
+
+    def want(pl, kv_bits):
+        mb, hdm = 8 if pl is None else 4, hdm_of(kv_bits)
+        return {"qmatmul": {(8, d, d, 8): 6 * L, (8, d, ff, mb): L,
+                            (8, ff, d, mb): L},
+                "kv_quantize_store": {(8, 1, KV, hd, max_len, hdm, kv_bits,
+                                       "float32"): L},
+                "kv_attention_rows": {(8, 1, H, KV, hd, max_len, hdm): L,
+                                      (8, 1, H, KV, hd, T, hdm): L}}
+
+    def want_append(pl, kv_bits):
+        mb = 8 if pl is None else 4
+        return {"qmatmul": {(C, d, d, 8): 4 * Le + 2 * L, (C, d, ff, mb): Le,
+                            (C, ff, d, mb): Le},
+                "kv_quantize_store": {(L, C, KV, hd, T, hdm_of(kv_bits),
+                                       kv_bits, "float32"): 1},
+                "kv_attention_rows": {}}
+
+    def engine(*a, **k):
+        """A ``StreamingEngine`` that tallies its first append of a whole
+        chunk by shape (``append_shapes``)."""
+        eng = StreamingEngine(*a, audio_chunk=C, **k)
+        eng.append_shapes = None
+        real = eng._append_cross
+
+        def counted(cs, fr):
+            first = eng.append_shapes is None and fr.shape[1] == C
+            before = _shapes(SERVING) if first else None
+            out = real(cs, fr)
+            if first:
+                now = _shapes(SERVING)
+                eng.append_shapes = {n: now[n] - before[n] for n in now}
+            return out
+
+        eng._append_cross = counted
+        return eng
+
+    def audio(tag):
+        return [AudioRequest(frames=fr, prompt=list(pr), max_new=32)
+                for fr, pr in zip(frames, audio_prompts)]
+
+    def alone(pp, qq, kv_bits, r):
+        return generate_asr(WhisperModel, pp, qq, cfg, r.frames, r.prompt,
+                            r.max_new, chunk=C, cache_len=max_len,
+                            kv_bits=kv_bits, device=dev)[0].tolist()
+
+    appends = {}
+
+    def after(tag, eng, reqs, pl, kv_bits):
+        aud = [r for r in reqs if isinstance(r, AudioRequest)]
+        sizes = [[b.shape[1] for b in split_audio(torch.as_tensor(r.frames),
+                                                  C)] for r in aud]
+        check(all(len(r.t_chunks) == len(n) and r.ttft_s is not None
+                  for r, n in zip(aud, sizes)),
+              f"(whisper {tag}) chunk latencies not recorded")
+        whole = [t * 1e3 for r, n in zip(aud, sizes)
+                 for t, m in zip(r.t_chunks, n) if m == C]
+        every = [t * 1e3 for r in aud for t in r.t_chunks]
+        ttft = [r.ttft_s * 1e3 for r in aud]
+        c = eng.caches
+        nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+        self_b = nb(c.self_k, c.self_v, c.self_kf, c.self_vf)
+        cross_b = nb(c.cross_k, c.cross_v, c.cross_kf, c.cross_vf)
+        want_b = kv_cross_bytes_per_request(KV, hd, L, T, kv_bits) * 8
+        check(cross_b == want_b, f"(whisper {tag}) cross memory {cross_b} B, "
+                                 f"the byte model {want_b} B for 8 slots")
+        got = {n: dict(v) for n, v in (eng.append_shapes or {}).items()}
+        check(got == want_append(pl, kv_bits),
+              f"(whisper {tag}) one {C}-frame append's launches by shape: "
+              f"{got}, want {want_append(pl, kv_bits)}")
+        appends[tag] = eng.append_shapes
+        reads = _cross_reads_zero(
+            eng, [_whisper_frames(300, SEED + 30 + i) for i in range(2)],
+            [[int(t) for t in rng.integers(0, cfg.vocab, 16)]
+             for _ in range(6)])
+        out = {"append_ms_median": float(np.median(whole)),
+               "append_ms_median_all_blocks": float(np.median(every)),
+               "appends": len(every), "ttft_ms_median": float(np.median(ttft)),
+               "self_ring_bytes": self_b, "cross_memory_bytes": cross_b,
+               "cross_bytes_per_request": want_b // 8,
+               "launches_per_append": {n: sum(v.values())
+                                       for n, v in got.items()},
+               "cross_reads_zero": dict(zip(("layers", "lm_rows",
+                                             "audio_rows"), reads))}
+        print(f"[whisper] ({tag}) {len(aud)} audio requests, {len(every)} "
+              f"appends: {C}-frame append median {out['append_ms_median']:.2f}"
+              f" ms (all blocks {out['append_ms_median_all_blocks']:.2f}); "
+              f"TTFT median {out['ttft_ms_median']:.2f} ms; self ring "
+              f"{self_b / 1e6:.1f} MB, cross memory {cross_b / 1e6:.1f} MB "
+              f"(= {want_b // 8} B a request x 8); one append "
+              f"{out['launches_per_append']}; a mixed tick's {reads[0]} cross "
+              f"reads: {reads[1]} LM rows exact zeros, {reads[2]} audio rows "
+              f"not", flush=True)
+        return out
+
+    n = WHISPER_LOGITS_LAYERS
+    cfg_cut = dataclasses.replace(cfg, n_layers=n, enc_layers=n)
+    logit_frames = torch.from_numpy(np.stack(
+        [_whisper_frames(T, SEED + 20 + i) for i in range(2)]))
+
+    def cut(pp, qq):
+        def first(t):
+            return {**t, **{k: tree_map(lambda a: a[:n], t[k])
+                            for k in ("enc_layers", "dec_layers")}}
+        return first(pp), first(qq), cfg_cut
+
+    def prepare(c, dv, pp, qq, kv_bits):
+        for blk in split_audio(logit_frames.to(dv), C):
+            c = WhisperModel.append_cross(pp, qq, c, blk, cfg_cut,
+                                          kv_bits=kv_bits)
+        return c
+
+    configs = (("a", "packed uniform int8, kv_bits 8", None, 8),
+               ("b", "packed plan: every encoder and decoder MLP kernel "
+                     "(enc_layers/mlp, dec_layers/mlp) in nibbles (4 bits), "
+                     "the rest int8; kv_bits 4", plan, 4))
+    total, report, ticks, tick_profile = _serve_family(
+        "whisper", WhisperModel, params, qstate, cfg, dev, cases, configs,
+        want, _whisper_controls, cut, max_len=max_len, ring=max_len,
+        n_attn=2 * L, kv_layers=L, ring_field="self_k", engine=engine,
+        lm_lens=lm_lens,
+        audio=audio, alone=alone, after=after, prepare=prepare)
+
+    def profile():
+        tick_profile()
+        t0 = time.perf_counter()
+        for tag, desc, pl, kv_bits in configs[:1]:
+            eng = StreamingEngine(WhisperModel, params, qstate, cfg,
+                                  batch_slots=8, max_len=max_len,
+                                  prefill_chunk=16, packed=True, plan=pl,
+                                  kv_bits=kv_bits, seed=SEED, device=dev,
+                                  audio_chunk=C)
+            fr = torch.from_numpy(frames[0][:C]).to(dev)[None]
+            by_name = {}
+            ops, busy, _, _ = _profiled(
+                lambda cs: eng._append_cross(cs, fr), prepare=eng._new_slot,
+                device_ms=by_name)
+            med = report[tag]["append_ms_median"]
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+            report[tag]["profiled_append"] = {
+                "device_ops": ops, "device_busy_ms": busy,
+                "idle_share_of_median_append": 1.0 - busy / med,
+                "top_device_ms": top}
+            print(f"[whisper] ({tag}) profiled {C}-frame append: {ops} device "
+                  f"operations, device busy {busy:.2f} ms, idle "
+                  f"{1.0 - busy / med:.1%} of the median append; by "
+                  f"operation: " + "; ".join(f"{nm[:60]} {ms:.3f}"
+                                             for nm, ms in top), flush=True)
+            del eng
+        print(f"[whisper] appends profiled in {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+
+    return total, report, ticks, profile, appends["a"]
 
 
 # ---------------------------------------------------------------------------
@@ -4719,7 +5180,7 @@ def main(argv=None) -> int:
     slice_report = train_report = wire_report = None
     if args.phase in ("all", "serve"):
         (total, slice_report, tick_shapes, granite_ticks, griffin_ticks,
-         rwkv_ticks) = slice_phase(dev, cases)
+         rwkv_ticks, whisper_ticks, whisper_append) = slice_phase(dev, cases)
         launches.update(total)
         per = ("one full decode tick of serving configuration (a), calls by "
                "shape as counted on the main path")
@@ -4732,14 +5193,28 @@ def main(argv=None) -> int:
                        f"units with its 2 remainder layers, configuration "
                        f"(a) (packed int8, kv_bits 8, the 2064-slot ring), "
                        f"calls by shape as counted on the main path")
-        rwkv_per = ("one full decode tick of rwkv6-1.6b FULL, configuration "
-                    "(a) (packed int8; no KV cache, so qmatmul alone), calls "
-                    "by shape as counted on the main path")
+        rwkv_per = (f"one full decode tick of rwkv6-1.6b at its published "
+                    f"widths and {RWKV_SERVE_LAYERS} of its 24 layers, "
+                    f"configuration (a) (packed int8; no KV cache, so qmatmul "
+                    f"alone), calls by shape as counted on the main path")
+        whisper_per = ("one full decode tick of whisper-large-v3 FULL through "
+                       "StreamingEngine, configuration (a) (packed int8, "
+                       "kv_bits 8, the 448-slot self ring and the 1500-slot "
+                       "cross memory), calls by shape as counted on the main "
+                       "path")
+        append_per = (f"one {WHISPER['chunk']}-frame append of "
+                      f"whisper-large-v3 FULL (the encoder's 32 layers and the "
+                      f"cross k / v of its 32 decoder layers, one store), "
+                      f"configuration (a), calls by shape as counted on the "
+                      f"main path")
         for k in SERVING:
             tallies[k].append((tick_shapes[k], per))
             tallies[k].append((granite_ticks[k], granite_per))
             tallies[k].append((griffin_ticks[k], griffin_per))
+            tallies[k].append((whisper_ticks[k], whisper_per))
         tallies["qmatmul"].append((rwkv_ticks["qmatmul"], rwkv_per))
+        for k in ("qmatmul", "kv_quantize_store"):
+            tallies[k].append((whisper_append[k], append_per))
         print(f"[time] serving phase done at {time.perf_counter() - t0:.1f} "
               f"s", flush=True)
     if args.phase in ("all", "train"):

@@ -213,6 +213,11 @@ class Engine:
                 while len(self._prefix_cache) > self._prefix_cap:
                     self._prefix_cache.pop(next(iter(self._prefix_cache)))
         self._write_slot(cs, slot)
+        self._join(slot, req, self._first_token(req, last_logits))
+        return RequestHandle(req)
+
+    def _first_token(self, req: Request, last_logits: torch.Tensor) -> int:
+        """Sample a request's first token from its prompt's last logits."""
         sc = self._sampling(req)
         first = _sample(
             last_logits, self._gen,
@@ -220,12 +225,15 @@ class Engine:
                          device=self.device),
             torch.tensor([sc.top_k], dtype=torch.int64, device=self.device),
             sc.temperature > 0)
-        tok = int(first[0])
+        return int(first[0])
+
+    def _join(self, slot: int, req: Request, token: int) -> None:
+        """A prefilled request joins the decode batch at ``slot`` with its
+        first token."""
         self.slot_req[slot] = req
-        self.slot_pos[slot] = plen
-        self._next_tok[slot] = tok
-        self._record(slot, tok)
-        return RequestHandle(req)
+        self.slot_pos[slot] = len(req.prompt)
+        self._next_tok[slot] = token
+        self._record(slot, token)
 
     def _record(self, slot: int, token: int) -> None:
         """Append a sampled token; finish and recycle the slot on EOS or

@@ -50,13 +50,28 @@ def resolve_kv_bits(kv_cache: str,
     return min(e.kv_bits for e in entries)
 
 
+def _kv_row_bytes(n_kv: int, hd: int, kv_bits: Optional[int]) -> int:
+    """Stored bytes of one K+V cache row (one token or one memory frame,
+    one layer): ``2 * KV * (hd / pack + 1)`` quantized (mantissas plus
+    one grid-exponent byte), ``2 * KV * hd * 2`` fp (bf16)."""
+    if kv_bits is None:
+        return 2 * n_kv * hd * 2
+    return 2 * n_kv * ((hd // 2 if kv_bits <= NIBBLE_BITS else hd) + 1)
+
+
 def kv_bytes_per_token(n_kv: int, hd: int, n_layers: int,
                        kv_bits: Optional[int]) -> int:
-    """Stored self-attention ring bytes per decoded token across layers:
-    ``2 * KV * (hd / pack + 1)`` quantized (mantissas plus one exponent
-    byte per row), ``2 * KV * hd * 2`` fp (bf16)."""
-    if kv_bits is None:
-        row = 2 * n_kv * hd * 2
-    else:
-        row = 2 * n_kv * ((hd // 2 if kv_bits <= NIBBLE_BITS else hd) + 1)
-    return row * n_layers
+    """Stored self-attention ring bytes per decoded token across layers
+    (an encoder-decoder model's cross memory is a static cost a request:
+    :func:`kv_cross_bytes_per_request`)."""
+    return _kv_row_bytes(n_kv, hd, kv_bits) * n_layers
+
+
+def kv_cross_bytes_per_request(n_kv: int, hd: int, n_layers: int,
+                               frames: int,
+                               kv_bits: Optional[int]) -> int:
+    """Stored cross-attention memory bytes one encoder-decoder request
+    pins for its lifetime: ``frames`` K+V rows a decoder layer, written
+    once as the audio streams in, on the self ring's grids when
+    ``kv_bits`` is set."""
+    return _kv_row_bytes(n_kv, hd, kv_bits) * n_layers * frames

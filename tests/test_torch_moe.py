@@ -71,7 +71,8 @@ from repro_torch.core import hgq
 from repro_torch.core import plan as tplan
 from repro_torch.core.hgq import QTensor
 from repro_torch.core.plan import LayerPlan, PrecisionPlan
-from repro_torch.models import GriffinLM, RWKVLM, TransformerLM, model_for
+from repro_torch.models import (GriffinLM, RWKVLM, TransformerLM,
+                                WhisperModel, model_for)
 from repro_torch.models.lm import _moe_cfg
 from repro_torch.nn import moe as tmoe
 from repro_torch.nn.common import HGQConfig
@@ -162,8 +163,7 @@ def test_registry_and_model_for():
         assert model_for(tconfigs.get(arch)) is TransformerLM
     assert model_for(tconfigs.get("recurrentgemma-2b")) is GriffinLM
     assert model_for(tconfigs.get("rwkv6-1.6b")) is RWKVLM
-    with pytest.raises(NotImplementedError):
-        model_for(tconfigs.get("whisper-large-v3"))
+    assert model_for(tconfigs.get("whisper-large-v3")) is WhisperModel
 
 
 # --------------------------------- MoE.apply --------------------------------

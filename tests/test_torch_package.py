@@ -51,7 +51,8 @@ def test_imports_no_jax_and_no_reference_package():
         "assert not bad, bad\n"
         "assert len(names) >= 55, names\n"
         "assert {'repro_torch.models.rwkv', 'repro_torch.nn.recurrent',\n"
-        "        'repro_torch.models.griffin'} <= set(names), names\n"
+        "        'repro_torch.models.griffin', 'repro_torch.models.whisper',\n"
+        "        'repro_torch.serving.streaming'} <= set(names), names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300,
@@ -78,6 +79,8 @@ def test_sources_import_neither_jax_nor_repro():
     assert ROOT / "torch_granite_gaps.py" in files
     assert PKG / "models" / "rwkv.py" in files
     assert PKG / "nn" / "recurrent.py" in files
+    assert PKG / "models" / "whisper.py" in files
+    assert PKG / "serving" / "streaming.py" in files
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
