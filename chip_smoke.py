@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of HGQ (serving, training, data-parallel
-training over the compressed gradient wire) on one CUDA card.
+training over the compressed gradient wire, the ``api`` surface and the
+launcher) on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -110,20 +111,35 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    (the WKV state not carried, the token shift taken from the residual
    stream, the per-head norm left out) exceed, one full tick's launches
    by shape exact (33 ``qmatmul``, no KV kernel), and one tick of each
-   profiled last; then serves whisper-large-v3 FULL (32 encoder and 32
-   decoder layers) through ``StreamingEngine`` (``whisper_serving``, 8
+   profiled last; then serves whisper-large-v3 at its published widths
+   and the first 4 of its 32 encoder and 4 of its 32 decoder layers
+   (``WHISPER_SERVE_LAYERS``; all 32 + 32 were held in earlier runs)
+   through ``StreamingEngine`` (``whisper_serving``, 8
    slots, ``max_len`` 448, audio chunks of 250 frames): 6 audio requests
    of 300-1500 frames beside 4 LM requests, (a) packed int8, ``kv_bits``
    8, (b) every MLP kernel in nibbles, ``kv_bits`` 4; each audio request
    equal to ``generate_asr``, each LM request to a plain ``Engine``; one
-   full tick's launches by shape exact (256 ``qmatmul``, 32 stores, 64
-   ``kv_attention_rows``) and one 250-frame append's (256 ``qmatmul`` at
-   M 250, one store for all 32 layers); the cross memory's bytes the byte
+   full tick's launches by shape exact (32 ``qmatmul``, 4 stores, 8
+   ``kv_attention_rows``) and one 250-frame append's (32 ``qmatmul`` at
+   M 250, one store for the four layers); the cross memory's bytes the byte
    model's; every LM row of a mixed tick reading exact zeros from the
    memory; card vs CPU at 2 + 2 layers after a 1500-frame audio within
    the dense limits that three Whisper faults (the memory not appended,
    each chunk encoded at offset 0, the decoder's positions dropped)
-   exceed; one tick of each and one append of (a) profiled last (the four
+   exceed; then the api part (``api_serving``): the shipped serving specs
+   at full width through ``build(spec).make_engine``, each loaded with
+   ``RunSpec.from_args(["--spec", path, "--full"])``: llama3.2-3b from
+   ``serving_packed.json`` (28 layers, d 3072, packed int8, fp cache, 8
+   slots, ``max_len`` 1024) serving qwen2's traffic shape, its packed
+   tree equal to ``pack_params_for_serving`` by hand, every request
+   equal to itself served alone, one full tick's launches by shape
+   exact (197 ``qmatmul``, no KV kernel), card vs CPU at 2 of its 28
+   layers within the dense limits that the dense controls exceed; and
+   qwen2-0.5b from ``serving_kv_plan.json`` (4 slots, nibble MLP,
+   ``kv_bits`` 4), its tokens equal to an ``Engine`` built by hand;
+   qwen2's (a) and (b) engines and Whisper's are built through
+   ``build(RunSpec).make_engine`` too; one tick of each family, one
+   append of Whisper's (a) and one llama tick profiled last (the four
    families through one ``_serve_family``);
 5. train phase: trains the paper's jet tagger at its full width with
    ``examples/quickstart.py``'s configuration through the port's
@@ -186,7 +202,16 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    loss, every step's ~EBOPs and every leaf's first AdamW moment, each
    reading under its limit, which three faulty controls exceed (gates
    not renormalized, capacity one slot short, an expert stack's df summed
-   over its experts); the other models' steps traced last;
+   over its experts); then the api part (``api_training``):
+   ``launch.train.main`` on ``examples/specs/host_1x1.json --full
+   --steps 4 --batch 2 --seq 256 --ckpt-every 2`` (qwen2-0.5b at full
+   width through ``build(spec).init_training()``): a step's
+   ``hgq_quantize`` launches by shape exact (435 single forwards, 48
+   grouped, 459 backward), the state after 4 steps equal bit for bit to
+   a hand-wired ``Trainer``, the same call again resumed from step 3 to
+   the same bits, and at SMOKE ``--mesh 4x1 --grad-compression int8-wire
+   --plan plan_mixed_w4w8.json`` launching the fused wire kernels over a
+   ``LocalMesh(4)``; the other models' steps traced last;
 6. wire phase: (a) trains the same jet tagger data-parallel over
    ``dist.LocalMesh(4)`` (four ranks as threads on the one card: NCCL
    refuses two ranks on one GPU) with ``reduce="compressed"`` (1D, fused,
@@ -209,11 +234,13 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    its events counted by name); then holds every ``wire_pack`` kernel
    shape those paths launched against its plain version and times it;
 7. prints one JSON line with every kernel's numbers, its times per unit
-   of its main path (a full decode tick -- an RWKV tick beside qwen2's,
-   granite's, Griffin's and Whisper's for ``qmatmul``, and a Whisper
+   of its main path (a full decode tick -- an RWKV and a llama3.2-3b
+   tick beside qwen2's, granite's, Griffin's and Whisper's for
+   ``qmatmul``, and a Whisper
    250-frame append for ``qmatmul`` and the store --, a training step --
    the jet's,
-   with an svhn, a muon and an LM step beside it --, a compressed
+   with an svhn, a muon, an LM, a granite and a launcher step beside
+   it --, a compressed
    data-parallel step, a qwen2 gradient reduce) weighted by those
    tallies (a granite step among the training units), the TPU kernels
    still to port, then, last, ``{"ok": true,
@@ -779,10 +806,12 @@ def _attention_inputs(B, S, H, KV, hd, W, nibble, dev, g, ragged=False,
 
 
 def _attention_check(out, ref, vmax, pf, what):
-    """No probs grid: within 1e-5.  With one: at most 1% of outputs may
-    differ by more, each by at most one probs step times
-    (max|v| + |o|) -- a one-ulp exp can move one probability across a
-    grid point, which moves the output by step * (v - o) / l, l >= 1."""
+    """No probs grid: within 1e-5.  With one: at most 1% of outputs, or
+    the outputs of one head row, may differ by more, each by at most one
+    probs step times (max|v| + |o|) -- a one-ulp exp can move one
+    probability across a grid point, which moves its head row's outputs
+    by step * (v - o) / l, l >= 1: on a shape of fewer than 100 head rows
+    one such flip is more than 1% of the outputs."""
     err = (out - ref).abs()
     check(bool(torch.isfinite(out).all()), f"{what}: not finite")
     if pf is None:
@@ -792,7 +821,10 @@ def _attention_check(out, ref, vmax, pf, what):
     step = 2.0 ** -math.floor(pf + 0.5)
     off = err > 1e-5
     frac = float(off.float().mean())
-    check(frac <= 0.01, f"{what}: {frac:.4f} of outputs off by more than 1e-5")
+    rows = int(off.reshape(-1, off.shape[-1]).any(dim=-1).sum())
+    check(frac <= 0.01 or rows <= 1,
+          f"{what}: {frac:.4f} of outputs, in {rows} head rows, off by "
+          f"more than 1e-5")
     lim = step * (vmax + ref.abs()) + 1e-5
     check(bool((err <= lim).all()),
           f"{what}: max err {float(err.max())} beyond one probs step")
@@ -1089,7 +1121,13 @@ RWKV = dict(L=24, d=2048, ff=7168, V=65536, norm="ln")
 # audio chunk 250 frames (5 s at 20 ms a frame)
 WHISPER = dict(L=32, enc=32, d=1280, H=20, KV=20, hd=64, ff=5120, V=51866,
                T=1500, W=448, chunk=250)
+# llama3.2-3b (configs/llama3_2_3b.py FULL; hf:meta-llama, Llama 3.2): 28
+# layers, d 3072, 24 heads and 8 kv heads of 128, d_ff 8192, vocab 128256,
+# the head tied to the table; served from examples/specs/serving_packed.json
+LLAMA = dict(L=28, d=3072, H=24, KV=8, hd=128, ff=8192, V=128256)
 LM_BATCH, LM_SEQ = 2, 2048
+# the launcher's run of examples/specs/host_1x1.json at full width
+API_TRAIN_SEQ = 256
 # granite's training cell: batch 2, seq 1024 (one chunk pair a layer),
 # C = 256 slots an expert a row
 GRANITE_BATCH, GRANITE_SEQ = 2, 1024
@@ -1162,6 +1200,12 @@ LM_SHAPES = [m for m in dict.fromkeys(
 # layer's 8 weights in one grouped forward: the expert stacks [40, 1536,
 # 512] and [40, 512, 1536] per expert channel (126 MB each); beside them
 # the stack per expert tensor
+# the launcher's step (batch 2, seq 256, one chunk pair a layer): its
+# activations per tensor, the table and the layer group as the LM step's
+API_LM_SHAPES = [m for m in dict.fromkeys(
+    (s, (), torch.float32) for s in _lm_layer_acts(LM_BATCH, API_TRAIN_SEQ,
+                                                   QWEN["chunk"]))
+    if m not in HGQ_SHAPES + LM_SHAPES]
 GRANITE_TABLE = ((GRANITE["V"], GRANITE["d"]), (1, GRANITE["d"]),
                  torch.float32)
 GRANITE_HEAD = ((GRANITE["d"], GRANITE["V"]), (1, GRANITE["V"]),
@@ -1174,7 +1218,7 @@ GRANITE_SHAPES = [m for m in dict.fromkeys(
     + GRANITE_GROUP
     + [((GRANITE["E"], GRANITE["d"], GRANITE["ff"]), (GRANITE["E"], 1, 1),
         torch.float32)])
-    if m not in HGQ_SHAPES + LM_SHAPES]
+    if m not in HGQ_SHAPES + LM_SHAPES + API_LM_SHAPES]
 
 
 def _bits_of(t):
@@ -1837,6 +1881,34 @@ def kernel_phase(dev):
     for name, keys in WIRE_EDGE.items():
         for key in keys:
             cases[name][key] = wire_case(name, key, dev, g)
+    # the shapes of the api part and of Whisper's served depth:
+    # llama3.2-3b's qmatmul (int8 q, o; k, v; gate, up; down; the tied
+    # head), the launcher step's hgq_quantize activations (seq 256), and
+    # the store of a 250-frame append's cross rows for WHISPER_SERVE_LAYERS
+    # layers
+    for hdm, bits in ((64, 8), (32, 4)):
+        key = (WHISPER_SERVE_LAYERS, WHISPER["chunk"], WHISPER["KV"],
+               WHISPER["hd"], WHISPER["T"], hdm, bits, "float32")
+        cases["kv_quantize_store"][key] = kv_store_case(key, False, dev, g)
+    ld, lkv, lff = LLAMA["d"], LLAMA["KV"] * LLAMA["hd"], LLAMA["ff"]
+    llama = []
+    for M in (8, 16):
+        for K, N in ((ld, ld), (ld, lkv), (ld, lff), (lff, ld),
+                     (ld, LLAMA["V"])):
+            case = cases["qmatmul"][M, K, N, 8] = qmatmul_case(M, K, N, 8,
+                                                               dev, g)
+            llama.append(case)
+    check(max(c["rel_err"] for c in llama) <= REL_ERR_LIMIT
+          < max(c["rel_err_two_term"] for c in llama),
+          f"qmatmul at llama3.2-3b's shapes: largest error over "
+          f"(|x|@|w|)*scale {max(c['rel_err'] for c in llama):.3g}, "
+          f"two-term control "
+          f"{max(c['rel_err_two_term'] for c in llama):.3g}, limit "
+          f"{REL_ERR_LIMIT}")
+    for shape, fshape, dtype in API_LM_SHAPES:
+        key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
+        cases["hgq_quantize_fwd"][key] = fwd
+        cases["hgq_quantize_bwd"][key] = bwd
     print_cases(cases)
     return cases
 
@@ -2405,9 +2477,9 @@ def slice_phase(dev, cases):
     report, tick_shapes_a = {}, None
     for tag, desc, pl, kv_bits in configs:
         torch.cuda.reset_peak_memory_stats()
-        eng = Engine(TransformerLM, params, qstate, cfg, batch_slots=8,
-                     max_len=max_len, prefill_chunk=16, packed=True, plan=pl,
-                     kv_bits=kv_bits, seed=SEED, device=dev)
+        eng = api_engine(serving_spec("qwen2-0.5b", pl, kv_bits), params,
+                         qstate, dev, max_len, kv_bits)
+        check(eng.slots == 8, f"({tag}) {eng.slots} slots")
         reqs = [Request(prompt=list(pr), max_new=max_new) for pr in prompts]
         torch.cuda.synchronize()
         unpacks = [0]
@@ -2504,9 +2576,10 @@ def slice_phase(dev, cases):
         rwkv_serving(dev, cases)
     (whisper_total, report["whisper"], whisper_ticks, whisper_profile,
      whisper_append) = whisper_serving(dev, cases)
+    api_total, report["api"], llama_ticks, api_profile = api_serving(dev)
     for k in total:
         total[k] += granite_total[k] + griffin_total[k] + rwkv_total[k] \
-            + whisper_total[k]
+            + whisper_total[k] + api_total[k]
     # profiled only now, after every timed run
     for tag, desc, pl, kv_bits in configs:
         _read_profiled_tick(tag, cfg, report[tag], _profile_full_tick(
@@ -2516,8 +2589,9 @@ def slice_phase(dev, cases):
     griffin_profile()
     rwkv_profile()
     whisper_profile()
+    api_profile()
     return (total, report, tick_shapes_a, granite_ticks, griffin_ticks,
-            rwkv_ticks, whisper_ticks, whisper_append)
+            rwkv_ticks, whisper_ticks, whisper_append, llama_ticks)
 
 
 def _read_profiled_tick(tag, cfg, entry, profiled, unpacks=0, n_attn=None,
@@ -3088,6 +3162,12 @@ def rwkv_serving(dev, cases):
 # tree), after a 1500-frame audio appended in chunks of 250, within the
 # dense limits, which three Whisper faults (``_whisper_controls``) exceed.
 WHISPER_LOGITS_LAYERS = 2
+# whisper-large-v3 is served at the first this many of its 32 encoder and
+# of its 32 decoder layers, at its published widths (all 32 + 32 were held
+# in earlier runs, PERF.md §4): the cut pays for the api part within the
+# script's time; its tallies scale with the layers.  The layers are cut
+# from the full model's init (``whisper_first_layers``)
+WHISPER_SERVE_LAYERS = 4
 WHISPER_MLP = ("enc_layers/mlp", "dec_layers/mlp")
 # the audio requests' frames (1037 leaves power-of-two tails of 32, 4 and
 # 1), each with a decoder prompt of 4 tokens; the LM requests' prompts
@@ -3170,9 +3250,21 @@ def _cross_reads_zero(eng, frames, prompts):
     return len(seen), int(lm_rows.sum()), int(audio_rows.sum())
 
 
+def whisper_first_layers(params, qstate, cfg, n):
+    """The first ``n`` encoder and ``n`` decoder layers of a Whisper tree
+    (``params``, ``qstate``, as ``WhisperModel.init`` made them, copied)
+    and ``cfg`` at that depth."""
+    from repro_torch.tree import tree_map
+    cut = [{**t, **{k: tree_map(lambda a: a[:n].clone(), t[k])
+                    for k in ("enc_layers", "dec_layers")}}
+           for t in (params, qstate)]
+    return (*cut, dataclasses.replace(cfg, n_layers=n, enc_layers=n))
+
+
 def whisper_serving(dev, cases):
-    """whisper-large-v3 FULL (32 encoder and 32 decoder layers, random
-    weights from the seed) through ``StreamingEngine`` and
+    """whisper-large-v3 at its published widths and
+    ``WHISPER_SERVE_LAYERS`` of its 32 encoder and of its 32 decoder layers
+    (random weights from the seed) through ``StreamingEngine`` and
     ``_serve_family``: 8 slots, ``max_len`` 448, prompt chunks of 16,
     audio chunks of 250 frames; 6 audio requests (``WHISPER_AUDIO`` frames,
     4-token prompts) beside 4 LM requests of 16-64 prompt tokens, 32 new
@@ -3187,7 +3279,7 @@ def whisper_serving(dev, cases):
     store, two ``kv_attention_rows`` (the 448-slot ring, the 1500-slot
     memory); one 250-frame append: 6 ``qmatmul`` an encoder layer and the
     cross k, v of every decoder layer at M 250, one ``kv_quantize_store``
-    for all 32 layers' rows; no ``unpack_nibbles`` call; the cross memory's
+    for all decoder layers' rows; no ``unpack_nibbles`` call; the cross memory's
     bytes the byte model's; in a mixed tick every LM row reads exact zeros
     from the memory; card vs CPU at 2 + 2 layers against the three Whisper
     controls.  Returns ``_serve_family``'s four values and configuration
@@ -3211,9 +3303,12 @@ def whisper_serving(dev, cases):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    params, qstate = WhisperModel.init(gen, cfg, device=dev)
+    params, qstate, cfg = whisper_first_layers(
+        *WhisperModel.init(gen, cfg, device=dev), cfg, WHISPER_SERVE_LAYERS)
     torch.cuda.synchronize()
-    print(f"[whisper] whisper-large-v3 FULL init on the card: "
+    print(f"[whisper] whisper-large-v3 at its published widths and "
+          f"{cfg.enc_layers} + {cfg.n_layers} of its {Wh['enc']} + "
+          f"{Wh['L']} layers, init on the card: "
           f"{time.perf_counter() - t0:.2f} s, {cfg.n_params() / 1e9:.3f} B "
           f"parameters", flush=True)
     plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
@@ -3249,10 +3344,17 @@ def whisper_serving(dev, cases):
                                        kv_bits, "float32"): 1},
                 "kv_attention_rows": {}}
 
-    def engine(*a, **k):
-        """A ``StreamingEngine`` that tallies its first append of a whole
-        chunk by shape (``append_shapes``)."""
-        eng = StreamingEngine(*a, audio_chunk=C, **k)
+    def engine(model, params, qstate, cfg_, *, plan, kv_bits, max_len, **_):
+        """The ``StreamingEngine`` of ``build(serving_spec(...))
+        .make_engine`` (``plan``, ``kv_bits``, audio chunks of ``C``), which
+        tallies its first append of a whole chunk by shape
+        (``append_shapes``)."""
+        eng = api_engine(serving_spec("whisper-large-v3", plan, kv_bits,
+                                      audio_chunk=C), params, qstate, dev,
+                         max_len, kv_bits, cfg=cfg_)
+        check(isinstance(eng, StreamingEngine) and eng.audio_chunk == C
+              and eng.slots == 8, "whisper: make_engine did not give "
+                                  "the StreamingEngine of the spec")
         eng.append_shapes = None
         real = eng._append_cross
 
@@ -3384,6 +3486,438 @@ def whisper_serving(dev, cases):
               f"s", flush=True)
 
     return total, report, ticks, profile, appends["a"]
+
+
+# ---------------------------------------------------------------------------
+# the api part: the launcher and engines built from RunSpec values
+# ---------------------------------------------------------------------------
+
+SPECS = ROOT / "examples" / "specs"
+# llama3.2-3b from serving_packed.json: one full tick's qmatmul launches by
+# shape (8 slots; q, o; k, v; gate, up; down a layer; the tied head)
+LLAMA_TICK = {(8, LLAMA["d"], LLAMA["d"], 8): 2 * LLAMA["L"],
+              (8, LLAMA["d"], LLAMA["KV"] * LLAMA["hd"], 8): 2 * LLAMA["L"],
+              (8, LLAMA["d"], LLAMA["ff"], 8): 2 * LLAMA["L"],
+              (8, LLAMA["ff"], LLAMA["d"], 8): LLAMA["L"],
+              (8, LLAMA["d"], LLAMA["V"], 8): 1}
+LLAMA_LOGITS_LAYERS = 2
+API_KV_PLAN_REQUESTS = 4
+
+
+def _with_kv_bits(plan, kv_bits):
+    """``plan`` (None: uniform int8) with every entry's KV width
+    ``kv_bits``; pack and wire widths as they were."""
+    from repro_torch.core.plan import PrecisionPlan
+    plan = plan or PrecisionPlan()
+    kv = lambda e: dataclasses.replace(e, kv_bits=kv_bits)
+    return PrecisionPlan(default=kv(plan.default),
+                         layers={k: kv(e) for k, e in plan.layers.items()})
+
+
+def serving_spec(arch, plan, kv_bits, audio_chunk=None):
+    """The ``RunSpec`` of a served configuration: ``arch`` at full width,
+    8 slots, packed weights at ``plan``'s pack widths (None: int8), the KV
+    ring at ``kv_bits`` (``kv_cache`` "int8" at 8, else "plan" with every
+    entry's KV width ``kv_bits``), audio chunks of ``audio_chunk`` frames
+    beside LM traffic where it is given."""
+    from repro_torch.api import AudioSpec, PrecisionSpec, RunSpec, ServingSpec
+    sv = dict(kv_cache="int8" if kv_bits == 8 else "plan")
+    if audio_chunk is not None:
+        sv.update(workloads=("lm", "asr"),
+                  audio=AudioSpec(chunk_frames=audio_chunk))
+    return RunSpec(arch=arch, full=True,
+                   precision=PrecisionSpec(packed_serving=True),
+                   serving=ServingSpec(**sv),
+                   plan=plan if kv_bits == 8 else _with_kv_bits(plan,
+                                                                kv_bits))
+
+
+def api_engine(spec, params, qstate, dev, max_len, kv_bits, cfg=None):
+    """``build(spec).make_engine(...)`` on the card (chunks of 16, the
+    sampling seed ``SEED``), checked to serve packed weights at
+    ``kv_bits``.  ``cfg``: the spec's config at fewer layers, for a part
+    whose depth is cut (a spec names the published config, so the cut is
+    applied to the built context)."""
+    from repro_torch.api import build
+    ctx = build(spec, device=dev)
+    if cfg is not None:
+        check(dataclasses.replace(ctx.cfg, n_layers=cfg.n_layers,
+                                  enc_layers=cfg.enc_layers) == cfg,
+              f"{spec.arch}: {cfg} is not the spec's config at fewer layers")
+        ctx.cfg = cfg
+    eng = ctx.make_engine(params, qstate, max_len=max_len, prefill_chunk=16,
+                          seed=SEED)
+    check(eng.packed and eng.kv_bits == kv_bits,
+          f"{spec.arch}: make_engine gave packed={eng.packed}, kv_bits="
+          f"{eng.kv_bits}, not packed at {kv_bits}")
+    return eng
+
+
+def _same_tree(a, b):
+    from repro_torch.tree import tree_flatten_with_path
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    return [k for k, _ in fa] == [k for k, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def _served_requests(vocab, n, seed):
+    """qwen2's traffic shape: ``n`` greedy requests, prompts of 16 and 256
+    tokens and the rest uniform in 16-256, 32 new tokens each."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    lens = ([16, 256] + [int(k) for k in rng.integers(16, 257, n)])[:n]
+    return [Request(prompt=[int(t) for t in rng.integers(0, vocab, k)],
+                    max_new=32) for k in lens]
+
+
+def api_serving(dev):
+    """The shipped serving specs at full width through ``build(spec)
+    .make_engine``, each loaded with ``RunSpec.from_args(["--spec", path,
+    "--full"])``: (b) llama3.2-3b from ``serving_packed.json`` (packed
+    int8, fp cache, 8 slots), 8 requests of qwen2's traffic shape; its
+    packed tree equal to ``pack_params_for_serving`` by hand, every
+    request equal to itself served alone, one full tick 197 ``qmatmul``
+    by shape (``LLAMA_TICK``) and no KV kernel, card vs CPU at 2 of its
+    28 layers within the dense limits, which the dense controls exceed;
+    (c) qwen2-0.5b from ``serving_kv_plan.json`` (4 slots, attention at
+    ``kv_bits`` 4, the MLP in nibbles): its tokens equal an ``Engine``
+    built by hand with the same plan and ``kv_bits=4``, a full tick
+    running int8 and nibble ``qmatmul``, the store and the attention
+    read.  Returns (launches, report, llama's full tick by shape, a
+    function profiling one llama tick, to be called after every timed
+    run)."""
+    from repro_torch.api import RunSpec, build
+    from repro_torch.dist.perf import pack_params_for_serving
+    from repro_torch.models import TransformerLM
+    from repro_torch.serving import Engine, Request, packed_nbytes
+    from repro_torch.tree import tree_leaves
+
+    t_part = time.perf_counter()
+    total = collections.Counter()
+    report = {}
+    # (b) llama3.2-3b
+    spec = RunSpec.from_args(["--spec", str(SPECS / "serving_packed.json"),
+                              "--full"])
+    ctx = build(spec, device=dev)
+    cfg = ctx.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+           cfg.d_ff, cfg.vocab, cfg.tie_embeddings) == tuple(
+               LLAMA[k] for k in ("L", "d", "H", "KV", "hd", "ff", "V"))
+          + (True,) and ctx.model is TransformerLM
+          and spec.precision.packed_serving and spec.serving.slots == 8
+          and spec.serving.kv_cache == "fp", "not serving_packed.json's "
+          "llama3.2-3b at full width")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, qstate = ctx.init_state()
+    eng = ctx.make_engine(params, qstate, max_len=1024, prefill_chunk=16)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    check(eng.packed and eng.kv_bits is None and eng.slots == 8,
+          f"llama engine: packed {eng.packed}, kv_bits {eng.kv_bits}, "
+          f"{eng.slots} slots")
+    same_pack = _same_tree(eng.p, pack_params_for_serving(params, None))
+    check(same_pack, "llama: the engine's packed tree is not "
+                     "pack_params_for_serving's")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = _served_requests(cfg.vocab, 8, SEED + 5)
+    torch.cuda.synchronize()
+    _reset_counts()                           # the main path starts here
+    t0 = time.perf_counter()
+    tick_ms, tick_shapes, _ = _serve(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(SERVING)                 # ... and ends here
+    total.update(counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(r.done and len(r.out) == r.max_new for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "llama: not every request finished in range")
+    check(tick_shapes is not None, "llama: no tick had every slot busy")
+    got = {k: dict(v) for k, v in tick_shapes.items()}
+    check(got == {"qmatmul": LLAMA_TICK, "kv_quantize_store": {},
+                  "kv_attention_rows": {}}
+          and counts["kv_quantize_store"] == counts["kv_attention_rows"] == 0,
+          f"llama: one full tick's launches by shape {got}, want "
+          f"{LLAMA_TICK} and no KV kernel; while serving {counts}")
+    t0 = time.perf_counter()
+    apart = []
+    for i, r in enumerate(reqs):
+        one = Request(prompt=list(r.prompt), max_new=r.max_new)
+        ctx.make_engine(eng.p, qstate, max_len=1024,
+                        prefill_chunk=16).run([one])
+        if one.out != r.out:
+            apart.append(i)
+    alone_s = time.perf_counter() - t0
+    check(not apart, f"llama: requests {apart} served alone give other "
+                     f"tokens than in the batch")
+    t0 = time.perf_counter()
+    pc, qc, cfg_cut = _first_layers(eng.p, qstate, cfg, "layers",
+                                    LLAMA_LOGITS_LAYERS, LLAMA_LOGITS_LAYERS)
+    logits = _logits_vs_plain(pc, qc, cfg_cut, None, dev, _dense_controls)
+    logits_s = time.perf_counter() - t0
+    del pc, qc
+    full, cont = logits["full"], logits["continuous"]
+    print(f"[api] (b) llama3.2-3b card vs CPU logits at "
+          f"{LLAMA_LOGITS_LAYERS} layers: {json.dumps(logits)} (limits: "
+          f"full {LOGITS_REL_GROSS}, continuous {LOGITS_REL_LIMIT})",
+          flush=True)
+    check(full["rel_l2"] <= LOGITS_REL_GROSS,
+          f"llama: card vs CPU logits rel L2 {full['rel_l2']}")
+    check(cont["rel_l2"] <= LOGITS_REL_LIMIT and cont["argmax_agree"] == 1.0,
+          f"llama: card vs CPU logits without activation quantizers: {cont}")
+    check(all(c > LOGITS_REL_LIMIT for c in cont["controls"].values()),
+          f"llama: the logits check misses a control: {cont}")
+    toks = sum(len(r.out) for r in reqs)
+    med = float(np.median(tick_ms))
+    report["llama"] = {
+        "spec": "examples/specs/serving_packed.json --full",
+        "config": "llama3.2-3b FULL (configs/llama3_2_3b.py; hf:meta-llama, "
+                  "Llama 3.2): 28 layers, d 3072, 24 heads and 8 kv heads "
+                  "of 128, d_ff 8192, vocab 128256, tied head; random "
+                  "weights from the spec's seed; packed int8, fp (bf16) "
+                  "cache, 8 slots, max_len 1024, chunks of 16",
+        "n_params": n_params, "requests": len(reqs),
+        "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "new_tokens": toks, "decode_tick_ms_median": med,
+        "ticks": len(tick_ms), "tokens_per_s": toks / wall, "wall_s": wall,
+        "init_and_engine_s": built_s, "alone_s": alone_s,
+        "logits_s": logits_s, "peak_mem_gib": peak,
+        "packed_weight_bytes": packed_nbytes(eng.p),
+        "packed_tree_equal_by_hand": same_pack, "launches": counts,
+        "launches_per_full_tick": {k: sum(c.values())
+                                   for k, c in tick_shapes.items()},
+        "logits_vs_cpu": logits}
+    print(f"[api] (b) llama3.2-3b from serving_packed.json: {len(reqs)} "
+          f"requests, {toks} new tokens in {wall:.2f} s = "
+          f"{toks / wall:.1f} tok/s; decode tick median {med:.2f} ms over "
+          f"{len(tick_ms)} ticks; peak memory {peak:.2f} GiB; packed "
+          f"weights {report['llama']['packed_weight_bytes'] / 1e9:.3f} GB "
+          f"(equal to pack_params_for_serving); per full tick "
+          f"{report['llama']['launches_per_full_tick']}; every request "
+          f"equal alone ({alone_s:.1f} s)", flush=True)
+    llama_pp = eng.p
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) qwen2-0.5b from serving_kv_plan.json
+    spec = RunSpec.from_args(["--spec", str(SPECS / "serving_kv_plan.json"),
+                              "--full"])
+    ctx2 = build(spec, device=dev)
+    check(spec.serving.slots == 4 and spec.serving.kv_cache == "plan"
+          and ctx2.plan is not None, "not serving_kv_plan.json")
+    params, qstate2 = ctx2.init_state()
+    reqs = _served_requests(ctx2.cfg.vocab, API_KV_PLAN_REQUESTS, SEED + 6)
+    eng = ctx2.make_engine(params, qstate2, max_len=1024, prefill_chunk=16)
+    check(eng.kv_bits == 4 and eng.packed,
+          f"kv_plan engine: kv_bits {eng.kv_bits}, packed {eng.packed}")
+    _reset_counts()                           # the main path starts here
+    t0 = time.perf_counter()
+    kv_ms, kv_shapes, _ = _serve(eng, reqs)
+    torch.cuda.synchronize()
+    kv_wall = time.perf_counter() - t0
+    kv_counts = _counts(SERVING)              # ... and ends here
+    total.update(kv_counts)
+    del eng
+    hand = Engine(TransformerLM, params, qstate2, ctx2.cfg, batch_slots=4,
+                  max_len=1024, prefill_chunk=16, packed=True,
+                  plan=spec.plan, kv_bits=4, device=dev)
+    by_hand = [Request(prompt=list(r.prompt), max_new=r.max_new)
+               for r in reqs]
+    hand.run(by_hand)
+    del hand, params
+    check([r.out for r in reqs] == [r.out for r in by_hand],
+          "kv_plan: the api-built engine's tokens are not the hand-built "
+          "engine's")
+    per_tick = {k: {" ".join(map(str, s)): n for s, n in c.items()}
+                for k, c in (kv_shapes or {}).items()}
+    bits = {s[3] for s in (kv_shapes or {}).get("qmatmul", {})}
+    check(kv_shapes is not None and bits == {8, 4}
+          and sum(kv_shapes["kv_quantize_store"].values()) == 24
+          and sum(kv_shapes["kv_attention_rows"].values()) == 24,
+          f"kv_plan: one full tick's launches by shape {per_tick}")
+    report["kv_plan"] = {
+        "spec": "examples/specs/serving_kv_plan.json --full",
+        "requests": len(reqs), "decode_tick_ms_median":
+            float(np.median(kv_ms)), "wall_s": kv_wall,
+        "launches": kv_counts, "launches_per_full_tick": per_tick,
+        "equal_to_hand_built_engine": True}
+    print(f"[api] (c) qwen2-0.5b from serving_kv_plan.json: {len(reqs)} "
+          f"requests equal to the hand-built engine's; one full tick "
+          f"{per_tick}; tick median {report['kv_plan']['decode_tick_ms_median']:.2f} ms",
+          flush=True)
+    report["part_s"] = time.perf_counter() - t_part
+    print(f"[api] serving part took {report['part_s']:.1f} s", flush=True)
+
+    def profile():
+        def engine(*a, **k):
+            e = ctx.make_engine(llama_pp, qstate, max_len=1024,
+                                prefill_chunk=16)
+            return e
+        by_name = {}
+        ops, busy, _, names = _profile_full_tick(
+            engine, Request, TransformerLM, None, None, cfg, None, None,
+            [r.prompt for r in _served_requests(cfg.vocab, 8, SEED + 5)],
+            dev, device_ms=by_name)
+        med = report["llama"]["decode_tick_ms_median"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+        qm = sum(ms for nm, ms in by_name.items() if "qmatmul" in nm)
+        report["llama"]["profiled_full_tick"] = {
+            "device_ops": ops, "device_busy_ms": busy,
+            "idle_share_of_median_tick": 1.0 - busy / med,
+            "qmatmul_device_ms": qm, "top_device_ms": top}
+        print(f"[api] (b) llama3.2-3b profiled full tick: {ops} device "
+              f"operations, device busy {busy:.2f} ms (qmatmul {qm:.3f}), "
+              f"idle {1.0 - busy / med:.1%} of the median tick; by "
+              f"operation: " + "; ".join(f"{nm[:60]} {ms:.3f}"
+                                         for nm, ms in top), flush=True)
+
+    return total, report, tick_shapes, profile
+
+
+API_TRAIN_STEPS = 4
+
+
+def _launcher(argv):
+    """``launch.train.main(argv)``, its printed lines kept: (its
+    ``TrainSetup``, the lines)."""
+    import io
+    from repro_torch.launch import train as launcher
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        setup = launcher.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[api] launcher: {line}", flush=True)
+    return setup, lines
+
+
+def api_training(dev):
+    """(a) ``launch.train.main`` on ``examples/specs/host_1x1.json`` with
+    ``--full --steps 4 --batch 2 --seq 256 --ckpt-every 2``: qwen2-0.5b at
+    its published widths, through ``build(spec).init_training()``, on the
+    card.  Checks: the printed lines; a step's ``hgq_quantize`` launches
+    by shape exact (``_lm_per_step`` at seq 256); the params, qstate and
+    AdamW state after 4 steps equal, bit for bit, a hand-wired
+    ``Trainer`` (``make_train_step``) with the same ``TrainConfig``, init
+    and data; a second call on the same checkpoint directory prints
+    ``resumed from step 3`` and ends in the first call's state bit for
+    bit.  Then a short check at SMOKE: ``--mesh 4x1 --grad-compression
+    int8-wire --plan plan_mixed_w4w8.json`` runs the fused wire kernels
+    over a ``LocalMesh(4)`` (the plan's 4-bit leaves make a nibble
+    bucket, which ``wire_pack_rows`` packs).
+    Returns (report, a step's launches by shape)."""
+    import shutil
+    from repro_torch.api import RunSpec
+    from repro_torch.data import make_pipeline
+    from repro_torch.dist import LocalMesh
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import Trainer, lm_loss
+    from repro_torch.tree import tree_leaves
+
+    t_part = time.perf_counter()
+    ckpt = ROOT / "build" / "api_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--spec", str(SPECS / "host_1x1.json"), "--full", "--steps",
+            str(API_TRAIN_STEPS), "--batch", str(LM_BATCH), "--seq",
+            str(API_TRAIN_SEQ), "--ckpt-dir", str(ckpt), "--ckpt-every", "2"]
+    spec = RunSpec.from_args(argv)
+    _reset_counts()                           # the main path starts here
+    t0 = time.perf_counter()
+    setup, lines = _launcher(argv)
+    wall = time.perf_counter() - t0
+    counts = _counts(TRAINING)                # ... and ends here
+    per_step = _per_step(_shapes(TRAINING), API_TRAIN_STEPS)
+    cfg = setup.ctx.cfg
+    check(_lm_dims(cfg) == QWEN and spec.full and spec.data.batch == LM_BATCH
+          and spec.data.seq == API_TRAIN_SEQ, "the launcher did not train "
+          "qwen2-0.5b at full width, batch 2, seq 256")
+    step_lines = [l for l in lines if l.startswith("step ")]
+    check(len(step_lines) == API_TRAIN_STEPS
+          and lines[-1].startswith(f"done: {API_TRAIN_STEPS} steps"),
+          f"the launcher printed {lines}")
+    losses = [float(l.split("loss=")[1].split()[0]) for l in step_lines]
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab)) <= LM_LOSS0_MARGIN,
+          f"launcher losses {losses}, step 0 not within {LM_LOSS0_MARGIN} "
+          f"of ln(vocab)")
+    want = _lm_per_step(LM_BATCH, API_TRAIN_SEQ, cfg.n_layers, cfg.q_chunk)
+    check(per_step == want and counts == {
+              k: sum(c.values()) * API_TRAIN_STEPS for k, c in want.items()},
+          f"the launcher's launches a step {per_step}, not {want}")
+    # check 1: a hand-wired Trainer from the same init, config and data
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(spec.seed)
+    p, q = TransformerLM.init(gen, cfg, device=dev)
+    tr = Trainer(lambda p, q, b, mode: TransformerLM.forward(p, q, b, cfg,
+                                                             mode),
+                 lambda out, b: lm_loss(out, b["tokens"]),
+                 dataclasses.replace(spec.train, ckpt_dir=""), p, q,
+                 pipeline=make_pipeline(dataclasses.replace(
+                     spec.data, vocab=cfg.vocab), dev))
+    del p, q
+    tr.run(log=lambda *a: None)
+    state = tree_leaves((setup.params, setup.qstate, setup.opt))
+    same_hand = len(state) == len(tree_leaves((tr.params, tr.qstate,
+                                               tr.opt))) and all(
+        torch.equal(a, b) for a, b in zip(state, tree_leaves(
+            (tr.params, tr.qstate, tr.opt))))
+    del tr
+    check(same_hand, "the launcher's state after 4 steps is not the "
+                     "hand-wired Trainer's")
+    # check 2: the same call again resumes from the checkpoint of step 2
+    again, lines2 = _launcher(argv)
+    same_resumed = all(torch.equal(a, b) for a, b in zip(
+        state, tree_leaves((again.params, again.qstate, again.opt))))
+    check(lines2[0] == "resumed from step 3" and again.start_step == 3
+          and same_resumed, f"the second call: {lines2[:2]}, state equal "
+                            f"{same_resumed}")
+    del setup, again, state
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher over a LocalMesh(4) at SMOKE: the fused wire kernels
+    before = _counts(FUSED_WIRE)
+    wire, wlines = _launcher(["--spec", str(SPECS / "host_1x1.json"),
+                              "--mesh", "4x1", "--grad-compression",
+                              "int8-wire", "--plan",
+                              str(SPECS / "plan_mixed_w4w8.json"),
+                              "--steps", "2"])
+    wire_counts = {k: n - before[k] for k, n in _counts(FUSED_WIRE).items()}
+    check(isinstance(wire.ctx.mesh, LocalMesh) and wire.ctx.mesh.size == 4
+          and all(n > 0 for n in wire_counts.values())
+          and wlines[-1].startswith("done: 2 steps"),
+          f"the launcher over LocalMesh(4): {wire_counts}, {wlines}")
+    launches = collections.Counter(counts)
+    launches.update(wire_counts)
+    report = {
+        "argv": argv[:-4] + ["--ckpt-dir", "D", "--ckpt-every", "2"],
+        "config": "configs/qwen2_0_5b.py FULL through examples/specs/"
+                  "host_1x1.json --full: batch 2, seq 256 (one chunk pair a "
+                  "layer), remat, 4 steps of the spec's TrainConfig (lr "
+                  "1e-3, beta 1e-9 -> 1e-7 over them), lm data from the "
+                  "spec's seed",
+        "losses": losses, "wall_s": wall,
+        "step_ms_mean_incl_checkpoint": wall / API_TRAIN_STEPS * 1e3,
+        "equal_to_hand_wired_trainer": same_hand,
+        "resumed_equal": same_resumed, "launches": dict(launches),
+        "launches_per_step": {k: {" ".join(map(str, key)): n
+                                  for key, n in c.items()}
+                              for k, c in per_step.items()},
+        "wire_smoke_launches": wire_counts,
+        "part_s": time.perf_counter() - t_part}
+    print(f"[api] (a) launcher: qwen2-0.5b FULL, 4 steps in {wall:.1f} s "
+          f"(checkpoint included), losses {losses}; equal to the hand-wired "
+          f"Trainer; resumed from step 3 bit for bit; LocalMesh(4) wire "
+          f"{wire_counts}; the part took {report['part_s']:.1f} s",
+          flush=True)
+    return report, per_step
 
 
 # ---------------------------------------------------------------------------
@@ -4513,6 +5047,9 @@ def train_phase(dev):
     runs["granite"] = (None, rep, ps)
     report["granite"] = rep
     rep["part_s"] = time.perf_counter() - t0
+    rep, ps = api_training(dev)
+    runs["api"] = (None, rep, ps)
+    report["api"] = rep
     # profiled only now, after every timed run
     for name, (tr, rep, ps) in runs.items():
         if tr is not None:
@@ -5180,7 +5717,8 @@ def main(argv=None) -> int:
     slice_report = train_report = wire_report = None
     if args.phase in ("all", "serve"):
         (total, slice_report, tick_shapes, granite_ticks, griffin_ticks,
-         rwkv_ticks, whisper_ticks, whisper_append) = slice_phase(dev, cases)
+         rwkv_ticks, whisper_ticks, whisper_append,
+         llama_ticks) = slice_phase(dev, cases)
         launches.update(total)
         per = ("one full decode tick of serving configuration (a), calls by "
                "shape as counted on the main path")
@@ -5197,22 +5735,30 @@ def main(argv=None) -> int:
                     f"widths and {RWKV_SERVE_LAYERS} of its 24 layers, "
                     f"configuration (a) (packed int8; no KV cache, so qmatmul "
                     f"alone), calls by shape as counted on the main path")
-        whisper_per = ("one full decode tick of whisper-large-v3 FULL through "
-                       "StreamingEngine, configuration (a) (packed int8, "
-                       "kv_bits 8, the 448-slot self ring and the 1500-slot "
-                       "cross memory), calls by shape as counted on the main "
-                       "path")
+        whisper_per = (f"one full decode tick of whisper-large-v3 at its "
+                       f"published widths and {WHISPER_SERVE_LAYERS} + "
+                       f"{WHISPER_SERVE_LAYERS} of its 32 + 32 layers through "
+                       f"StreamingEngine, configuration (a) (packed int8, "
+                       f"kv_bits 8, the 448-slot self ring and the 1500-slot "
+                       f"cross memory), calls by shape as counted on the main "
+                       f"path")
         append_per = (f"one {WHISPER['chunk']}-frame append of "
-                      f"whisper-large-v3 FULL (the encoder's 32 layers and the "
-                      f"cross k / v of its 32 decoder layers, one store), "
-                      f"configuration (a), calls by shape as counted on the "
-                      f"main path")
+                      f"whisper-large-v3 at {WHISPER_SERVE_LAYERS} + "
+                      f"{WHISPER_SERVE_LAYERS} of its layers (the encoder's "
+                      f"layers and the cross k / v of its decoder layers, one "
+                      f"store), configuration (a), calls by shape as counted "
+                      f"on the main path")
         for k in SERVING:
             tallies[k].append((tick_shapes[k], per))
             tallies[k].append((granite_ticks[k], granite_per))
             tallies[k].append((griffin_ticks[k], griffin_per))
             tallies[k].append((whisper_ticks[k], whisper_per))
         tallies["qmatmul"].append((rwkv_ticks["qmatmul"], rwkv_per))
+        tallies["qmatmul"].append((
+            llama_ticks["qmatmul"], "one full decode tick of llama3.2-3b at "
+            "its published widths from examples/specs/serving_packed.json "
+            "(packed int8, fp cache, 8 slots) through build(spec)"
+            ".make_engine, calls by shape as counted on the main path"))
         for k in ("qmatmul", "kv_quantize_store"):
             tallies[k].append((whisper_append[k], append_per))
         print(f"[time] serving phase done at {time.perf_counter() - t0:.1f} "
@@ -5229,7 +5775,10 @@ def main(argv=None) -> int:
                  "granite": "one granite step: a training step of "
                             "granite-moe-3b-a800m at its published width "
                             f"and {GRANITE_CELL.layers} of its 32 layers "
-                            "(batch 2, seq 1024, remat)"}
+                            "(batch 2, seq 1024, remat)",
+                 "api": "one launcher step of qwen2-0.5b FULL, batch 2, seq "
+                        "256 (python -m repro_torch.launch.train --spec "
+                        "examples/specs/host_1x1.json --full)"}
         for name, unit in units.items():
             rep = train_report if name == "jet" else train_report[name]
             launches.update(rep["launches"])

@@ -14,7 +14,10 @@ Ported so far, on the hand-written Hopper kernels of ``kernels/csrc``
   tagger, the SVHN conv net, the muon tracker), with calibration and the
   fixed-point proxy (``hgq_quantize``, forward and backward);
 * data-parallel training over the compressed gradient wire
-  (``wire_pack``).
+  (``wire_pack``);
+* the run-configuration surface (``api``: ``RunSpec``, ``build``,
+  ``RunContext``) and the training launcher (``python -m
+  repro_torch.launch.train``).
 """
 from .device import resolve_device
 

@@ -8,15 +8,16 @@ byte), ``kv_bits`` (serving KV cache rows) and ``scale_exp`` (reported
 grid exponent).  ``PrecisionPlan()`` is uniform int8.
 ``plan_from_params`` derives a plan from trained weights (the occupied
 bits of each packable layer), ``mixed_low_plan`` puts every packable
-layer at a low width, and ``wire_bits_tree`` feeds per-leaf widths to the
-compressed gradient reduce.  The sweep and reporting helpers are not
-ported yet.
+layer at a low width, ``wire_bits_tree`` feeds per-leaf widths to the
+compressed gradient reduce, ``kv_bits_for`` gives the KV width of an
+attention layer, ``summary`` the reporting view and :func:`sweep_plans`
+the rows of a Pareto front with their plans.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -77,6 +78,19 @@ class PrecisionPlan:
             self.entry_for(path_key(path)).wire_bits
             for path, _ in tree_flatten_with_path(tree)])
 
+    def kv_bits_for(self, key: str) -> int:
+        """KV-cache storage width for an attention layer path (deepest
+        ``layers`` match, like :meth:`entry_for`)."""
+        return self.entry_for(key).kv_bits
+
+    def summary(self) -> Dict[str, Any]:
+        """Reporting view: the default plus every listed layer's widths."""
+        widths = lambda e: {"wire_bits": e.wire_bits,
+                            "pack_bits": e.pack_bits, "kv_bits": e.kv_bits}
+        return {"default": widths(self.default),
+                "layers": {k: widths(e)
+                           for k, e in sorted(self.layers.items())}}
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -111,6 +125,10 @@ class PrecisionPlan:
     def from_file(cls, path: str) -> "PrecisionPlan":
         with open(path) as f:
             return cls.from_json(f.read())
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
 
 
 def path_key(path: Iterable[Any]) -> str:
@@ -194,3 +212,16 @@ def mixed_low_plan(params: Any, low_bits: int = 4) -> PrecisionPlan:
     return PrecisionPlan(layers={
         key: LayerPlan(wire_bits=low_bits, pack_bits=low_bits)
         for key, _ in iter_packable(params)})
+
+
+def sweep_plans(front, payload_plan=lambda p: p
+                ) -> List[Tuple[float, float, int, Optional[PrecisionPlan]]]:
+    """A ``core.pareto.ParetoFront`` as ``(metric, ebops, step, plan)``
+    rows: ``payload_plan`` maps a point's payload to its plan (identity by
+    default); a payload that is no plan gives ``None``."""
+    rows = []
+    for p in front.points:
+        plan = payload_plan(p.payload)
+        rows.append((p.metric, p.ebops, p.step,
+                     plan if isinstance(plan, PrecisionPlan) else None))
+    return rows

@@ -1,6 +1,6 @@
 """Deterministic, resumable synthetic data (counterpart of
 ``repro/data/synthetic.py``; the paper's three kinds, jet, svhn and muon,
-and the LM's token stream, lm).
+the LM's token stream, lm, and paired audio frames and transcripts, asr).
 
 Every batch is a pure function of (seed, step), drawn on the CPU from a
 ``torch.Generator`` seeded from both and then moved to the device, so a
@@ -19,10 +19,20 @@ import torch.nn.functional as F
 from ..device import resolve_device
 
 
+# odd 32-bit multiplier (2^32 / golden ratio) that folds the seed into
+# the generator's seed
+_SEED_FOLD = 0x9E3779B9
+
+
 def _gen(seed: int, step: int) -> torch.Generator:
+    """The generator of batch ``step`` of stream ``seed``.  The CPU
+    generator (mt19937) keeps only the low 32 bits of its seed, so the
+    seed is folded into them: ``step + seed * _SEED_FOLD`` mod 2^32, every
+    step of one seed its own stream, seed 0 the step alone."""
     if not (0 <= seed < 2 ** 31 and 0 <= step < 2 ** 32):
         raise ValueError(f"seed {seed} / step {step} out of range")
-    return torch.Generator().manual_seed((int(seed) << 32) | int(step))
+    return torch.Generator().manual_seed(
+        (int(step) + int(seed) * _SEED_FOLD) % 2 ** 32)
 
 
 def _jet_centers(n_classes: int, d: int) -> torch.Tensor:
@@ -112,6 +122,29 @@ def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
     return {"tokens": torch.where(use_rule, shifted, base).to(dev)}
 
 
+def asr_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+              d_model: int, frames: int, device=None
+              ) -> Dict[str, torch.Tensor]:
+    """Paired frame embeddings and transcripts for encoder-decoder ASR:
+    the transcript is :func:`lm_batch`'s token stream, and each of the
+    ``frames`` frame embeddings is a fixed code of the token whose window
+    covers it (N(0, 1) per coordinate, one draw for all steps) plus
+    0.1 N(0, 1) noise.  frame_embeds [batch, frames, d_model] float32,
+    tokens [batch, seq] int64."""
+    dev = resolve_device(device)
+    g = _gen(seed, step)
+    base = torch.randint(0, vocab, (batch, seq), generator=g)
+    shifted = torch.roll(base, 1, dims=1) * 31 % vocab
+    tokens = torch.where(torch.rand((batch, seq), generator=g) < 0.7,
+                         shifted, base)
+    codes = torch.randn((vocab, d_model),
+                        generator=torch.Generator().manual_seed(13))
+    tok_at = tokens[:, (torch.arange(frames) * seq) // frames]
+    x = codes[tok_at] + 0.1 * torch.randn((batch, frames, d_model),
+                                          generator=g)
+    return {"frame_embeds": x.to(dev), "tokens": tokens.to(dev)}
+
+
 @dataclasses.dataclass(frozen=True)
 class DataSpec:
     kind: str           # jet | svhn | muon | lm | asr
@@ -121,16 +154,25 @@ class DataSpec:
     seed: int = 0
 
 
-def make_pipeline(spec: DataSpec, device=None
+def make_pipeline(spec: DataSpec, device=None, *, d_model: int = 0,
+                  enc_seq: int = 0
                   ) -> Callable[[int], Dict[str, torch.Tensor]]:
-    """step -> batch dict on ``device`` (the card by default)."""
+    """step -> batch dict on ``device`` (the card by default).
+    ``kind="asr"`` also needs the architecture's frame dims (``d_model``,
+    ``enc_seq``), which ``RunContext.make_pipeline`` passes."""
     kinds = {"jet": jet_batch, "svhn": svhn_batch, "muon": muon_batch}
     dev = resolve_device(device)
     if spec.kind == "lm":
         return lambda step: lm_batch(spec.seed, step, spec.batch, spec.seq,
                                      spec.vocab, device=dev)
+    if spec.kind == "asr":
+        if d_model < 1 or enc_seq < 1:
+            raise ValueError("kind='asr' needs the architecture dims: "
+                             "make_pipeline(spec, d_model=..., enc_seq=...)")
+        return lambda step: asr_batch(spec.seed, step, spec.batch, spec.seq,
+                                      spec.vocab, d_model, enc_seq,
+                                      device=dev)
     if spec.kind not in kinds:
-        raise NotImplementedError(f"data kind {spec.kind!r} is not ported "
-                                  f"yet (only {', '.join(kinds)}, lm)")
+        raise ValueError(spec.kind)
     batch_fn = kinds[spec.kind]
     return lambda step: batch_fn(spec.seed, step, spec.batch, device=dev)

@@ -1,13 +1,15 @@
 """Distribution utilities (counterpart of ``repro/dist``).
 
-* :mod:`.scope` -- per-call dynamic scope (the wire-bytes recorder);
+* :mod:`.scope` -- per-call dynamic scope;
+* :mod:`.axes` -- the logical-axis registry of a mesh (data meshes only);
 * :mod:`.sharding` -- the stacked-layer rule and the ``model`` axis rule
   (the FSDP x TP placement over a mesh of cards is not ported yet);
 * :mod:`.mesh` -- data meshes: ``LocalMesh`` (ranks as threads on one
   card) and ``ProcessGroupMesh`` (``torch.distributed``);
 * :mod:`.collectives` -- the compressed mean all-reduce (two-phase
   exchange, error feedback on both phases);
-* :mod:`.perf` -- the compute-dtype scope and serving-weight packing;
+* :mod:`.perf` -- the compute-dtype and packed-routing scopes and
+  serving-weight packing;
 * this module -- post-reduce error-feedback gradient compression.
 
 Error feedback: each step compresses ``grad + residual`` and carries the

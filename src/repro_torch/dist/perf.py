@@ -9,8 +9,15 @@ and the unscoped default is ``None``: no cast, float32 stays float32.
 ``{'w', 'f'}`` into ``{'w_int8', 'scale', 'f'}`` (or ``{'w_nib', ...}``,
 two int4 mantissas per byte along K, for plan layers of <= 4 bits): int8
 mantissas plus a per-output-channel 2^-f scale, the representation the
-``qmatmul`` kernel consumes.  The port has no packed-routing flag: a
-packed weight always goes through ``qmatmul``.
+``qmatmul`` kernel consumes.
+
+Packed routing (:func:`packed_matmul`, scoped like the compute dtype):
+on, a dense projection over a packed weight runs the ``qmatmul`` kernel
+over the mantissas as they lie; off, it dequantizes (``unpack_weight``)
+and multiplies with ``torch.matmul``, as the reference's off branch does.
+Unset, it is on: a packed tree takes the plain route only where a scope
+says so (``packed_matmul(False)``, a ``RunContext`` whose spec resolves
+``PrecisionSpec.packed_kernels`` to false).
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from .scope import Scoped
 
 _COMPUTE: Scoped[Optional[torch.dtype]] = Scoped("repro_torch.compute_dtype",
                                                  None)
+_PACKED: Scoped[Optional[bool]] = Scoped("repro_torch.packed_matmul", None)
 
 
 def compute_dtype_scope(dtype: Optional[torch.dtype]):
@@ -33,8 +41,9 @@ def compute_dtype_scope(dtype: Optional[torch.dtype]):
 
 
 def reset_precision() -> None:
-    """Back to the no-cast default (tests)."""
+    """Back to the no-cast / unset-routing defaults (tests)."""
     _COMPUTE.reset_default()
+    _PACKED.reset_default()
 
 
 def get_compute_dtype() -> Optional[torch.dtype]:
@@ -47,6 +56,20 @@ def cast_for_matmul(x: torch.Tensor) -> torch.Tensor:
     if dtype is None or not x.is_floating_point():
         return x
     return x.to(dtype)
+
+
+def get_packed_matmul() -> bool:
+    """The packed routing in scope; unset, the ``qmatmul`` kernel."""
+    on = _PACKED.get()
+    return True if on is None else on
+
+
+def packed_matmul(on: bool = True):
+    """Context manager: run the enclosed computation with the packed
+    routing set to ``on`` (restores on exit).  On: dense projections over
+    packed weights go through ``qmatmul_any``.  Off: they dequantize and
+    use ``torch.matmul``."""
+    return _PACKED.scope(bool(on))
 
 
 def _pack_one(p: Dict[str, Any], bits: int = 8,

@@ -8,7 +8,8 @@ default; ``scope(value)`` pushes an override for the extent of a block
 default.  Overrides are task- and thread-local: a thread started inside
 a scope sees it only when it runs in a copy of the caller's context
 (``contextvars.copy_context()``), as ``dist.mesh.LocalMesh`` runs its
-ranks.  The port's one user is the wire-bytes recorder of
+ranks.  Its users: the axis registry (``dist.axes``), the compute dtype
+and the packed routing (``dist.perf``), and the wire-bytes recorder of
 ``dist.collectives``.
 """
 from __future__ import annotations

@@ -183,3 +183,15 @@ def qmatmul_any(x: torch.Tensor, w_int: torch.Tensor,
     else:
         out = qmatmul_ref(x2, w_int, scale, nib=nib)
     return out.reshape(*lead, N).to(x.dtype)
+
+
+def packed_bytes(w: torch.Tensor, f: torch.Tensor, vmin, vmax) -> float:
+    """Serving weight bytes under {0, 4, 8}-bit storage classes chosen from
+    the calibrated per-channel bitwidths ``b = max(i' + round(f), 0)``."""
+    from ...core.quantizer import int_bits_from_range
+    f32 = torch.as_tensor(f, dtype=torch.float32)
+    b = torch.clamp(int_bits_from_range(vmin, vmax)
+                    + torch.floor(f32 + 0.5), min=0.0)
+    cls = torch.where(b <= 0, 0.0, torch.where(b <= 4, 4.0, 8.0))
+    n_per_channel = w.shape[0] if w.ndim == 2 else 1
+    return float(torch.sum(cls) / 8.0 * n_per_channel)

@@ -26,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core import hgq
 from ..core.hgq import Aux, QTensor
 from ..device import resolve_device
-from ..dist.perf import cast_for_matmul, is_packed, packed_mantissas
+from ..dist.perf import (cast_for_matmul, get_packed_matmul, is_packed,
+                         packed_mantissas)
 from ..kernels.qmatmul.ops import qmatmul_any
 from ..nn.attention import (AttnConfig, GQAAttention, KVCache, QKVCache,
                             decode_positions)
@@ -275,7 +276,7 @@ class TransformerLM(nn.Module):
                                                mode=mode, aux=aux)
             return lt.q
         tbl = p["embed"]["table"]
-        if is_packed(tbl):
+        if is_packed(tbl) and get_packed_matmul():
             # tied head over the packed table: the per-embedding-column
             # scales fold into the activation, h @ (m * s).T ==
             # (h * s) @ m.T, and the kernel reads m.T without a copy.
@@ -286,7 +287,8 @@ class TransformerLM(nn.Module):
                               device=h.q.device)
             m = tbl["w_int8"] if "w_int8" in tbl else packed_mantissas(tbl)
             return qmatmul_any(h.q.to(torch.float32) * s_d, m.T, ones)
-        # the table quantized again, as the reference does
+        # the table quantized again (or, packed with the routing off,
+        # dequantized), as the reference does
         wq = get_qw(tbl, mode)
         logits = torch.matmul(h.q.to(wq.q.dtype), wq.q.T)
         hgq.matmul_ebops(aux, h.bits, None if wq.bits is None else wq.bits.T,

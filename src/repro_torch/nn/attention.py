@@ -290,7 +290,10 @@ def _chunked_attention(qh, kh, vh, positions, cfg: AttnConfig, probs_f,
             kc = kg[:, :, ki * ck:(ki + 1) * ck]            # [B, KV, ck, hd]
             vc = vg[:, :, ki * ck:(ki + 1) * ck]
             kpos = ki * ck + torch.arange(ck, device=dev)
-            s = torch.einsum("bkgqh,bkch->bkgqc", qc, kc) * scale
+            # float32 products and sums, whatever the compute dtype (the
+            # reference's preferred_element_type)
+            s = torch.einsum("bkgqh,bkch->bkgqc", qc.to(torch.float32),
+                             kc.to(torch.float32)) * scale
             mask = (kpos < S)[None, :].expand(cq, ck)     # key padding
             if cfg.causal:
                 mask = mask & (qpos[:, None] >= kpos[None, :])
@@ -302,7 +305,8 @@ def _chunked_attention(qh, kh, vh, positions, cfg: AttnConfig, probs_f,
             pt = _quant_probs(pt, probs_f, mode)
             corr = torch.exp(m - m_new)
             l = l * corr + pt.sum(dim=-1)
-            o = o * corr[..., None] + torch.einsum("bkgqc,bkch->bkgqh", pt, vc)
+            o = o * corr[..., None] + torch.einsum(
+                "bkgqc,bkch->bkgqh", pt, vc.to(torch.float32))
             m = m_new
         outs.append((o / torch.clamp(l, min=1e-20)[..., None]).to(qh.dtype))
     # [nq, B, KV, G, cq, hd] -> [B, S, H, hd]

@@ -11,7 +11,8 @@ from ..core import ebops as ebops_lib
 from ..core import hgq
 from ..core.hgq import Aux, QTensor
 from ..core.quantizer import f_shape_for
-from ..dist.perf import is_packed, packed_mantissas, packed_storage
+from ..dist.perf import (get_packed_matmul, is_packed, packed_mantissas,
+                         packed_storage)
 from ..kernels.qmatmul.ops import qmatmul_any
 from .common import HGQConfig, act_q_init, apply_act_q, get_qw, qweight_init
 
@@ -38,7 +39,8 @@ def _out_quant(p, q, y, mode, aux) -> Tuple[QTensor, Dict[str, Any]]:
 class HDense:
     """Quantized kernel (+bias), ~EBOPs on x @ W, optional activation and
     output quantizer.  A serving-packed kernel goes through the
-    ``qmatmul`` kernel."""
+    ``qmatmul`` kernel where the packed routing is on
+    (``dist.perf.packed_matmul``), else it is dequantized."""
 
     @staticmethod
     def init(gen, d_in: int, d_out: int, cfg: HGQConfig, *, bias: bool = True,
@@ -67,7 +69,7 @@ class HDense:
         beforehand (``common.quantize_weights``, one grouped launch for a
         model's weights); without it they are quantized here."""
         kern = p["kernel"]
-        if is_packed(kern):
+        if is_packed(kern) and get_packed_matmul():
             # serving hot path: the stored mantissas (int8 or nibbles)
             # stream into the kernel as they lie
             ki, nib = packed_storage(kern)

@@ -12,6 +12,12 @@
   rank-filtered logits) on a seeded ``torch.Generator``.
 * **Packed weights.** ``packed=True`` serves the HGQ int8 / nibble +
   per-channel 2^-f tree through the ``qmatmul`` kernel.
+* **Snapshot.** The axis registry, compute dtype and packed routing in
+  scope at construction (a ``RunContext``'s ``activate``, or the
+  defaults) are kept, and every model call the engine makes runs under
+  them, whatever scope is active when it runs.  A ``packed=True`` engine
+  routes its weights through ``qmatmul``; any other takes the routing in
+  scope (unset: the kernel).
 * **Quantized KV.** ``kv_bits=b`` stores the ring as per-row 2^-f grid
   mantissas, written by ``kv_quantize_rows`` and read by the fused
   ``kv_attention_rows`` kernel.
@@ -31,6 +37,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dist.axes import axis_scope, get_axes
+from ..dist.perf import (compute_dtype_scope, get_compute_dtype,
+                         get_packed_matmul, packed_matmul)
 from ..models.config import ModelConfig
 from ..nn.attention import NEG_INF
 from ..tree import tree_map
@@ -113,6 +122,10 @@ class Engine:
         self.packed = packed
         self.plan = plan
         self.kv_bits = kv_bits
+        # the configuration in scope now, re-bound around every model call
+        self._axes = get_axes()
+        self._compute_dtype = get_compute_dtype()
+        self._packed_route = bool(packed) or get_packed_matmul()
         params, qstate = _to(params, self.device), _to(qstate, self.device)
         if packed:
             from .packed import pack_for_serving
@@ -143,9 +156,18 @@ class Engine:
         self._gen.manual_seed(seed)
 
     # ------------------------------------------------------------------
+    def _run(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` under the engine's snapshot (axis
+        registry, compute dtype and packed routing of its
+        construction)."""
+        with axis_scope(self._axes), \
+                compute_dtype_scope(self._compute_dtype), \
+                packed_matmul(self._packed_route):
+            return fn(*args, **kwargs)
+
     def _decode(self, caches, tok, pos):
-        return self.model.decode_step(self._pv, self._qv, caches, tok, pos,
-                                      self.cfg, kv_bits=self.kv_bits)
+        return self._run(self.model.decode_step, self._pv, self._qv, caches,
+                         tok, pos, self.cfg, kv_bits=self.kv_bits)
 
     def _new_slot(self):
         """A zeroed single-slot cache slice [L, 1, W, ...]; a field the
@@ -300,7 +322,8 @@ def generate(model, params, qstate, cfg: ModelConfig, prompt, max_new: int,
     engine is held against.  The whole prompt prefills in one chunk.
     ``cache_len`` pins the cache width to the engine's; ``kv_bits`` (an
     addition over the reference's signature) serves from the quantized
-    cache like the engine."""
+    cache like the engine.  Packed weights take the engine's routing:
+    ``qmatmul`` where ``packed``, else the routing in scope."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
     B, S = prompt.shape
@@ -314,14 +337,19 @@ def generate(model, params, qstate, cfg: ModelConfig, prompt, max_new: int,
                          f"({S + max_new}) on an unwindowed model")
     caches = model.init_cache(cfg, B, cache_len or (S + max_new),
                               ring_slack=S, kv_bits=kv_bits, device=dev)
-    logits, caches = model.decode_step(params, qstate, caches, prompt, 0,
-                                       cfg, kv_bits=kv_bits)
+
+    route = bool(packed) or get_packed_matmul()
+
+    def call(*args):
+        with packed_matmul(route):
+            return model.decode_step(*args, cfg, kv_bits=kv_bits)
+
+    logits, caches = call(params, qstate, caches, prompt, 0)
     pos = S
     last = torch.argmax(logits[:, -1:], dim=-1)
     outs = [last]
     for _ in range(max_new - 1):
-        logits, caches = model.decode_step(params, qstate, caches, last, pos,
-                                           cfg, kv_bits=kv_bits)
+        logits, caches = call(params, qstate, caches, last, pos)
         last = torch.argmax(logits[:, -1:], dim=-1)
         outs.append(last)
         pos += 1

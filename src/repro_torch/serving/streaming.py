@@ -112,8 +112,8 @@ class StreamingEngine(Engine):
         self._audio: Dict[int, _AudioState] = {}
 
     def _append_cross(self, cs, frames: torch.Tensor):
-        return self.model.append_cross(self._pv, self._qv, cs, frames,
-                                       self.cfg, kv_bits=self.kv_bits)
+        return self._run(self.model.append_cross, self._pv, self._qv, cs,
+                         frames, self.cfg, kv_bits=self.kv_bits)
 
     # ------------------------------------------------------------------
     def _free_slot(self) -> Optional[int]:
@@ -208,7 +208,8 @@ def generate_asr(model, params, qstate, cfg: ModelConfig, frames,
     """Offline greedy ASR reference: the audio encoded in the block
     decomposition streaming uses (:func:`split_audio`), the prompt
     prefilled in one block, greedy decode.  Returns ``[1, max_new]``
-    token ids.  ``params`` are served as given (a packed tree too)."""
+    token ids.  ``params`` are served as given: a packed tree through
+    ``qmatmul`` unless ``dist.perf.packed_matmul(False)`` is in scope."""
     dev = resolve_device(device)
     fr = _frames(frames, dev)
     plen = len(prompt)

@@ -87,6 +87,34 @@ def test_sources_import_neither_jax_nor_repro():
             assert top not in ("jax", "jaxlib", "repro"), f"{f}: {name}"
 
 
+def test_api_launch_axes_and_serve_example_import_neither_jax_nor_repro():
+    """``api/``, ``launch/``, ``dist/axes.py`` and
+    ``examples/torch_serve_llm.py`` name no JAX or ``repro`` import, and
+    loading them (the example through ``runpy`` without running its
+    ``main``) pulls in neither package."""
+    files = sorted((PKG / "api").glob("*.py")) \
+        + sorted((PKG / "launch").glob("*.py")) \
+        + [PKG / "dist" / "axes.py", ROOT / "examples" / "torch_serve_llm.py"]
+    assert len(files) == 7 and all(f.is_file() for f in files), files
+    for f in files:
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: {name}"
+    code = (
+        "import runpy, sys\n"
+        "import repro_torch.api, repro_torch.launch.train\n"
+        "import repro_torch.dist.axes\n"
+        "runpy.run_path('examples/torch_serve_llm.py', run_name='example')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():

@@ -428,8 +428,13 @@ def test_jet_pipeline_is_a_function_of_seed_and_step():
     noise = big["x"] - centres[big["y"]]
     assert abs(float(noise.std()) - 1.0) < 0.02
     assert 1.0 < float(centres.std()) < 2.0
-    with pytest.raises(NotImplementedError):        # not ported yet
+    # the asr kind needs the architecture's frame dims, as the reference's
+    with pytest.raises(ValueError, match="d_model"):
         make_pipeline(DataSpec(kind="asr", batch=8), device="cpu")
+    asr = make_pipeline(DataSpec(kind="asr", batch=2, seq=6, vocab=32),
+                        device="cpu", d_model=8, enc_seq=12)(0)
+    assert asr["frame_embeds"].shape == (2, 12, 8)
+    assert asr["tokens"].shape == (2, 6)
     if not torch.cuda.is_available():       # the card is the default
         with pytest.raises(RuntimeError):
             make_pipeline(DataSpec(kind="jet", batch=8))

@@ -3,7 +3,8 @@
 ``chip_smoke.py`` holds the card to against the CPU.  Run from the
 repository root:
 
-    python3 torch_whisper_ties.py [--device cpu] [--out build/ties.json]
+    python3 torch_whisper_ties.py [--device cpu] [--init-layers N ...]
+                                  [--fp-cache] [--out build/ties.json]
 
 ``chip_smoke.whisper_serving`` reads the card's logits against the CPU's
 at whisper-large-v3's full width and 2 + 2 layers, after a 1500-frame
@@ -16,8 +17,18 @@ encoder attention's queries scaled by 1 + 2^-22 (two ulps), with the
 probabilities' grid and without it, in both serving configurations of
 the part ((a) int8 with ``kv_bits`` 8, (b) the MLP in nibbles with
 ``kv_bits`` 4).  A reading with the grid far above the one without it
-says the card-vs-CPU gap comes from the grid's ties.  Prints one JSON
-line and writes it to ``--out``.
+says the card-vs-CPU gap comes from the grid's ties.
+
+``--init-layers N`` draws the weights as a model of N + N layers and
+takes its first 2 + 2 (``chip_smoke.whisper_first_layers``, as the
+script cuts its served model), one reading per N; without it the model
+is drawn at 2 + 2.  With ``--device cuda`` the weights are the card's
+draw and each reading is also the card's logits against the CPU's
+(``gap``, the script's continuous reading) with the grid and without it:
+a gap far above its reading without the grid is the grid's ties.
+``--fp-cache`` adds both readings with a float32 cache and memory
+(``kv_bits`` None, float32 in place of the float cache's bfloat16) in
+place of the quantized ring's 2^-f rows, the other grid of the reading.  Prints one JSON line and writes it to ``--out``.
 """
 from __future__ import annotations
 
@@ -50,6 +61,19 @@ def _queries_two_ulps():
         yield
 
 
+@contextlib.contextmanager
+def _float32_cache():
+    """Whisper's float cache and memory kept in float32 (bfloat16 by
+    default, a grid of its own)."""
+    from repro_torch.models import WhisperModel
+
+    def f32(real):
+        return lambda *a, **k: real(*a, **{**k, "dtype": torch.float32})
+
+    with cs._patched_static(WhisperModel, "init_cache", f32):
+        yield
+
+
 def _without_probs_grid(tree):
     if isinstance(tree, dict):
         return {k: _without_probs_grid(v) for k, v in tree.items()
@@ -62,6 +86,8 @@ def _without_probs_grid(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--init-layers", type=int, nargs="+", default=[None])
+    ap.add_argument("--fp-cache", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     from repro_torch.configs import get
@@ -71,36 +97,61 @@ def main(argv=None) -> int:
     from repro_torch.serving.packed import pack_for_serving
 
     dev = torch.device(args.device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import _build
+        _build.build_all()
     n, C, T = cs.WHISPER_LOGITS_LAYERS, cs.WHISPER["chunk"], cs.WHISPER["T"]
-    cfg = dataclasses.replace(get("whisper-large-v3"), n_layers=n,
-                              enc_layers=n)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cs.SEED)
-    params, qstate = WhisperModel.init(gen, cfg, device=dev)
     frames = torch.from_numpy(np.stack(
         [cs._whisper_frames(T, cs.SEED + 20 + i) for i in range(2)]))
-
-    def prepare(c, dv, pp, qq, kv_bits):
-        for blk in split_audio(frames.to(dv), C):
-            c = WhisperModel.append_cross(pp, qq, c, blk, cfg,
-                                          kv_bits=kv_bits)
-        return c
-
     plan = PrecisionPlan(layers={k: LayerPlan(wire_bits=4, pack_bits=4)
                                  for k in cs.WHISPER_MLP})
-    out = {}
-    for tag, pl, kv_bits in (("a", None, 8), ("b", plan, 4)):
-        pp, qq = pack_for_serving(params, qstate, pl)
-        out[tag] = {}
-        for grid, tree in (("with_probs_grid", pp),
-                           ("without_probs_grid", _without_probs_grid(pp))):
-            r = cs._logits_vs_plain(
-                tree, qq, cfg, kv_bits, dev,
-                lambda pc: {"queries_two_ulps": (pc, _queries_two_ulps)},
-                model=WhisperModel, prepare=prepare)
-            out[tag][grid] = r["continuous"]["controls"]["queries_two_ulps"]
-    line = json.dumps({"device": str(dev), "layers": n,
-                       "rel_l2_of_the_fault": out})
+    readings = {}
+    for init in args.init_layers:
+        cfg = get("whisper-large-v3")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cs.SEED)
+        if init is None:
+            cfg = dataclasses.replace(cfg, n_layers=n, enc_layers=n)
+            params, qstate = WhisperModel.init(gen, cfg, device=dev)
+        else:
+            big = dataclasses.replace(cfg, n_layers=init, enc_layers=init)
+            params, qstate, cfg = cs.whisper_first_layers(
+                *WhisperModel.init(gen, big, device=dev), big, n)
+
+        def prepare(c, dv, pp, qq, kv_bits, cfg=cfg):
+            for blk in split_audio(frames.to(dv), C):
+                c = WhisperModel.append_cross(pp, qq, c, blk, cfg,
+                                              kv_bits=kv_bits)
+            return c
+
+        out = {}
+        for tag, pl, kv_bits in (("a", None, 8), ("b", plan, 4)):
+            pp, qq = pack_for_serving(params, qstate, pl)
+            out[tag] = {}
+            for grid, tree, kvb in (
+                    ("with_probs_grid", pp, kv_bits),
+                    ("without_probs_grid", _without_probs_grid(pp), kv_bits),
+                    ("with_probs_grid_fp_cache", pp, None),
+                    ("without_probs_grid_fp_cache", _without_probs_grid(pp),
+                     None)):
+                if kvb is None and not args.fp_cache:
+                    continue
+                with (_float32_cache() if kvb is None
+                      else contextlib.nullcontext()):
+                    r = cs._logits_vs_plain(
+                        tree, qq, cfg, kvb, dev,
+                        lambda pc: {"queries_two_ulps": (
+                            pc, _queries_two_ulps)},
+                        model=WhisperModel, prepare=prepare)["continuous"]
+                out[tag][grid] = {
+                    "gap": r["rel_l2"],
+                    "queries_two_ulps": r["controls"]["queries_two_ulps"]}
+        readings[n if init is None else init] = out
+        del params, qstate
+    name = (torch.cuda.get_device_name(0) if dev.type == "cuda"
+            else str(dev))
+    line = json.dumps({"device": name, "layers": n,
+                       "rel_l2_by_init_layers": readings})
     print(line, flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
