@@ -66,8 +66,10 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    router and the three stacks), with the per-expert layouts' edges (E =
    1, K = 1, K not a multiple of a block's rows, N not a multiple of 32,
    bfloat16, just past the one-cluster line);
-4. slice phase: serves qwen2-0.5b at full width (random weights from a
-   seed) through the port's ``Engine`` in two configurations, holds the
+4. slice phase: serves qwen2-0.5b at full width and 4 of its 24 layers
+   (``QWEN_SERVE_LAYERS``, cut from the full init; all 24 in earlier
+   runs; random weights from a seed) through the port's ``Engine`` in two
+   configurations, holds the
    tokens against ``generate()`` and the logits against the CPU's plain
    path (a limit that two faulty controls must exceed), checks that every
    serving kernel's launch counter moved and that configuration (a), whose
@@ -101,16 +103,16 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    launches by shape exact (40 ``qmatmul``, 1 ``kv_quantize_store`` and
    1 ``kv_attention_rows`` at hd 256), and one tick of each profiled
    last; then serves rwkv6-1.6b (the RWKV-6 family: time mix and
-   channel mix, no KV cache) at its published widths and 4 of its 24
+   channel mix, no KV cache) at its published widths and 2 of its 24
    layers (all 24 were held in earlier runs) the same way
    (``rwkv_serving``, ``max_len`` 2048, the constants of the reference's
    init redrawn from the seed): (a) packed int8 with one more request of
    a 1024-token prompt (64 chunks of state carried through one slot);
    (b) every channel-mix kernel in nibbles; every request equal alone,
-   card vs CPU at 4 layers within the dense limits that three RWKV faults
+   card vs CPU at 2 layers within the dense limits that three RWKV faults
    (the WKV state not carried, the token shift taken from the residual
    stream, the per-head norm left out) exceed, one full tick's launches
-   by shape exact (33 ``qmatmul``, no KV kernel), and one tick of each
+   by shape exact (17 ``qmatmul``, no KV kernel), and one tick of each
    profiled last; then serves whisper-large-v3 at its published widths
    and the first 4 of its 32 encoder and 4 of its 32 decoder layers
    (``WHISPER_SERVE_LAYERS``; all 32 + 32 were held in earlier runs)
@@ -126,17 +128,21 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    memory; card vs CPU at 2 + 2 layers after a 1500-frame audio within
    the dense limits that three Whisper faults (the memory not appended,
    each chunk encoded at offset 0, the decoder's positions dropped)
-   exceed; then the api part (``api_serving``): the shipped serving specs
+   exceed, as served and sound (a float32 cache and memory, no
+   probabilities' grid: the served reading keeps two grids' ties, which
+   move it with the draw); then the api part (``api_serving``): the shipped serving specs
    at full width through ``build(spec).make_engine``, each loaded with
    ``RunSpec.from_args(["--spec", path, "--full"])``: llama3.2-3b from
-   ``serving_packed.json`` (28 layers, d 3072, packed int8, fp cache, 8
-   slots, ``max_len`` 1024) serving qwen2's traffic shape, its packed
-   tree equal to ``pack_params_for_serving`` by hand, every request
-   equal to itself served alone, one full tick's launches by shape
-   exact (197 ``qmatmul``, no KV kernel), card vs CPU at 2 of its 28
-   layers within the dense limits that the dense controls exceed; and
+   ``serving_packed.json`` (d 3072, packed int8, fp cache, 8 slots,
+   ``max_len`` 1024; checked at its 28 layers, served at the first
+   ``API_SERVE_LAYERS``) serving qwen2's traffic shape, its packed tree
+   equal to ``pack_params_for_serving`` by hand, every request equal to
+   itself served alone, one full tick's launches by shape exact (29
+   ``qmatmul`` at 4 layers, no KV kernel), card vs CPU at 2 of its layers
+   within the dense limits that the dense controls exceed; and
    qwen2-0.5b from ``serving_kv_plan.json`` (4 slots, nibble MLP,
-   ``kv_bits`` 4), its tokens equal to an ``Engine`` built by hand;
+   ``kv_bits`` 4, at ``API_SERVE_LAYERS`` of its 24 layers), its tokens
+   equal to an ``Engine`` built by hand;
    qwen2's (a) and (b) engines and Whisper's are built through
    ``build(RunSpec).make_engine`` too; one tick of each family, one
    append of Whisper's (a) and one llama tick profiled last (the four
@@ -186,7 +192,7 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    ``TransformerLM.forward`` in EVAL against ``decode_step`` token by
    token on the fp cache and the 8-bit ring, as served and without
    activation quantizers; then granite-moe-3b-a800m at its published
-   width (40 experts of d_ff 512, top 8) and 8 of its 32 layers (all 32
+   width (40 experts of d_ff 512, top 8) and 4 of its 32 layers (all 32
    held in earlier runs; batch 2, seq 1024, remat; the params and AdamW
    state updated in place, the card holding one such model) through
    ``Trainer.run`` for 10 steps: step 0's loss
@@ -231,8 +237,30 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    on two leaves, the recorded bytes equal to the byte model, reads the
    fused reduce's own peak memory (its timed calls alone) beside the
    phase's, and traces one mixed reduce (no ``aten::constant_pad_nd``;
-   its events counted by name); then holds every ``wire_pack`` kernel
-   shape those paths launched against its plain version and times it;
+   its events counted by name), the layer stacks cut to their first 8 of
+   24 (``QWEN_REDUCE_LAYERS``; all 24 in earlier runs); (c) trains
+   qwen2-0.5b at full width from ``examples/specs/host_2x4_int8wire2d.json
+   --full`` through ``build(spec).init_training()`` over
+   ``dist.LocalMesh(2, model=4)`` (8 ranks as threads: each data shard's
+   forward and backward whole on the card, the ``model`` axis slicing the
+   2D compressed exchange and its residual), batch 4, seq 32, 2 steps
+   (launches by shape exact: the per-position kernels, one phase-1
+   quantize a leaf a rank, one decode a leaf on rank 0, whose tree the
+   mesh returns), then puts one step's full
+   gradient tree and the run's residual through the 2D exchange, uniform
+   int8 and ``plan_mixed_w4w8``: fused == per-leaf ==
+   ``simulate_wire_pmean_2d`` bit for bit, the card equal to the CPU on two
+   leaves (under the mixed plan: one at 8 bits, one at 4), the recorded
+   bytes the sum of ``wire2d_leaf_bytes``, 1.0 byte an
+   element against the 1D exchange's 4.0 with its model-axis float32
+   gather; the pure tensor-parallel ``LocalMesh(1, model=4)`` records no
+   data exchange; the jet tagger's 2D compressed step over
+   ``LocalMesh(2, model=4)``: 20 steps on the card against the CPU (a
+   limit two faulty controls exceed: the phase-2 remainder dropped, every
+   rank quantizing model slice 0), twice on the card, and 8 steps against
+   the post-reduce int8 path (the loss curve tracked); then holds every
+   ``wire_pack`` kernel shape those paths launched against its plain
+   version and times it (the jet's 2D shapes, a few KB each, held only);
 7. prints one JSON line with every kernel's numbers, its times per unit
    of its main path (a full decode tick -- an RWKV and a llama3.2-3b
    tick beside qwen2's, granite's, Griffin's and Whisper's for
@@ -241,23 +269,21 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    the jet's,
    with an svhn, a muon, an LM, a granite and a launcher step beside
    it --, a compressed
-   data-parallel step, a qwen2 gradient reduce) weighted by those
-   tallies (a granite step among the training units), the TPU kernels
+   data-parallel step, a qwen2 gradient reduce, a 2D step) weighted by
+   those tallies (a granite step among the training units), the TPU kernels
    still to port, then, last, ``{"ok": true,
    "device": {...}}``.
 
 Kernel groups: ``SERVING`` (``qmatmul``, ``kv_quantize_store``,
 ``kv_attention_rows``), ``TRAINING`` (``hgq_quantize`` forward, single
-and grouped, and backward), ``WIRE`` (``wire_quantize_rows`` on the
+and grouped, and backward), ``WIRE`` (``wire_quantize_rows`` on the 1D
 per-leaf path, ``wire_quantize_bucket``, ``wire_pack_rows`` and
-``wire_dequant_bucket`` on the fused path, ``wire_quantize_sflat`` and
-``wire_dequant_rows``); ``kv_dequant_rows``, ``kv_quantize_rows``,
-``wire_quantize_sflat`` and ``wire_dequant_rows`` are on no main path
-(the entry points of the ops ``kv_dequant``, ``kv_quantize``,
-``quantize_chunks`` and ``dequant_sum``; the serving store runs
-``kv_quantize_rows``' body as ``kv_quantize_store``, the fused reduce the
-per-position kernels' as the bucket kernels) and are held and timed in
-the kernel phase only.
+``wire_dequant_bucket`` on the 1D fused path, ``wire_quantize_sflat``,
+``wire_pack_rows`` and ``wire_dequant_rows`` on the 2D exchange);
+``kv_dequant_rows`` and ``kv_quantize_rows`` are on no main path (the
+entry points of the ops ``kv_dequant`` and ``kv_quantize``; the serving
+store runs ``kv_quantize_rows``' body as ``kv_quantize_store``) and are
+held and timed in the kernel phase only.
 
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
@@ -327,14 +353,14 @@ KERNELS = {
 }
 SERVING = ("qmatmul", "kv_quantize_store", "kv_attention_rows")
 TRAINING = ("hgq_quantize_fwd", "hgq_quantize_fwd_group", "hgq_quantize_bwd")
-# the compressed gradient reduce: the fused path launches FUSED_WIRE, the
-# per-leaf path and the simulator wire_quantize_rows; the per-position
-# kernels (RETIRED_WIRE, for the 2D exchange) are on no main path and are
-# held and timed in the kernel phase only
+# the compressed gradient reduce: the 1D fused path launches FUSED_WIRE,
+# the 1D per-leaf path and the simulator wire_quantize_rows, and never the
+# per-position kernels (PER_POSITION_WIRE), which the 2D exchange launches
+# (with wire_pack_rows for its nibble leaves)
 WIRE = ("wire_quantize_rows", "wire_quantize_sflat", "wire_pack_rows",
         "wire_dequant_rows", "wire_quantize_bucket", "wire_dequant_bucket")
 FUSED_WIRE = ("wire_quantize_bucket", "wire_pack_rows", "wire_dequant_bucket")
-RETIRED_WIRE = ("wire_quantize_sflat", "wire_dequant_rows")
+PER_POSITION_WIRE = ("wire_quantize_sflat", "wire_dequant_rows")
 
 
 class SmokeFailure(RuntimeError):
@@ -360,7 +386,11 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
 def n_copies(nbytes: int) -> int:
     """Distinct argument sets a timed loop cycles through, so that it
     streams twice the L2 cache from device memory, as a decode tick
-    streams every layer's weights and cache once."""
+    streams every layer's weights and cache once.  At most 1024; where
+    1024 copies would fit in L2, its reads are warm however many there
+    are, and 64 copies (one timed batch) save the host the rest."""
+    if 1024 * nbytes <= L2_BYTES:
+        return 64
     return max(1, min(1024, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
 
 
@@ -368,15 +398,20 @@ def n_copies(nbytes: int) -> int:
 # pending launches, and a host that blocks on a full queue while the device
 # sleeps would be timed again
 TIME_BATCH = 64
+# host seconds spent in timing loops, by kind; the script's start
+TIMED_S = collections.Counter()
+T0 = [time.perf_counter()]
 
 
-def time_ms(fn, arg_sets, min_calls: int = 64) -> float:
+def time_ms(fn, arg_sets, min_calls: int = 64,
+            kind: str = "kernel") -> float:
     """Device milliseconds per call of ``fn`` over ``arg_sets``, from CUDA
     events: the median over batches of ``TIME_BATCH`` calls.  A sleep
     kernel queued first holds the device until every call of a batch is
     enqueued, so the events time the calls back to back and not the
     host's launch rate; the median leaves out a batch whose host, slower
     than the sleep allowed for, left the device waiting."""
+    t_in = time.perf_counter()
     calls = max(min_calls, len(arg_sets))
     for args in arg_sets[:3]:
         fn(*args)                                   # warm up
@@ -398,7 +433,30 @@ def time_ms(fn, arg_sets, min_calls: int = 64) -> float:
         end.record()
         end.synchronize()
         per_call.append(start.elapsed_time(end) / (b1 - b0))
+    TIMED_S[kind] += time.perf_counter() - t_in
     return float(np.median(per_call))
+
+
+# the plain versions and the library calls are timed over at most this many
+# argument sets: a plain version launches tens of operations a call, and
+# cycling one through a thousand sets of a small shape cost the host seconds
+# a shape (where 64 sets fit in L2, its reads are warm, as the kernel's,
+# cycled through twice L2, are not)
+PLAIN_SETS = 64
+
+
+def plain_ms(fn, arg_sets) -> float:
+    """``time_ms`` of a plain version or a library call: at least 16 calls,
+    over the first ``PLAIN_SETS`` argument sets."""
+    return time_ms(fn, arg_sets[:PLAIN_SETS], 16, kind="plain")
+
+
+def lap(what: str) -> None:
+    """Prints the seconds since the script started, and those its timing
+    loops took so far."""
+    print(f"[time] {what} at {time.perf_counter() - T0[0]:.1f} s (timing "
+          f"loops: kernels {TIMED_S['kernel']:.1f} s, plain versions and "
+          f"library calls {TIMED_S['plain']:.1f} s)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -464,8 +522,8 @@ def qmatmul_case(M, K, N, bits, dev, g):
     return {"shape": f"M{M} K{K} N{N} {'nibble' if nib else 'int8'}",
             "max_abs_err": float(err.max()), **precision,
             "ms": time_ms(kern, sets),
-            "plain_ms": time_ms(plain, sets, 16),
-            "library_ms": time_ms(library, sets, 16),
+            "plain_ms": plain_ms(plain, sets),
+            "library_ms": plain_ms(library, sets),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops, "peak": PEAK_BF16_TC_PER_S}
 
@@ -587,8 +645,8 @@ def kv_dequant_case(R, hd, dev, g):
             "launch_floor_ms": launch_floor_ms(R, hd, dev),
             "grid": {"blocks": blocks, "threads": threads,
                      "pieces_a_lane": vecs},
-            "plain_ms": time_ms(kv_dequant_ref, sets, 16),
-            "library_ms": time_ms(torch.ldexp, lib_sets, 16),
+            "plain_ms": plain_ms(kv_dequant_ref, sets),
+            "library_ms": plain_ms(torch.ldexp, lib_sets),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": 0.0}
 
@@ -649,7 +707,7 @@ def kv_quantize_case(R, hd, bits, dev, g):
     b_ms, b_by = bound(nbytes, 0.0)
     return {"shape": f"R{R} hd{hd} bits{bits}", "max_abs_err": 0.0,
             "ms": time_ms(kv_quantize_rows, sets),
-            "plain_ms": time_ms(kv_quantize_ref, sets, 16),
+            "plain_ms": plain_ms(kv_quantize_ref, sets),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": 0.0}
 
@@ -722,7 +780,7 @@ def kv_store_case(key, window, dev, g, off=0, xoff=0, timed=True):
             "bytes": nbytes, "flops": 0.0}
     if timed:
         case["ms"] = time_ms(kv_quantize_store, sets)
-        case["plain_ms"] = time_ms(kv_quantize_store_ref, sets, 16)
+        case["plain_ms"] = plain_ms(kv_quantize_store_ref, sets)
     return case
 
 
@@ -907,11 +965,11 @@ def kv_attention_case(B, S, W, nibble, pf, dev, g, H=14, KV=2, hd=64,
     b_ms, b_by = bound(nbytes, flops)
     return {"shape": shape, "max_abs_err": err,
             "ms": time_ms(kern, sets),
-            "plain_ms": time_ms(plain, sets, 16),
-            "library_ms": time_ms(
+            "plain_ms": plain_ms(plain, sets),
+            "library_ms": plain_ms(
                 lambda q, k, v, m: torch.nn.functional
                 .scaled_dot_product_attention(q, k, v, attn_mask=m),
-                lib_sets, 16),
+                lib_sets),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
 
@@ -1296,13 +1354,13 @@ def hgq_quantize_case(shape, fshape, dtype, dev, g):
     bb_ms, bb_by = bound(bwd_bytes, 9.0 * n)
     fwd = dict(base, max_abs_err=0.0,
                ms=time_ms(hgq_quantize_fwd, [a[:2] for a in sets]),
-               plain_ms=time_ms(hgq_quantize_ref, [a[:2] for a in sets], 16),
+               plain_ms=plain_ms(hgq_quantize_ref, [a[:2] for a in sets]),
                bound_ms=fb_ms, bound_by=fb_by, bytes=fwd_bytes,
                flops=5.0 * n)
     bsets = [(gg, xx, ff) for xx, ff, gg in sets]
     bwd = dict(base, max_abs_err=err,
                ms=time_ms(hgq_quantize_bwd, bsets),
-               plain_ms=time_ms(hgq_quantize_grad_ref, bsets, 16),
+               plain_ms=plain_ms(hgq_quantize_grad_ref, bsets),
                bound_ms=bb_ms, bound_by=bb_by, bytes=bwd_bytes,
                flops=9.0 * n)
     return key, fwd, bwd
@@ -1375,8 +1433,8 @@ def hgq_group_case(members, dev, g):
     return key, {"shape": f"{len(members)} members: " + ", ".join(
         f"{lay} {s} {dt}" for lay, s, dt in key),
         "max_abs_err": 0.0, "ms": time_ms(hgq_quantize_fwd_group, sets),
-        "plain_ms": time_ms(hgq_quantize_group_ref, sets, 16),
-        "per_member_launches_ms": time_ms(singles, sets, 16),
+        "plain_ms": plain_ms(hgq_quantize_group_ref, sets),
+        "per_member_launches_ms": plain_ms(singles, sets),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "bytes": nbytes, "flops": 5.0 * n}
 
@@ -1526,17 +1584,21 @@ def _wire_spec(name, key, dev, g):
         return (make, wp.wire_dequant_bucket, wp.dequant_bucket_ref, nbytes,
                 5.0 * sum(Ts),
                 _bucket_text(n, f"shift{shift}", nibble, members))
-    R, C, shift, n = key
+    R, C, shift, n, row = key
 
     def make():
         q = torch.randint(-127, 128, (R, C), generator=g, device=dev,
                           dtype=torch.int8)
-        s = wp.grid_scale(torch.rand((R * C,), generator=g, device=dev)
-                          + 0.1).reshape(R, C)
-        return q, s, shift, n
+        s = wp.grid_scale(torch.rand((C if row else R * C,), generator=g,
+                                     device=dev) + 0.1)
+        return q, s if row else s.reshape(R, C), shift, n
 
-    return (make, wp.wire_dequant_rows, wp.dequant_sum_ref, R * C * 9,
-            3.0 * R * C, f"R{R} C{C} shift{shift} n{n}")
+    # the mantissas read, the float32 mean written, the scales read: one
+    # row every row shares (the 2D decode of a model block) or one a value
+    return (make, wp.wire_dequant_rows, wp.dequant_sum_ref,
+            R * C * 5 + 4 * (C if row else R * C), 3.0 * R * C,
+            f"R{R} C{C} shift{shift} n{n}" + (" one scale row" if row
+                                               else ""))
 
 
 def _tensors(x):
@@ -1564,15 +1626,22 @@ def _same_bits(a, b):
         and torch.equal(_wbits(x), _wbits(y)) for x, y in zip(a, b))
 
 
-def wire_case(name, key, dev, g):
+def wire_case(name, key, dev, g, timed=True):
     """One wire kernel at one shape against its plain version, bit for bit
     (every output, signed zeros included; the bucket decode at every rank
-    index), twice identical, and timed."""
+    index; the per-position decode with scales of the payload's shape and
+    as one row), twice identical, and timed (``timed=False``: held only,
+    returns None)."""
     make, kern, plain, nbytes, flops, shape = _wire_spec(name, key, dev, g)
-    sets = [make() for _ in range(n_copies(nbytes))]
+    sets = [make() for _ in range(n_copies(nbytes) if timed else 1)]
     checks = [sets[0]]
     if name == "wire_dequant_bucket":
         checks = [sets[0][:6] + (i,) + sets[0][7:] for i in range(key[0])]
+    if name == "wire_dequant_rows":
+        # the other scale layout too: one row, or that row at every row
+        q, sc, shift, n = sets[0]
+        checks.append((q, sc.expand(q.shape).contiguous() if key[4]
+                       else sc[0].contiguous(), shift, n))
     for args in checks:
         ref = plain(*args)
         out = kern(*_fresh(args))
@@ -1581,9 +1650,11 @@ def wire_case(name, key, dev, g):
         check(_same_bits(out, kern(*_fresh(args))),
               f"{name} {shape}: not repeatable")
     del checks, ref, out
+    if not timed:
+        return None
     b_ms, b_by = bound(nbytes, flops)
     case = {"shape": shape, "max_abs_err": 0.0,
-            "ms": time_ms(kern, sets), "plain_ms": time_ms(plain, sets, 16),
+            "ms": time_ms(kern, sets), "plain_ms": plain_ms(plain, sets),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
     del sets
@@ -1604,7 +1675,8 @@ BUCKET_EDGE = [
 # edge shapes of the wire kernels, beside the shapes the wire phase takes
 # from its main paths: stacked rows at every width, odd tails, a qwen2 MLP
 # leaf (24 layers) and the embedding, n = 3 (a true division) and 4; packs
-# of even C around the 16- and 32-byte vectors (16 packed bytes from 32)
+# of even C around the 16- and 32-byte vectors (16 packed bytes from 32);
+# the per-position decode with a scale a value and with one scale row
 WIRE_EDGE = {
     "wire_quantize_rows": [(1, 1, 8), (3, 40, 2), (4, 129, 5), (7, 257, 7),
                            (24, 1000, 3), (24, 896 * 4864, 4),
@@ -1613,8 +1685,9 @@ WIRE_EDGE = {
     "wire_pack_rows": [(1, 1), (3, 7), (4, 1001), (1, 2 ** 20), (1, 14),
                        (3, 16), (1, 18), (3, 30), (1, 32), (3, 34), (2, 62),
                        (1, 64), (2, 66), (3, 2 ** 20 + 2)],
-    "wire_dequant_rows": [(3, 1001, 2, 3), (4, 1001, 2, 4),
-                          (4, 2 ** 20, 2, 4)],
+    "wire_dequant_rows": [(3, 1001, 2, 3, False), (4, 1001, 2, 4, False),
+                          (4, 2 ** 20, 2, 4, False),
+                          (4, 2 ** 20, 2, 4, True)],
     "wire_quantize_bucket": [(n, 4 if nib else 8, nib, m)
                              for n, _, nib, m in BUCKET_EDGE],
     "wire_dequant_bucket": [(n, (n - 1).bit_length(), nib, m)
@@ -1816,6 +1889,7 @@ def kernel_phase(dev):
     check(max(rel) <= REL_ERR_LIMIT < max(rel2),
           f"qmatmul: largest error over (|x|@|w|)*scale {max(rel):.3g}, "
           f"two-term control {max(rel2):.3g}, limit {REL_ERR_LIMIT}")
+    lap("kernels: qmatmul")
     for R in (16, 32, 64):
         for bits in (8, 4):
             cases["kv_quantize_rows"][R, hd, bits] = kv_quantize_case(
@@ -1863,6 +1937,7 @@ def kernel_phase(dev):
     empty_rows_attention_checks(dev, g)
     long_ring_checks(dev, g)
     unaligned_attention_checks(dev, g)
+    lap("kernels: the KV kernels")
     for shape, fshape, dtype in HGQ_SHAPES + HGQ_EDGE + PAPER_SHAPES \
             + LM_SHAPES + GRANITE_SHAPES:
         key, fwd, bwd = hgq_quantize_case(shape, fshape, dtype, dev, g)
@@ -1873,6 +1948,7 @@ def kernel_phase(dev):
         key, case = hgq_group_case(members, dev, g)
         cases["hgq_quantize_fwd_group"][key] = case
     _hgq_group_checks(dev)
+    lap("kernels: the quantizer")
     _hgq_alignment_check(dev)
     _pack_offset_check(dev)
     _bucket_edge_checks(dev)
@@ -1996,11 +2072,10 @@ def kernels_line(cases, tallies):
         if name in WIRE:
             entry["note"] = ("library_ms null: no single PyTorch call "
                              "computes this function")
-        if name in RETIRED_WIRE:
-            entry["note"] += ("; no main path launches it (the fused reduce "
-                              "runs its bucket form; the 2D exchange, not "
-                              "ported, calls it), so its per-unit fields are "
-                              "null; per-call numbers under shapes")
+        if name in PER_POSITION_WIRE:
+            entry["note"] += ("; the 2D exchange launches it, one launch a "
+                              "leaf a rank (the 1D reduce runs its bucket "
+                              "form)")
         if name in ("wire_quantize_bucket", "wire_dequant_bucket"):
             entry["note"] += ("; one launch a bucket a rank, the members read "
                               "and written where they lie (a member table in "
@@ -2106,7 +2181,8 @@ def _all_threads_config():
 def _trace_once(fn, args, settle=PROFILE_SETTLE_S, n_markers=PROFILE_MARKERS,
                 all_threads=False):
     """``fn(*args)`` under ``torch.profiler``, after ``settle`` seconds and
-    ``n_markers`` marker kernels: (the profiler, the chrome trace's device
+    ``n_markers`` marker kernels: (the profiler, its exported chrome trace's
+    events as its ``trace_events``; the chrome trace's device
     kernels but the markers', where the launches of ``fn`` whose device
     kernel the trace lacks were made, the launches of ``fn``, the markers'
     device kernels the trace kept).  ``all_threads``: host operations of
@@ -2136,6 +2212,7 @@ def _trace_once(fn, args, settle=PROFILE_SETTLE_S, n_markers=PROFILE_MARKERS,
                    key=lambda e: e["ts"])
     check(len(calls) > n_markers, "the profiled function launched no kernel")
     ahead = {e["args"]["correlation"] for e in calls[:n_markers]}
+    prof.trace_events = events
     markers = [e for e in events if e.get("cat") == "kernel"
                and MARKER in e.get("name", "")]
     check(all(e["args"]["correlation"] in ahead for e in markers),
@@ -2161,6 +2238,11 @@ def _launch_site(events, calls, i):
     return f"{c['name']} in {op} (launch {i + 1} of {len(calls)})"
 
 
+# the chrome trace's device operations (what torch.profiler's events list
+# as on the device): kernels, copies, fills
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def _profiled(fn, grids_of=None, prepare=None, all_threads=False,
               device_ms=None):
     """``fn()`` (or ``fn(prepare())``, ``prepare`` run before the profiler
@@ -2168,11 +2250,12 @@ def _profiled(fn, grids_of=None, prepare=None, all_threads=False,
     was busy, the launch grids of the device kernels whose name holds
     ``grids_of``, as CUPTI recorded them, and the names of every event,
     device kernels and host operators -- of every thread with
-    ``all_threads``, where the profiler can -- counted), the markers left
-    out.  Only a whole trace is read: one with a device kernel for every
-    kernel launch of ``fn``.  ``device_ms``, a dict, receives the device
-    milliseconds of each device operation's name."""
-    from torch.autograd import DeviceType
+    ``all_threads``, where the profiler can -- counted; an operator
+    nested in one of its own name counts twice), the markers left out,
+    all read from the exported chrome trace.  Only a whole trace is
+    read: one with a device kernel for every kernel launch of ``fn``.
+    ``device_ms``, a dict, receives the device milliseconds of each device
+    operation's name."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         args = () if prepare is None else (prepare(),)
         prof, kernels, lost, launched, marked = _trace_once(
@@ -2186,18 +2269,18 @@ def _profiled(fn, grids_of=None, prepare=None, all_threads=False,
               f"of {len(lost)} of {len(launched)} kernel launches: "
               f"{'; '.join(lost[:4])}", flush=True)
     check(not lost, f"no whole trace in {PROFILE_ATTEMPTS} runs")
-    events = [e for e in prof.events() if MARKER not in e.name]
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
     grids = [] if grids_of is None else [
         tuple(e["args"]["grid"]) for e in kernels
         if grids_of in e.get("name", "")]
-    names = collections.Counter(e.name for e in events)
+    events = [e for e in prof.trace_events if e.get("ph") == "X"
+              and MARKER not in e.get("name", "")]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     if device_ms is not None:
         for e in dev:
-            device_ms[e.name] = device_ms.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-    return (len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3,
-            grids, names)
+            device_ms[e["name"]] = device_ms.get(e["name"], 0.0) \
+                + e["dur"] / 1e3
+    return (len(dev), sum(e["dur"] for e in dev) / 1e3, grids,
+            collections.Counter(e["name"] for e in events))
 
 
 def _serve(eng, reqs, unpacks=None):
@@ -2342,7 +2425,7 @@ LOGITS_REL_LIMIT = 0.005
 
 
 def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None,
-                     prepare=None):
+                     prepare=None, full=True):
     """Teacher-forced logits of the card (kernels) against the CPU (plain
     versions) on one prefill chunk and two decode ticks of 2 rows, with
     the activation quantizers on ("full") and off ("continuous"), where
@@ -2352,7 +2435,8 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None,
     {"rel_l2", "argmax_agree", "controls"?}}.  ``model``: the decoder
     (``TransformerLM`` by default); ``prepare(caches, device, params,
     qstate, kv_bits)``, if given, fills the fresh caches first (an
-    encoder-decoder's memory) and returns them."""
+    encoder-decoder's memory) and returns them.  ``full=False`` reads the
+    continuous witness alone ({"continuous": ...})."""
     from repro_torch.models import TransformerLM
     from repro_torch.tree import tree_map
     M = model or TransformerLM
@@ -2387,14 +2471,14 @@ def _logits_vs_plain(p, q, cfg, kv_bits, dev, controls, model=None,
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
         return b, {"rel_l2": rel(a, b), "argmax_agree": agree}
 
-    _, full = compare(p)
+    out = {"full": compare(p)[1]} if full else {}
     pc = _without_act_quantizers(p)
     b, cont = compare(pc)
     cont["controls"] = {}
     for name, (tree, fault) in controls(pc).items():
         with fault():
             cont["controls"][name] = rel(run(dev, tree, q), b)
-    return {"full": full, "continuous": cont}
+    return {**out, "continuous": cont}
 
 
 def _dense_controls(pc):
@@ -2446,6 +2530,22 @@ def _moe_controls(pc):
                                          1, real(S, c) - 1)))}
 
 
+# qwen2-0.5b is served at its published widths and the first this many of
+# its 24 layers, cut from the full model's init (all 24 were held in
+# earlier runs, PERF.md §4): the cut pays for the wire phase's 2D part
+# and the script's time; its tallies scale with the layers
+QWEN_SERVE_LAYERS = 4
+
+
+def lm_first_layers(params, qstate, cfg, n):
+    """The first ``n`` layers of a ``TransformerLM`` tree (``params``,
+    ``qstate``, copied) and ``cfg`` at that depth."""
+    from repro_torch.tree import tree_map
+    cut = [{**t, "layers": tree_map(lambda a: a[:n].clone(), t["layers"])}
+           for t in (params, qstate)]
+    return (*cut, dataclasses.replace(cfg, n_layers=n))
+
+
 def slice_phase(dev, cases):
     from repro_torch.configs import get
     from repro_torch.core.plan import PrecisionPlan
@@ -2460,10 +2560,12 @@ def slice_phase(dev, cases):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    params, qstate = TransformerLM.init(gen, cfg, device=dev)
+    params, qstate, cfg = lm_first_layers(
+        *TransformerLM.init(gen, cfg, device=dev), cfg, QWEN_SERVE_LAYERS)
     torch.cuda.synchronize()
-    print(f"[slice] qwen2-0.5b FULL init on the card: "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[slice] qwen2-0.5b FULL init on the card, cut to "
+          f"{cfg.n_layers} of 24 layers: {time.perf_counter() - t0:.2f} s",
+          flush=True)
     plan = PrecisionPlan.from_file(
         str(ROOT / "examples" / "specs" / "plan_mixed_w4w8.json"))
     rng = np.random.default_rng(SEED)
@@ -2478,7 +2580,7 @@ def slice_phase(dev, cases):
     for tag, desc, pl, kv_bits in configs:
         torch.cuda.reset_peak_memory_stats()
         eng = api_engine(serving_spec("qwen2-0.5b", pl, kv_bits), params,
-                         qstate, dev, max_len, kv_bits)
+                         qstate, dev, max_len, kv_bits, cfg=cfg)
         check(eng.slots == 8, f"({tag}) {eng.slots} slots")
         reqs = [Request(prompt=list(pr), max_new=max_new) for pr in prompts]
         torch.cuda.synchronize()
@@ -2568,6 +2670,7 @@ def slice_phase(dev, cases):
               f"{counts}; per full tick {per_tick}; Engine == generate() "
               f"on requests 0 and {len(reqs) - 1}", flush=True)
         del eng
+    lap("serve: qwen2-0.5b")
     granite_total, report["granite"], granite_ticks, granite_profile = \
         granite_serving(dev, cases)
     griffin_total, report["griffin"], griffin_ticks, griffin_profile = \
@@ -2577,6 +2680,7 @@ def slice_phase(dev, cases):
     (whisper_total, report["whisper"], whisper_ticks, whisper_profile,
      whisper_append) = whisper_serving(dev, cases)
     api_total, report["api"], llama_ticks, api_profile = api_serving(dev)
+    lap("serve: every family served")
     for k in total:
         total[k] += granite_total[k] + griffin_total[k] + rwkv_total[k] \
             + whisper_total[k] + api_total[k]
@@ -2644,7 +2748,8 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
                   unpacks_per_tick=lambda pl: 0, ring=None, n_attn=None,
                   min_blocks=128, store_window=False, engine=None,
                   lm_lens=None, audio=None, alone=None, after=None,
-                  prepare=None, kv_layers=None, ring_field="k"):
+                  prepare=None, kv_layers=None, ring_field="k",
+                  sound=None):
     """Serve one family through ``Engine`` as the qwen2 part serves it (8
     slots, chunks of 16, 10 greedy requests of 16-256 prompt tokens and 32
     new ones, and in configuration (a) one more of ``long_prompt`` tokens
@@ -2672,7 +2777,11 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
     ``alone(packed params, packed qstate, kv_bits, request)`` (a request's
     tokens served alone; the LM ones default to a plain ``Engine``),
     ``after(tag, engine, requests, plan, kv_bits)`` (checks of the served
-    engine, returning report fields), ``prepare`` (``_logits_vs_plain``'s).
+    engine, returning report fields), ``prepare`` (``_logits_vs_plain``'s),
+    ``sound(packed params, packed qstate, config, kv_bits)`` (the card vs
+    CPU reading without the grids whose ties the continuous reading keeps,
+    ``_logits_vs_plain``'s continuous witness, gated beside it: under
+    ``LOGITS_REL_LIMIT`` with every control above it).
     Returns (launch counts, report, configuration (a)'s full tick by
     shape, a function that profiles one full tick of each configuration,
     to be called after every timed run)."""
@@ -2780,6 +2889,8 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
         pc, qc, cfg_cut = logits_cut(pp, qq)
         logits = _logits_vs_plain(pc, qc, cfg_cut, kv_bits, dev, controls,
                                   model=model, prepare=prepare)
+        if sound is not None:
+            logits["sound"] = sound(pc, qc, cfg_cut, kv_bits)
         logits_s = time.perf_counter() - t0
         del pp, qq, pc, qc
         full, cont = logits["full"], logits["continuous"]
@@ -2795,6 +2906,16 @@ def _serve_family(name, model, params, qstate, cfg, dev, cases, configs,
               f"quantizers: {cont}")
         check(all(c > LOGITS_REL_LIMIT for c in cont["controls"].values()),
               f"({name} {tag}) the logits check misses a control: {cont}")
+        if sound is not None:
+            snd = logits["sound"]
+            check(snd["rel_l2"] <= LOGITS_REL_LIMIT
+                  and snd["argmax_agree"] == 1.0,
+                  f"({name} {tag}) card vs CPU logits without the grids' "
+                  f"ties: {snd}")
+            check(all(c > LOGITS_REL_LIMIT
+                      for c in snd["controls"].values()),
+                  f"({name} {tag}) the sound logits check misses a "
+                  f"control: {snd}")
         toks = sum(len(r.out) for r in reqs)
         med = float(np.median(tick_ms))
         plens = [len(r.prompt) for r in reqs]
@@ -3028,17 +3149,17 @@ def griffin_serving(dev, cases):
 # Card logits against the CPU at rwkv6-1.6b's full width and this many of its
 # layers (the first ones of the served tree), within the dense limits, which
 # three RWKV faults (``_rwkv_controls``) exceed.
-RWKV_LOGITS_LAYERS = 4
+RWKV_LOGITS_LAYERS = 2
 RWKV_FFN = ("layers/ffn",)
 # configuration (a)'s extra request: 64 prefill chunks of state carried
 # through one slot
 RWKV_LONG_PROMPT = 1024
 RWKV_MAX_LEN = 2048
 # rwkv6-1.6b is served at this many of its 24 layers (those card vs CPU
-# reads), at its published widths (earlier runs held all 24, PERF.md §4):
-# the cut pays for the Whisper part within the script's time; its tallies
-# scale with the layers
-RWKV_SERVE_LAYERS = 4
+# reads), at its published widths (earlier runs held all 24, PERF.md §4;
+# 4 in PRs 23-25): the cut pays for the Whisper part and the script's
+# time; its tallies scale with the layers
+RWKV_SERVE_LAYERS = 2
 
 
 def rwkv_constants(params, gen):
@@ -3105,7 +3226,7 @@ def rwkv_serving(dev, cases):
     packed uniform int8 and one more request of a 1024-token prompt (64
     chunks of state carried through one slot); (b) every channel-mix
     kernel in nibbles, the rest int8 (``kv_bits`` None: the model holds no
-    KV).  One full tick at 4 layers: 33 ``qmatmul`` (24 of 2048 x 2048, 4
+    KV).  One full tick at 2 layers: 17 ``qmatmul`` (12 of 2048 x 2048, 2
     each way between 2048 and 7168, the head), no ``kv_quantize_store`` or
     ``kv_attention_rows`` launch and no ``unpack_nibbles`` call.  Card vs
     CPU at ``RWKV_LOGITS_LAYERS`` layers, against the three RWKV
@@ -3181,6 +3302,29 @@ def _whisper_frames(n, seed):
     reference's tests scale them."""
     rng = np.random.default_rng(seed)
     return (0.3 * rng.standard_normal((n, WHISPER["d"]))).astype(np.float32)
+
+
+@contextlib.contextmanager
+def _float32_cache():
+    """Whisper's float cache and memory kept in float32 (bfloat16 by
+    default, a grid of its own)."""
+    from repro_torch.models import WhisperModel
+
+    def f32(real):
+        return lambda *a, **k: real(*a, **{**k, "dtype": torch.float32})
+
+    with _patched_static(WhisperModel, "init_cache", f32):
+        yield
+
+
+def _without_probs_grid(tree):
+    """The tree without the attention probabilities' grid (``probs_f``)."""
+    if isinstance(tree, dict):
+        return {k: _without_probs_grid(v) for k, v in tree.items()
+                if k != "probs_f"}
+    if isinstance(tree, list):
+        return [_without_probs_grid(v) for v in tree]
+    return tree
 
 
 def _whisper_controls(pc):
@@ -3282,7 +3426,10 @@ def whisper_serving(dev, cases):
     for all decoder layers' rows; no ``unpack_nibbles`` call; the cross memory's
     bytes the byte model's; in a mixed tick every LM row reads exact zeros
     from the memory; card vs CPU at 2 + 2 layers against the three Whisper
-    controls.  Returns ``_serve_family``'s four values and configuration
+    controls, as served (the probabilities' and the cache rows' grids, whose
+    ties move the reading with the draw) and sound (a float32 cache and
+    memory, no probabilities' grid), each under ``LOGITS_REL_LIMIT`` with
+    every control above it.  Returns ``_serve_family``'s four values and configuration
     (a)'s append by shape; its profile function profiles one full tick of
     each configuration and one append of configuration (a)."""
     from repro_torch.configs import get
@@ -3445,6 +3592,16 @@ def whisper_serving(dev, cases):
                                           kv_bits=kv_bits)
         return c
 
+    def sound(pc, qc, cfg_, kv_bits):
+        """The continuous reading without its two grids (the attention
+        probabilities' 2^-f and the quantized cache rows' 2^-f): a float32
+        cache and memory, no ``probs_f``; the three Whisper controls."""
+        with _float32_cache():
+            return _logits_vs_plain(_without_probs_grid(pc), qc, cfg_, None,
+                                    dev, _whisper_controls,
+                                    model=WhisperModel, prepare=prepare,
+                                    full=False)["continuous"]
+
     configs = (("a", "packed uniform int8, kv_bits 8", None, 8),
                ("b", "packed plan: every encoder and decoder MLP kernel "
                      "(enc_layers/mlp, dec_layers/mlp) in nibbles (4 bits), "
@@ -3454,7 +3611,7 @@ def whisper_serving(dev, cases):
         want, _whisper_controls, cut, max_len=max_len, ring=max_len,
         n_attn=2 * L, kv_layers=L, ring_field="self_k", engine=engine,
         lm_lens=lm_lens,
-        audio=audio, alone=alone, after=after, prepare=prepare)
+        audio=audio, alone=alone, after=after, prepare=prepare, sound=sound)
 
     def profile():
         tick_profile()
@@ -3493,12 +3650,20 @@ def whisper_serving(dev, cases):
 # ---------------------------------------------------------------------------
 
 SPECS = ROOT / "examples" / "specs"
+# the specs' models are served at their published widths and this many of
+# their layers (llama3.2-3b's 28, qwen2-0.5b's 24; all were held in earlier
+# runs, PERF.md §4): the context's configuration is cut after the spec is
+# checked at full width, so that the context inits, packs and serves the
+# cut model; the cut pays for the script's time and the tallies scale with
+# the layers
+API_SERVE_LAYERS = 4
 # llama3.2-3b from serving_packed.json: one full tick's qmatmul launches by
 # shape (8 slots; q, o; k, v; gate, up; down a layer; the tied head)
-LLAMA_TICK = {(8, LLAMA["d"], LLAMA["d"], 8): 2 * LLAMA["L"],
-              (8, LLAMA["d"], LLAMA["KV"] * LLAMA["hd"], 8): 2 * LLAMA["L"],
-              (8, LLAMA["d"], LLAMA["ff"], 8): 2 * LLAMA["L"],
-              (8, LLAMA["ff"], LLAMA["d"], 8): LLAMA["L"],
+LLAMA_TICK = {(8, LLAMA["d"], LLAMA["d"], 8): 2 * API_SERVE_LAYERS,
+              (8, LLAMA["d"], LLAMA["KV"] * LLAMA["hd"], 8):
+                  2 * API_SERVE_LAYERS,
+              (8, LLAMA["d"], LLAMA["ff"], 8): 2 * API_SERVE_LAYERS,
+              (8, LLAMA["ff"], LLAMA["d"], 8): API_SERVE_LAYERS,
               (8, LLAMA["d"], LLAMA["V"], 8): 1}
 LLAMA_LOGITS_LAYERS = 2
 API_KV_PLAN_REQUESTS = 4
@@ -3575,12 +3740,14 @@ def api_serving(dev):
     """The shipped serving specs at full width through ``build(spec)
     .make_engine``, each loaded with ``RunSpec.from_args(["--spec", path,
     "--full"])``: (b) llama3.2-3b from ``serving_packed.json`` (packed
-    int8, fp cache, 8 slots), 8 requests of qwen2's traffic shape; its
-    packed tree equal to ``pack_params_for_serving`` by hand, every
-    request equal to itself served alone, one full tick 197 ``qmatmul``
-    by shape (``LLAMA_TICK``) and no KV kernel, card vs CPU at 2 of its
-    28 layers within the dense limits, which the dense controls exceed;
-    (c) qwen2-0.5b from ``serving_kv_plan.json`` (4 slots, attention at
+    int8, fp cache, 8 slots), checked at full width and served at
+    ``API_SERVE_LAYERS`` of its 28 layers, 8 requests of qwen2's traffic
+    shape; its packed tree equal to ``pack_params_for_serving`` by hand,
+    every request equal to itself served alone, one full tick's
+    ``qmatmul`` by shape (``LLAMA_TICK``) and no KV kernel, card vs CPU
+    at 2 of its layers within the dense limits, which the dense controls
+    exceed; (c) qwen2-0.5b from ``serving_kv_plan.json`` (4 slots,
+    ``API_SERVE_LAYERS`` of its 24 layers, attention at
     ``kv_bits`` 4, the MLP in nibbles): its tokens equal an ``Engine``
     built by hand with the same plan and ``kv_bits=4``, a full tick
     running int8 and nibble ``qmatmul``, the store and the attention
@@ -3608,6 +3775,7 @@ def api_serving(dev):
           and spec.precision.packed_serving and spec.serving.slots == 8
           and spec.serving.kv_cache == "fp", "not serving_packed.json's "
           "llama3.2-3b at full width")
+    cfg = ctx.cfg = dataclasses.replace(cfg, n_layers=API_SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, qstate = ctx.init_state()
@@ -3677,7 +3845,8 @@ def api_serving(dev):
     report["llama"] = {
         "spec": "examples/specs/serving_packed.json --full",
         "config": "llama3.2-3b FULL (configs/llama3_2_3b.py; hf:meta-llama, "
-                  "Llama 3.2): 28 layers, d 3072, 24 heads and 8 kv heads "
+                  f"Llama 3.2): {API_SERVE_LAYERS} of its 28 layers, d "
+                  "3072, 24 heads and 8 kv heads "
                   "of 128, d_ff 8192, vocab 128256, tied head; random "
                   "weights from the spec's seed; packed int8, fp (bf16) "
                   "cache, 8 slots, max_len 1024, chunks of 16",
@@ -3692,7 +3861,8 @@ def api_serving(dev):
         "launches_per_full_tick": {k: sum(c.values())
                                    for k, c in tick_shapes.items()},
         "logits_vs_cpu": logits}
-    print(f"[api] (b) llama3.2-3b from serving_packed.json: {len(reqs)} "
+    print(f"[api] (b) llama3.2-3b from serving_packed.json at "
+          f"{cfg.n_layers} of its 28 layers: {len(reqs)} "
           f"requests, {toks} new tokens in {wall:.2f} s = "
           f"{toks / wall:.1f} tok/s; decode tick median {med:.2f} ms over "
           f"{len(tick_ms)} ticks; peak memory {peak:.2f} GiB; packed "
@@ -3710,7 +3880,9 @@ def api_serving(dev):
                               "--full"])
     ctx2 = build(spec, device=dev)
     check(spec.serving.slots == 4 and spec.serving.kv_cache == "plan"
-          and ctx2.plan is not None, "not serving_kv_plan.json")
+          and ctx2.plan is not None and _lm_dims(ctx2.cfg) == QWEN,
+          "not serving_kv_plan.json's qwen2-0.5b at full width")
+    ctx2.cfg = dataclasses.replace(ctx2.cfg, n_layers=API_SERVE_LAYERS)
     params, qstate2 = ctx2.init_state()
     reqs = _served_requests(ctx2.cfg.vocab, API_KV_PLAN_REQUESTS, SEED + 6)
     eng = ctx2.make_engine(params, qstate2, max_len=1024, prefill_chunk=16)
@@ -3738,8 +3910,10 @@ def api_serving(dev):
                 for k, c in (kv_shapes or {}).items()}
     bits = {s[3] for s in (kv_shapes or {}).get("qmatmul", {})}
     check(kv_shapes is not None and bits == {8, 4}
-          and sum(kv_shapes["kv_quantize_store"].values()) == 24
-          and sum(kv_shapes["kv_attention_rows"].values()) == 24,
+          and sum(kv_shapes["kv_quantize_store"].values())
+          == API_SERVE_LAYERS
+          and sum(kv_shapes["kv_attention_rows"].values())
+          == API_SERVE_LAYERS,
           f"kv_plan: one full tick's launches by shape {per_tick}")
     report["kv_plan"] = {
         "spec": "examples/specs/serving_kv_plan.json --full",
@@ -3747,7 +3921,8 @@ def api_serving(dev):
             float(np.median(kv_ms)), "wall_s": kv_wall,
         "launches": kv_counts, "launches_per_full_tick": per_tick,
         "equal_to_hand_built_engine": True}
-    print(f"[api] (c) qwen2-0.5b from serving_kv_plan.json: {len(reqs)} "
+    print(f"[api] (c) qwen2-0.5b from serving_kv_plan.json at "
+          f"{ctx2.cfg.n_layers} of its 24 layers: {len(reqs)} "
           f"requests equal to the hand-built engine's; one full tick "
           f"{per_tick}; tick median {report['kv_plan']['decode_tick_ms_median']:.2f} ms",
           flush=True)
@@ -4595,12 +4770,12 @@ GRANITE_CELL = LMCell(
     "hf:ibm-granite), per-channel weights (the expert stacks per expert "
     "channel), per-tensor activations, init f 6; random weights from the "
     "seed, lm data, batch 2, seq 1024 (C = 256 slots an expert a row), "
-    "remat; 8 of its 32 layers (all 32 held in earlier runs, cut for the "
+    "remat; 4 of its 32 layers (all 32 held in earlier runs, cut for the "
     "script's time); 10 steps, lr 1e-3, beta 1e-9 -> 1e-7; params and "
     "AdamW state updated in place",
     10, GRANITE_LOSS0_EXCESS,
     lambda cfg: _granite_per_step(GRANITE_BATCH, GRANITE_SEQ, cfg.n_layers),
-    "n_active_params", True, layers=8)
+    "n_active_params", True, layers=4)
 
 
 def _lm_run(dev, cell):
@@ -4861,7 +5036,7 @@ def _continuous(tree):
 def _granite_run(dev, params, qstate, batches, fwd, loss):
     """``len(batches)`` steps of ``LM_TRAIN`` on ``dev`` from the given
     init: ([(loss, ~EBOPs)] per step, every leaf's AdamW first moment
-    after step 0, on the CPU)."""
+    after step 0, on ``dev``)."""
     from repro_torch.train import TrainConfig, Trainer
     from repro_torch.tree import tree_leaves, tree_map
     to = lambda t: t.to(dev)
@@ -4869,8 +5044,7 @@ def _granite_run(dev, params, qstate, batches, fwd, loss):
 
     def pipe(step):
         if step == 1:
-            first.extend(t.to("cpu", copy=True)
-                         for t in tree_leaves(tr.opt.mu))
+            first.extend(t.detach().clone() for t in tree_leaves(tr.opt.mu))
         return tree_map(to, batches[step])
 
     tcfg = TrainConfig(log_every=1, **dict(LM_TRAIN, steps=len(batches)))
@@ -4878,7 +5052,7 @@ def _granite_run(dev, params, qstate, batches, fwd, loss):
                  pipeline=pipe)
     tr.run(log=lambda *a: None)
     if not first:
-        first.extend(t.to("cpu", copy=True) for t in tree_leaves(tr.opt.mu))
+        first.extend(t.detach().clone() for t in tree_leaves(tr.opt.mu))
     return [(h["loss"], h["ebops"]) for h in tr.history], first
 
 
@@ -4916,7 +5090,10 @@ def _granite_readings(dev, seed, gaps=_granite_gaps):
         limits = GRANITE_LIMITS[name]
         run = lambda d: _granite_run(d, tree, qstate, batches[:steps], fwd,
                                      loss)
-        ref, card, again = run(cpu), run(dev), run(dev)
+        # the CPU's moments compared on the card: one copy, not one a run
+        ref = run(cpu)
+        ref = (ref[0], [t.to(dev) for t in ref[1]])
+        card, again = run(dev), run(dev)
         same = card[0] == again[0] and all(
             torch.equal(a, b) for a, b in zip(card[1], again[1]))
         faulty = {}
@@ -5025,17 +5202,24 @@ def train_phase(dev):
     step profiled after every timed run.  Returns the report and each
     model's launches a step by shape."""
     trainer, report, per_step = _quickstart(dev)
+    lap("train: quickstart")
     report["card_vs_cpu"] = _jet_card_vs_cpu(dev)
+    lap("train: quickstart card vs CPU")
     runs = {"jet": (trainer, report, per_step)}
     for name in ("svhn", "muon"):
         tr, rep, ps = _paper_run(dev, name)
+        lap(f"train: {name}")
         rep["card_vs_cpu"] = _paper_card_vs_cpu(dev, name)
+        lap(f"train: {name} card vs CPU")
         runs[name] = (tr, rep, ps)
         report[name] = rep
     t0 = time.perf_counter()
     tr, rep, ps = _lm_run(dev, QWEN_CELL)
+    lap("train: lm")
     rep["card_vs_cpu"] = _lm_card_vs_cpu(dev)
+    lap("train: lm card vs CPU")
     rep["prefill_vs_decode"] = _lm_prefill_vs_decode(dev)
+    lap("train: lm prefill vs decode")
     runs["lm"] = (tr, rep, ps)
     report["lm"] = rep
     report["lm"]["part_s"] = time.perf_counter() - t0
@@ -5043,11 +5227,14 @@ def train_phase(dev):
     # profiled inside, before the repeat run frees the first)
     t0 = time.perf_counter()
     _, rep, ps = _lm_run(dev, GRANITE_CELL)
+    lap("train: granite")
     rep["card_vs_cpu"] = _granite_card_vs_cpu(dev)
+    lap("train: granite card vs CPU")
     runs["granite"] = (None, rep, ps)
     report["granite"] = rep
     rep["part_s"] = time.perf_counter() - t0
     rep, ps = api_training(dev)
+    lap("train: api")
     runs["api"] = (None, rep, ps)
     report["api"] = rep
     # profiled only now, after every timed run
@@ -5100,6 +5287,21 @@ DP_F0_GAP = 0.15
 # faulty controls, which the check must catch (readings in PERF.md).
 DP_TRAJ_REL_LIMIT = 1e-4
 QWEN_PLAN = "examples/specs/plan_mixed_w4w8.json"
+# (b) reduces the embedding and the first this many of qwen2-0.5b's 24
+# layers (all 24 in earlier runs, PERF.md §4): (c) reduces the whole tree
+# over the 2D exchange, and the cut pays for it
+QWEN_REDUCE_LAYERS = 8
+# (c): the 2D data x model mesh of examples/specs/host_2x4_int8wire2d.json,
+# the steps qwen2-0.5b takes from it, the jet's 20 card-vs-CPU steps; the
+# 2D exchange launches the per-position kernels (phase 1, the nibble packs,
+# the decode), which the 1D paths never launch
+WIRE2D_SPEC = "examples/specs/host_2x4_int8wire2d.json"
+WIRE2D_STEPS = 2
+WIRE2D = ("wire_quantize_sflat", "wire_pack_rows", "wire_dequant_rows")
+# The 2D step against the post-reduce int8 path from one init, 8 steps at
+# batch 256 (the reference's tests/test_wire2d.py: step 0 within 5e-3,
+# every step within 0.05)
+WIRE2D_TRACK = dict(steps=8, batch=256, loss0=5e-3, every=0.05)
 
 
 def _sync(dev):
@@ -5108,12 +5310,14 @@ def _sync(dev):
 
 
 def _dp_run(dev, params, qstate, batches, *, compressed=True, plan=None,
-            steps=None, on_step=None):
+            steps=None, on_step=None, data=WIRE_N, model=1):
     """The quickstart's configuration from the given init, over
-    LocalMesh(WIRE_N) with reduce="compressed" (1D, fused) or the full
-    reduce: ([(loss, ~EBOPs)] per step, params, qstate).  ``batches`` is a
-    list or a step -> batch function."""
+    LocalMesh(data, model=model) with reduce="compressed" (fused; 1D, or
+    2D on a model axis above 1) or the full reduce: ([(loss, ~EBOPs)] per
+    step, params, qstate).  ``batches`` is a list or a step -> batch
+    function."""
     from repro_torch.dist import EFState, LocalMesh, ef_wire_init
+    from repro_torch.dist.collectives import ef_wire2d_init
     from repro_torch.optim import adamw_init
     from repro_torch.train import TrainConfig, make_train_step
     from repro_torch.tree import tree_map
@@ -5126,9 +5330,10 @@ def _dp_run(dev, params, qstate, batches, *, compressed=True, plan=None,
     opt = adamw_init(p)
     if compressed:
         step_fn = make_train_step(fwd, loss, tcfg, reduce="compressed",
-                                  mesh=LocalMesh(WIRE_N, dev),
+                                  mesh=LocalMesh(data, dev, model=model),
                                   wire_widths=plan)
-        ef = EFState(residual=ef_wire_init(p, WIRE_N))
+        ef = EFState(residual=ef_wire2d_init(p, data, model) if model > 1
+                     else ef_wire_init(p, data))
     else:
         step_fn = make_train_step(fwd, loss, tcfg)
     hist = []
@@ -5143,6 +5348,22 @@ def _dp_run(dev, params, qstate, batches, *, compressed=True, plan=None,
         hist.append((float(m["loss"]), float(m["ebops"])))
     _sync(dev)
     return hist, p, q
+
+
+def _dp_gap(run, ref, ref_p):
+    """A ``_dp_run`` against the reference run ``ref`` (its history) with
+    final params ``ref_p``: the largest relative gaps of loss and ~EBOPs
+    over the steps, the largest parameter gap, and ``gap``, the larger
+    relative one."""
+    from repro_torch.tree import tree_leaves
+    hist, p, _ = run
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    out = {"loss_rel": max(rel(h[0], r[0]) for h, r in zip(hist, ref)),
+           "ebops_rel": max(rel(h[1], r[1]) for h, r in zip(hist, ref)),
+           "param_abs": max(float((a.cpu() - b).abs().max()) for a, b in
+                            zip(tree_leaves(p), tree_leaves(ref_p)))}
+    out["gap"] = max(out["loss_rel"], out["ebops_rel"])
+    return out
 
 
 def _calib_report(dev, params, qstate, pipe):
@@ -5278,7 +5499,7 @@ def _dp_jet(dev):
               f"{HGQ_PER_STEP[name] * WIRE_N}")
     for name in FUSED_WIRE:
         check(counts[name] > 0, f"{name} was never launched: {counts}")
-    for name in ("wire_quantize_rows",) + RETIRED_WIRE:
+    for name in ("wire_quantize_rows",) + PER_POSITION_WIRE:
         check(counts[name] == 0, f"the fused path launched {name}: {counts}")
     # one bucket a width (4 and 8 bits) on each of the ranks, one launch of
     # each bucket kernel a bucket a rank
@@ -5333,16 +5554,7 @@ def _dp_jet(dev):
     batches = [jet_batch(SEED, s, 1024, device=cpu) for s in range(20)]
     ref, ref_p, _ = _dp_run(cpu, p0, q0, batches, plan=plan0)
 
-    def gap(run):
-        hist, p, _ = run
-        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
-        out = {"loss_rel": max(rel(h[0], r[0]) for h, r in zip(hist, ref)),
-               "ebops_rel": max(rel(h[1], r[1]) for h, r in zip(hist, ref)),
-               "param_abs": max(float((a.cpu() - b).abs().max()) for a, b in
-                                zip(tree_leaves(p), tree_leaves(ref_p)))}
-        out["gap"] = max(out["loss_rel"], out["ebops_rel"])
-        return out
-
+    gap = lambda run: _dp_gap(run, ref, ref_p)
     card1 = _dp_run(dev, p0, q0, batches, plan=plan0)
     card2 = _dp_run(dev, p0, q0, batches, plan=plan0)
     same = card1[0] == card2[0] and all(
@@ -5448,15 +5660,16 @@ def _profile_step_fn(dev, params, qstate, plan):
     return lambda b: step_fn(params, qstate, opt, b, QUICKSTART["steps"], ef)
 
 
-def _qwen2_grads(dev):
+def _qwen2_grads(dev, layers=QWEN_REDUCE_LAYERS):
     """Per-shard gradients of qwen2-0.5b's full-width tree: the leaves of
-    ``TransformerLM.init`` with a leading [4] shard axis, seeded normal
-    values, a scale per leaf (1e-4 .. 1e-1) and, for stacked leaves, per
-    layer (x 1/8 .. 8)."""
+    ``TransformerLM.init``, the layer stacks cut to their first ``layers``,
+    with a leading [4] shard axis, seeded normal values, a scale per leaf
+    (1e-4 .. 1e-1) and, for stacked leaves, per layer (x 1/8 .. 8)."""
     from repro_torch.configs import get
     from repro_torch.dist import stacked_tree
     from repro_torch.models import TransformerLM
-    from repro_torch.tree import tree_leaves, tree_unflatten
+    from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                                  tree_unflatten)
     cfg = get("qwen2-0.5b")
     check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab)
           == (24, 896, 4864, 151936), "not qwen2-0.5b")
@@ -5467,7 +5680,10 @@ def _qwen2_grads(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 2)
     leaves = []
-    for i, (leaf, st) in enumerate(zip(tree_leaves(params), flags)):
+    for i, ((path, leaf), st) in enumerate(zip(
+            tree_flatten_with_path(params), flags)):
+        if path[0] == "layers":
+            leaf = leaf[:layers]
         x = torch.randn((WIRE_N,) + tuple(leaf.shape), generator=g,
                         device=dev)
         x *= 10.0 ** (-4 + (i * 7) % 4)
@@ -5487,10 +5703,11 @@ def _equal_trees(a, b):
 
 
 def _dp_qwen2(dev):
-    """(b): the compressed reduce of qwen2-0.5b's gradient tree over
-    LocalMesh(4), uniform int8 and plan_mixed_w4w8: fused == per-leaf ==
-    simulate on the card, the card == the CPU on the embedding and a
-    stacked MLP leaf, recorded bytes == the byte model, times, memory."""
+    """(b): the compressed reduce of qwen2-0.5b's gradient tree (the layer
+    stacks cut to ``QWEN_REDUCE_LAYERS`` of 24) over LocalMesh(4), uniform
+    int8 and plan_mixed_w4w8: fused == per-leaf == simulate on the card,
+    the card == the CPU on the embedding and a stacked MLP leaf, recorded
+    bytes == the byte model, times, memory."""
     from repro_torch.core.plan import PrecisionPlan
     from repro_torch.dist import (LocalMesh, ef_wire_pmean,
                                   record_wire_bytes, simulate_wire_pmean)
@@ -5500,7 +5717,8 @@ def _dp_qwen2(dev):
     tree = _qwen2_grads(dev)
     _sync(dev)
     n_elem = sum(x[0].numel() for x in tree_leaves(tree))
-    print(f"[wire] (b) qwen2-0.5b gradient tree: {len(tree_leaves(tree))} "
+    print(f"[wire] (b) qwen2-0.5b gradient tree ({QWEN_REDUCE_LAYERS} of "
+          f"24 layers): {len(tree_leaves(tree))} "
           f"leaves, {n_elem} elements a shard, x{WIRE_N} shards, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     mesh = LocalMesh(WIRE_N, dev)
@@ -5587,7 +5805,7 @@ def _dp_qwen2(dev):
     peak = max(phase_peak, torch.cuda.max_memory_allocated()) / 2 ** 30
     check(all(counts[k] > 0 for k in FUSED_WIRE + ("wire_quantize_rows",)),
           f"(b) a wire kernel was never launched: {counts}")
-    check(all(counts[k] == 0 for k in RETIRED_WIRE),
+    check(all(counts[k] == 0 for k in PER_POSITION_WIRE),
           f"(b) a per-position wire kernel was launched: {counts}")
     report["launches"] = counts
     report["peak_mem_gib"] = peak
@@ -5615,24 +5833,446 @@ def _dp_qwen2(dev):
     return report, counts, units["mixed_w4w8"]
 
 
+@contextlib.contextmanager
+def _every_rank_model_slice_0():
+    """Control: every model rank quantizes model slice 0 of each leaf (the
+    2D exchange's rank slicing reads the wrong model index)."""
+    import repro_torch.dist.collectives as coll
+    real = coll._wire2d_slice
+    coll._wire2d_slice = lambda g, k, D, M, m, stacked: real(g, k, D, M, 0,
+                                                             stacked)
+    try:
+        yield
+    finally:
+        coll._wire2d_slice = real
+
+
+def _wire2d_want(params, widths, D, M):
+    """Per-position wire launches of one 2D exchange of ``params``' tree
+    over a LocalMesh of D x M ranks: a phase-1 quantize a leaf a rank, a
+    decode a leaf (rank 0 delivers the mesh's tree), and for a nibble leaf
+    one pack per exchange a rank (the model gather, and with D > 1 the
+    data all_to_all and all_gather)."""
+    from repro_torch.tree import tree_leaves
+    n = len(tree_leaves(params))
+    nib = 0 if widths is None else sum(1 for w in tree_leaves(widths)
+                                       if w <= 4)
+    return {"wire_quantize_sflat": n * D * M,
+            "wire_dequant_rows": n,
+            "wire_pack_rows": nib * D * M * ((2 if D > 1 else 0)
+                                             + (1 if M > 1 else 0))}
+
+
+def _dp2d_jet(dev, D, M):
+    """(c), the jet tagger's 2D compressed step over LocalMesh(D,
+    model=M) with the mixed plan: 20 steps on the card against the CPU's
+    plain path, twice on the card, and two faulty controls (the phase-2
+    remainder dropped; every rank quantizing model slice 0); launches by
+    shape a step; the 2D step against the post-reduce int8 path (uniform,
+    ``WIRE2D_TRACK``); one step profiled."""
+    from repro_torch.core.plan import mixed_low_plan
+    from repro_torch.data import DataSpec, jet_batch, make_pipeline
+    from repro_torch.dist import (EFState, LocalMesh, ef_compress, ef_init)
+    from repro_torch.dist.collectives import ef_wire2d_init
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    JetTagger, cfg, fwd, loss = _jet()
+    cpu = torch.device("cpu")
+    p0, q0 = JetTagger.init(torch.Generator().manual_seed(SEED + 1), cfg,
+                            device=cpu)
+    plan0 = mixed_low_plan(p0, 4)
+    batches = [jet_batch(SEED, s, 1024, device=cpu) for s in range(20)]
+    ref, ref_p, _ = _dp_run(cpu, p0, q0, batches, plan=plan0, data=D,
+                            model=M)
+    starts = []
+
+    def on_step(s):
+        _sync(dev)
+        starts.append(time.perf_counter())
+
+    _sync(dev)
+    _reset_counts()                           # the main path starts here
+    card1 = _dp_run(dev, p0, q0, batches, plan=plan0, data=D, model=M,
+                    on_step=on_step)
+    t1 = time.perf_counter()
+    counts = _counts(TRAINING + WIRE)         # ... and ends here
+    per_step = _per_step(_shapes(TRAINING + WIRE), 20)
+    step_ms = np.diff(starts + [t1]) * 1e3
+    for name in TRAINING:
+        n = sum(per_step[name].values())
+        check(n == HGQ_PER_STEP[name] * D,
+              f"(c) jet {name}: {n} launches a step, not "
+              f"{HGQ_PER_STEP[name] * D}")
+    want = _wire2d_want(p0, plan0.wire_bits_tree(p0), D, M)
+    got = {k: sum(per_step[k].values()) for k in WIRE}
+    check(got == {**{k: 0 for k in WIRE}, **want},
+          f"(c) jet: wire launches a step {got}, want {want}")
+    card2 = _dp_run(dev, p0, q0, batches, plan=plan0, data=D, model=M)
+    same = card1[0] == card2[0] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(card1[1]),
+                                          tree_leaves(card2[1])))
+    with _no_phase2_feedback():
+        no_ef = _dp_run(dev, p0, q0, batches, plan=plan0, data=D, model=M)
+    with _every_rank_model_slice_0():
+        slice0 = _dp_run(dev, p0, q0, batches, plan=plan0, data=D, model=M)
+
+    gap = lambda run: _dp_gap(run, ref, ref_p)
+    traj = {"sound": gap(card1), "repeat_bit_identical": same,
+            "controls": {"no_phase2_error_feedback": gap(no_ef),
+                         "every_rank_quantizes_model_slice_0": gap(slice0)},
+            "cpu_final_loss": ref[-1][0]}
+    print(f"[wire] (c) jet over LocalMesh({D}, model={M}), card vs CPU, 20 "
+          f"2D compressed steps: {json.dumps(traj)} (limit on the larger "
+          f"relative gap of loss and ~EBOPs: {DP_TRAJ_REL_LIMIT})",
+          flush=True)
+    check(same, "two card runs of the 20 2D compressed steps differ")
+    check(traj["sound"]["gap"] <= DP_TRAJ_REL_LIMIT,
+          f"card vs CPU 2D compressed trajectory gap {traj['sound']}")
+    check(all(c["gap"] > DP_TRAJ_REL_LIMIT
+              for c in traj["controls"].values()),
+          f"the 2D trajectory check misses a control: {traj['controls']}")
+
+    # the 2D step tracks the post-reduce int8 path (uniform int8)
+    tk = WIRE2D_TRACK
+    tcfg = TrainConfig(steps=20, lr=3e-3, beta0=1e-7, beta1=1e-6)
+    pipe = make_pipeline(DataSpec(kind="jet", batch=tk["batch"]), device=dev)
+    to = lambda t: t.to(dev)
+    p, q = tree_map(to, p0), tree_map(to, q0)
+    step_c = make_train_step(fwd, loss, tcfg, reduce="compressed",
+                             mesh=LocalMesh(D, dev, model=M))
+    step_r = make_train_step(fwd, loss, tcfg,
+                             grad_tx=lambda g, s: ef_compress(g, s,
+                                                              kind="int8"))
+    sc = (p, q, adamw_init(p), EFState(residual=ef_wire2d_init(p, D, M)))
+    sr = (p, q, adamw_init(p), ef_init(p))
+    lc, lr_ = [], []
+    for s in range(tk["steps"]):
+        b = pipe(s)
+        pc, qc, oc, mc, ec = step_c(*sc[:3], b, s, sc[3])
+        pr, qr, orr, mr, er = step_r(*sr[:3], b, s, sr[3])
+        sc, sr = (pc, qc, oc, ec), (pr, qr, orr, er)
+        lc.append(float(mc["loss"]))
+        lr_.append(float(mr["loss"]))
+    track = {"loss_2d": lc, "loss_post_reduce": lr_,
+             "step0_gap": abs(lc[0] - lr_[0]),
+             "max_gap": max(abs(a - b) for a, b in zip(lc, lr_))}
+    print(f"[wire] (c) jet 2D step against the post-reduce int8 path: "
+          f"{json.dumps(track)}", flush=True)
+    check(track["step0_gap"] < tk["loss0"] and track["max_gap"] < tk["every"]
+          and lc[-1] < lc[0], f"the 2D step does not track the post-reduce "
+                              f"loss curve: {track}")
+    # profiled only now, after every timed run
+    step_fn = make_train_step(fwd, loss, TrainConfig(**QUICKSTART),
+                              reduce="compressed",
+                              mesh=LocalMesh(D, dev, model=M),
+                              wire_widths=mixed_low_plan(card1[1], 4))
+    pp, qq = card1[1], card1[2]
+    opt, ef = adamw_init(pp), EFState(residual=ef_wire2d_init(pp, D, M))
+    b = tree_map(to, batches[0])
+    ops, busy, _, names = _profiled(lambda: step_fn(pp, qq, opt, b, 20, ef),
+                                    all_threads=True)
+    med = float(np.median(step_ms))
+    report = {
+        "config": f"examples/quickstart.py's jet tagger and schedule, batch "
+                  f"1024 over LocalMesh({D}, model={M}) (512 a data shard), "
+                  f"reduce='compressed', 2D (auto), fused, int8 wire with "
+                  f"mixed_low_plan(params, 4)",
+        "card_vs_cpu": traj, "tracks_post_reduce": track,
+        "step_ms_median": med, "step_ms_p90": float(np.percentile(step_ms,
+                                                                  90)),
+        "launches": counts,
+        "launches_per_step": {k: {" ".join(map(str, key)): n
+                                  for key, n in c.items()}
+                              for k, c in per_step.items() if c},
+        "profiled_step": {"device_ops": ops, "device_busy_ms": busy,
+                          "idle_share_of_median_step": 1.0 - busy / med,
+                          "events_by_name": dict(names.most_common(40))}}
+    print(f"[wire] (c) jet 2D step: median {med:.2f} ms; launches a step "
+          f"{ {k: v for k, v in got.items() if v} }; profiled: {ops} device "
+          f"operations, busy {busy:.3f} ms, idle {1.0 - busy / med:.1%}",
+          flush=True)
+    return report, counts, per_step
+
+
+def _dp2d_qwen2(dev):
+    """(c), qwen2-0.5b FULL from ``host_2x4_int8wire2d.json --full``:
+    ``build(spec).init_training()`` over LocalMesh(2, model=4), the spec's
+    batch 4 and seq 32, ``WIRE2D_STEPS`` steps (step ms, launches by shape
+    a step exact, step 0's loss near ln(vocab)); then one step's full
+    gradient tree and the run's residual through the 2D exchange, uniform
+    int8 and plan_mixed_w4w8: fused == per-leaf == simulate on the card, the
+    card == the CPU on the embedding and a stacked MLP leaf under the mixed
+    plan (8 and 4 bits), the recorded bytes == the sum of
+    ``wire2d_leaf_bytes``, bytes per element against
+    the 1D exchange plus ``tp_replication_bytes``; the pure-TP mesh
+    LocalMesh(1, model=4) on one shard (the sliced path, no data
+    exchange); one step profiled; the part's peak memory."""
+    from repro_torch.api import RunSpec, build
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.dist import LocalMesh, record_wire_bytes
+    from repro_torch.dist import collectives as coll
+    from repro_torch.train import lm_loss
+    from repro_torch.train.loop import _value_and_grad
+    from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                                  tree_map)
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    spec = RunSpec.from_args(["--spec", str(ROOT / WIRE2D_SPEC), "--full"])
+    ctx = build(spec, device=dev)
+    cfg = ctx.cfg
+    D, M = spec.mesh.data, spec.mesh.model
+    comp = ctx.grad_compression()
+    check(_lm_dims(cfg) == QWEN and spec.full
+          and isinstance(ctx.mesh, LocalMesh)
+          and ctx.mesh.axis_sizes == (D, M) == (2, 4)
+          and comp.wire and comp.wire_layout == "2d",
+          f"{WIRE2D_SPEC} --full is not qwen2-0.5b over the 2D wire on "
+          f"LocalMesh(2, model=4): {ctx.mesh}, {comp}")
+    setup = ctx.init_training()
+    marks = {"init": time.perf_counter() - t_part}
+    B, S = spec.data.batch, spec.data.seq
+    starts, losses = [], []
+    _sync(dev)
+    _reset_counts()                           # the main path starts here
+    for s in range(WIRE2D_STEPS):
+        _sync(dev)
+        starts.append(time.perf_counter())
+        losses.append(float(setup.step(s)["loss"]))
+    _sync(dev)
+    t1 = time.perf_counter()
+    counts = _counts(TRAINING + WIRE)         # ... and ends here
+    per_step = _per_step(_shapes(TRAINING + WIRE), WIRE2D_STEPS)
+    step_ms = np.diff(starts + [t1]) * 1e3
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab)) <= LM_LOSS0_MARGIN,
+          f"(c) qwen2 losses {losses}, step 0 not within {LM_LOSS0_MARGIN} "
+          f"of ln(vocab)")
+    hgq_want = {k: collections.Counter({key: D * n for key, n in c.items()})
+                for k, c in _lm_per_step(B // D, S, cfg.n_layers,
+                                         cfg.q_chunk).items()}
+    check({k: per_step[k] for k in TRAINING} == hgq_want,
+          f"(c) qwen2 hgq_quantize launches a step "
+          f"{ {k: dict(per_step[k]) for k in TRAINING} }, not {hgq_want}")
+    want = _wire2d_want(setup.params, None, D, M)
+    got = {k: sum(per_step[k].values()) for k in WIRE}
+    check(got == {**{k: 0 for k in WIRE}, **want},
+          f"(c) qwen2: wire launches a step {got}, want {want}")
+    step_unit = {k: per_step[k] for k in WIRE2D}
+    marks["steps"] = time.perf_counter() - t_part
+    print(f"[wire] (c) qwen2-0.5b FULL over LocalMesh({D}, model={M}), batch "
+          f"{B}, seq {S}: losses {losses}; step ms {step_ms.tolist()}; wire "
+          f"launches a step {got}", flush=True)
+
+    # one step's gradient tree (the two data shards') and the run's residual
+    batch = setup.pipeline(WIRE2D_STEPS)
+    beta = torch.tensor(spec.train.beta1, device=dev)
+    with ctx.activate():
+        shards = [_value_and_grad(
+            ctx.forward, lambda out, b: lm_loss(out, b["tokens"]),
+            spec.train, setup.params, setup.qstate,
+            tree_map(lambda x, i=i: x.reshape((D, -1) + x.shape[1:])[i],
+                     batch), beta)[4] for i in range(D)]
+    tree = tree_map(lambda *gs: torch.stack(gs), *shards)
+    del shards
+    res = setup.ef_state.residual
+    check(any(bool(r.any()) for r in tree_leaves(res)),
+          "(c) the residual is still zero after the steps")
+    mesh = ctx.mesh
+    marks["grads"] = time.perf_counter() - t_part
+    n_elem = sum(x[0].numel() for x in tree_leaves(tree))
+    plan = PrecisionPlan.from_file(str(ROOT / QWEN_PLAN))
+    flags = coll._stacked_flags(tree, None)
+    report, units = {}, {}
+    for tag, widths in (("int8", None),
+                        ("mixed_w4w8", plan.wire_bits_tree(tree))):
+        wflags = coll._width_flags(tree, widths)
+        shapes = [tuple(x.shape[1:]) for x in tree_leaves(tree)]
+        want_b = sum(coll.wire2d_leaf_bytes(sh, D, M, "int8", st, w)
+                     for sh, st, w in zip(shapes, flags, wflags))
+        b1d = sum(coll.wire_bytes_model(
+            math.prod(sh), D, "int8",
+            n_scale_rows=sh[0] if (st and len(sh) >= 3) else 1, bits=w)
+            + coll.tp_replication_bytes(sh, M)
+            for sh, st, w in zip(shapes, flags, wflags))
+        times = []
+        for i in range(2):
+            before = _shapes(WIRE)
+            _sync(dev)
+            t = time.perf_counter()
+            with record_wire_bytes() as rec:
+                d_f, r_f = coll.ef_wire_pmean_2d(tree, res, mesh, "int8",
+                                                 widths=widths)
+            _sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            after = _shapes(WIRE)
+            if i == 0:
+                units[tag] = {k: after[k] - before[k] for k in after}
+            check(abs(rec.total() - want_b) <= 1e-9 * want_b,
+                  f"(c) ({tag}) recorded {rec.total()} B, the sum of "
+                  f"wire2d_leaf_bytes {want_b} B")
+            if i < 1:
+                del d_f, r_f
+        d_l, r_l = coll.ef_wire_pmean_2d(tree, res, mesh, "int8",
+                                         widths=widths, fused=False)
+        same_leaf = _equal_trees(d_f, d_l) and _equal_trees(r_f, r_l)
+        del d_l, r_l
+        d_s, r_s = coll.simulate_wire_pmean_2d(tree, res, M, "int8",
+                                               widths=widths)
+        same_sim = _equal_trees(d_f, d_s) and _equal_trees(r_f, r_s)
+        del d_s, r_s
+        marks[f"{tag} on the card"] = time.perf_counter() - t_part
+        # the CPU's plain path under the mixed plan: the embedding at 8
+        # bits, the MLP leaf at 4 (both wire widths, both slicings)
+        keep = (("embed/table/w", "layers/mlp/down/kernel/w")
+                if widths is not None else ())
+        pick = lambda t: {"embed": {"table": {"w": t["embed"]["table"]["w"]
+                                              .cpu()}},
+                          "layers": {"mlp": {"down": {"kernel": {
+                              "w": t["layers"]["mlp"]["down"]["kernel"]["w"]
+                              .cpu()}}}}}
+        cpu_same = True
+        if keep:
+            sub = pick(tree)
+            d_c, r_c = coll.simulate_wire_pmean_2d(
+                sub, pick(res), M, "int8", widths=plan.wire_bits_tree(sub))
+            card = {"/".join(p): (d, r) for (p, d), (_, r) in zip(
+                tree_flatten_with_path(d_f), tree_flatten_with_path(r_f))}
+            cpu_same = all(
+                torch.equal(_wbits(card[k][0].cpu()), _wbits(d))
+                and torch.equal(_wbits(card[k][1].cpu()), _wbits(r))
+                for k, (d, r) in zip(keep, zip(tree_leaves(d_c),
+                                               tree_leaves(r_c))))
+            del d_c, r_c, sub, card
+            marks[f"{tag} on the CPU"] = time.perf_counter() - t_part
+        del d_f, r_f
+        report[tag] = {
+            "reduce_ms_median": float(np.median(times)), "reduce_ms": times,
+            "bytes_per_element": want_b / n_elem,
+            "bytes_per_element_1d_plus_tp_replication": b1d / n_elem,
+            "fused_eq_per_leaf": same_leaf, "fused_eq_simulate": same_sim,
+            "card_eq_cpu_on": list(keep) if cpu_same else None,
+            "launches_fused": {k: sum(v.values())
+                               for k, v in units[tag].items() if v}}
+        print(f"[wire] (c) qwen2-0.5b gradient tree over the 2D exchange "
+              f"({tag}): {json.dumps(report[tag])}", flush=True)
+        check(same_leaf, f"(c) ({tag}) fused != per-leaf on the card")
+        check(same_sim, f"(c) ({tag}) fused != simulate on the card")
+        check(cpu_same, f"(c) ({tag}) card != CPU on {keep}")
+    check(abs(report["int8"]["bytes_per_element"] - 1.0) <= 0.01
+          and abs(report["int8"]["bytes_per_element_1d_plus_tp_replication"]
+                  - 4.0) <= 0.01,
+          f"(c) bytes per element {report['int8']}, not 1.0 against 4.0")
+    # the pure tensor-parallel mesh: one data shard, four model ranks
+    one = tree_map(lambda x: x[:1], tree)
+    res1 = coll.ef_wire2d_init(tree_map(lambda x: x[0], tree), 1, M)
+    with record_wire_bytes() as rec:
+        d_t, r_t = coll.ef_wire_pmean_2d(one, res1, LocalMesh(1, dev, model=M))
+    ops_tp = sorted({op for op, _ in rec.records})
+    d_s, r_s = coll.simulate_wire_pmean_2d(one, res1, M)
+    same_tp = _equal_trees(d_t, d_s) and _equal_trees(r_t, r_s)
+    del one, res1, d_t, r_t, d_s, r_s
+    check(ops_tp == ["all_gather.int8.model", "pmax.scale"] and same_tp,
+          f"(c) LocalMesh(1, model={M}): records {ops_tp}, equal to "
+          f"simulate {same_tp}")
+    report["pure_tp_records"] = ops_tp
+    del tree, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["pure TP"] = time.perf_counter() - t_part
+    # profiled only now, after every timed run (the ranks' host operations
+    # left out: the step's device operations are all in the trace)
+    ops, busy, _, names = _profiled(lambda: setup.step(WIRE2D_STEPS))
+    marks["profile"] = time.perf_counter() - t_part
+    med = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    report.update({
+        "config": f"configs/qwen2_0_5b.py FULL from {WIRE2D_SPEC} --full "
+                  f"through build(spec).init_training(): LocalMesh({D}, "
+                  f"model={M}) on one card, batch {B} ({B // D} a data "
+                  f"shard), seq {S}, the 2D fused int8 exchange, "
+                  f"{WIRE2D_STEPS} steps",
+        "losses": losses, "step_ms": step_ms.tolist(),
+        "step_ms_median": med, "elements": n_elem,
+        "launches": counts,
+        "wire_launches_per_step": got,
+        "profiled_step": {"device_ops": ops, "device_busy_ms": busy,
+                          "idle_share_of_median_step": 1.0 - busy / med,
+                          "events_by_name": dict(names.most_common(40))},
+        "peak_mem_gib": peak, "part_s": time.perf_counter() - t_part,
+        "part_s_at": marks})
+    print(f"[wire] (c) qwen2 2D step: median {med:.1f} ms; profiled: {ops} "
+          f"device operations, busy {busy:.2f} ms, idle "
+          f"{1.0 - busy / med:.1%}; peak memory {peak:.2f} GiB; bytes per "
+          f"element {report['int8']['bytes_per_element']:.6f} (1D + TP "
+          f"replication "
+          f"{report['int8']['bytes_per_element_1d_plus_tp_replication']:.6f});"
+          f" the part took {report['part_s']:.1f} s "
+          f"({json.dumps({k: round(v, 1) for k, v in marks.items()})})",
+          flush=True)
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, counts, step_unit, units["mixed_w4w8"]
+
+
+def _dp2d(dev):
+    """(c): the 2D data x model exchange.  Returns the report, the launches
+    of its main paths and the per-unit tallies of the per-position
+    kernels."""
+    t0 = time.perf_counter()
+    qwen, counts_q, step_unit, mixed_unit = _dp2d_qwen2(dev)
+    D, M = 2, 4
+    jet, counts_j, jet_step = _dp2d_jet(dev, D, M)
+    launches = collections.Counter(counts_q) + collections.Counter(counts_j)
+    per_q = ("one 2D step of qwen2-0.5b FULL from " + WIRE2D_SPEC + " --full"
+             " (LocalMesh(2, model=4), batch 4, seq 32, uniform int8), calls "
+             "by shape as counted on the main path")
+    per_m = ("one 2D reduce of qwen2-0.5b's gradient tree over "
+             "LocalMesh(2, model=4) with plan_mixed_w4w8, fused, calls by "
+             "shape as counted on the main path")
+    per_j = ("one 2D compressed step of the jet tagger over LocalMesh(2, "
+             "model=4) (batch 1024, mixed plan), calls by shape as counted on "
+             "the main path")
+    tallies = {k: ([(step_unit[k], per_q)] if step_unit[k] else [])
+               + [(mixed_unit[k], per_m)] for k in WIRE2D}
+    units = {k: [step_unit[k], mixed_unit[k]] for k in WIRE2D}
+    jet["launches_per_step_of"] = per_j
+    print(f"[wire] (c) done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return ({"qwen2": qwen, "jet": jet}, dict(launches), tallies, units,
+            jet_step)
+
+
 def _fshape(lay, shape):
     return {"per_tensor": (), "per_channel": shape[-1:],
             "per_parameter": shape}[lay]
 
 
 def wire_phase(dev, cases):
-    """(a) and (b), then every wire-kernel shape their main paths launched
-    held against its plain version and timed.  Returns the report, the
-    launches of both main paths and the per-unit tallies."""
+    """(a), (b) and (c), then every wire-kernel shape their main paths
+    launched held against its plain version and timed.  Returns the
+    report, the launches of the main paths and the per-unit tallies."""
+    t0 = time.perf_counter()
     jet, counts_a, per_step = _dp_jet(dev)
+    t_a = time.perf_counter() - t0
     qwen, counts_b, (fused_unit, leaf_unit) = _dp_qwen2(dev)
+    t_b = time.perf_counter() - t0
+    two_d, counts_c, tallies_c, units_c, jet_2d = _dp2d(dev)
+    t_c = time.perf_counter() - t0
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 3)
     for name in WIRE:
-        for key in set(per_step[name]) | set(fused_unit[name]) \
-                | set(leaf_unit[name]):
+        keys = set(per_step[name]) | set(fused_unit[name]) \
+            | set(leaf_unit[name])
+        for unit in units_c.get(name, []):
+            keys |= set(unit)
+        for key in keys:
             if key not in cases[name]:
                 cases[name][key] = wire_case(name, key, dev, g)
+        # the jet's 2D step: its shapes (a few KB) held, not timed
+        for key in jet_2d.get(name, {}):
+            if key not in cases[name]:
+                wire_case(name, key, dev, g, timed=False)
     # the slices' quantizer shapes (batch 256), where the train phase's
     # batch of 1024 did not time them
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -5651,20 +6291,28 @@ def wire_phase(dev, cases):
             members = [(s, _fshape(lay, s), dtypes[dt]) for lay, s, dt in key]
             cases["hgq_quantize_fwd_group"][key] = hgq_group_case(
                 members, dev, g)[1]
+    print(f"[wire] parts done at: (a) {t_a:.1f} s, (b) {t_b:.1f}, (c) "
+          f"{t_c:.1f}, the wire and quantizer shapes timed "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
     print_cases(cases, WIRE + TRAINING)
-    launches = collections.Counter(counts_a) + collections.Counter(counts_b)
+    launches = collections.Counter(counts_a) + collections.Counter(counts_b) \
+        + collections.Counter(counts_c)
     per_a = ("one compressed data-parallel step of the jet tagger (batch "
              "1024 over 4 shards, mixed plan), calls by shape as counted on "
              "the main path")
-    per_b = ("one qwen2-0.5b gradient reduce over 4 shards (plan_mixed_w4w8)"
-             ", {} path, calls by shape as counted on the main path")
+    per_b = (f"one reduce of qwen2-0.5b's gradient tree ({QWEN_REDUCE_LAYERS}"
+             f" of 24 layers) over 4 shards (plan_mixed_w4w8), {{}} path, "
+             f"calls by shape as counted on the main path")
     tallies = {k: [(per_step[k], per_a + " (4 slices)")] for k in TRAINING}
     for k in FUSED_WIRE:
         tallies[k] = [(per_step[k], per_a), (fused_unit[k],
                                              per_b.format("fused"))]
     tallies["wire_quantize_rows"] = [(leaf_unit["wire_quantize_rows"],
                                       per_b.format("per-leaf"))]
-    return {"jet": jet, "qwen2": qwen}, dict(launches), tallies
+    for k, units in tallies_c.items():
+        tallies.setdefault(k, []).extend(units)
+    return ({"jet": jet, "qwen2": qwen, "two_d": two_d}, dict(launches),
+            tallies)
 
 
 # ---------------------------------------------------------------------------
@@ -5701,7 +6349,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
+    t0 = T0[0] = time.perf_counter()
     built = _build.build_all()
     print(f"[build] {json.dumps(built)}; all in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -5710,8 +6358,7 @@ def main(argv=None) -> int:
               flush=True)
 
     cases = kernel_phase(dev)
-    print(f"[time] kernel phase done at {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    lap("kernel phase done")
     tallies = collections.defaultdict(list)
     launches = collections.Counter()
     slice_report = train_report = wire_report = None
@@ -5720,8 +6367,10 @@ def main(argv=None) -> int:
          rwkv_ticks, whisper_ticks, whisper_append,
          llama_ticks) = slice_phase(dev, cases)
         launches.update(total)
-        per = ("one full decode tick of serving configuration (a), calls by "
-               "shape as counted on the main path")
+        per = (f"one full decode tick of qwen2-0.5b at its published widths "
+               f"and {QWEN_SERVE_LAYERS} of its 24 layers, serving "
+               f"configuration (a), calls by shape as counted on the main "
+               f"path")
         granite_per = (f"one full decode tick of granite-moe-3b-a800m at its "
                        f"published widths and {GRANITE_SERVE_LAYERS} of its "
                        f"32 layers, configuration (a) (packed int8, kv_bits "
@@ -5756,13 +6405,13 @@ def main(argv=None) -> int:
         tallies["qmatmul"].append((rwkv_ticks["qmatmul"], rwkv_per))
         tallies["qmatmul"].append((
             llama_ticks["qmatmul"], "one full decode tick of llama3.2-3b at "
-            "its published widths from examples/specs/serving_packed.json "
+            f"its published widths and {API_SERVE_LAYERS} of its 28 layers "
+            "from examples/specs/serving_packed.json "
             "(packed int8, fp cache, 8 slots) through build(spec)"
             ".make_engine, calls by shape as counted on the main path"))
         for k in ("qmatmul", "kv_quantize_store"):
             tallies[k].append((whisper_append[k], append_per))
-        print(f"[time] serving phase done at {time.perf_counter() - t0:.1f} "
-              f"s", flush=True)
+        lap("serving phase done")
     if args.phase in ("all", "train"):
         train_report, per_step = train_phase(dev)
         units = {"jet": "one training step of the quickstart jet tagger",
@@ -5785,10 +6434,10 @@ def main(argv=None) -> int:
             for k in TRAINING:
                 tallies[k].append((per_step[name][k], unit + ", calls by "
                                    "shape as counted on the main path"))
-        print(f"[time] train phase done at {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        lap("train phase done")
     if args.phase in ("all", "wire"):
         wire_report, wire_launches, wire_tallies = wire_phase(dev, cases)
+        lap("wire phase done")
         launches.update(wire_launches)
         for k, units in wire_tallies.items():
             tallies[k].extend(units)

@@ -17,13 +17,16 @@ How it differs from the reference's:
 
 * ``build(spec, device=None)`` runs on the card unless given another
   device (``device.resolve_device``), and passes the device down;
-* meshes are the port's data meshes: ``MeshSpec.host(d, 1)`` is no mesh
-  at ``d`` 1 and ``dist.LocalMesh(d, device)`` above; a model axis above
-  1 (FSDP x TP placement, the 2D exchange) is ROADMAP Queue 1 item 10,
-  and the reference's TPU pod meshes (``kind="production"``) have no
-  counterpart here (item 11): both raise ``NotImplementedError``;
-* the train step runs eagerly (no jit, so no shardings: the reference's
-  ``train_shardings`` waits for DTensor placement, item 10).
+* meshes are the port's: ``MeshSpec.host(d, m)`` is no mesh at 1 x 1 and
+  ``dist.LocalMesh(d, device, model=m)`` otherwise (``d x m`` ranks as
+  threads on the one device); the reference's TPU pod meshes
+  (``kind="production"``) have no counterpart here (ROADMAP Queue 1 item
+  11) and raise ``NotImplementedError``;
+* the train step runs eagerly (no jit): each data shard's forward and
+  backward run whole on the device, and the ``model`` axis partitions the
+  gradient exchange and its residual (``wire_layout="2d"``);
+  ``train_shardings`` gives the reference's placement as the port's spec
+  trees (``dist.sharding``), which the 2D exchange slices by.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ from ..device import resolve_device
 from ..dist import EFState, LocalMesh, collectives, ef_compress, ef_init
 from ..dist.axes import AxisRegistry, axis_scope, registry_for_mesh
 from ..dist.perf import compute_dtype_scope, packed_matmul
+from ..dist.sharding import (batch_sharding, ef_residual_sharding,
+                             replicated, shard_tree)
 from ..models import model_for
 from ..optim import adamw_init
 from ..train import checkpoint as ckpt_lib
@@ -49,24 +54,19 @@ from .spec import MeshSpec, RunSpec
 
 _DTYPES = {None: None, "bfloat16": torch.bfloat16, "float32": torch.float32}
 
-_MODEL_AXIS = ("a mesh with a model axis above 1 (FSDP x TP placement and "
-               "the 2D wire exchange) is not ported yet: ROADMAP Queue 1 "
-               "item 10")
 _PRODUCTION = ("production meshes are the reference's TPU pod slices "
                "(launch/mesh.py, launch/dryrun.py), which have no "
                "counterpart in the port: ROADMAP Queue 1 item 11")
 
 
 def build_mesh(mspec: MeshSpec, device=None) -> Optional[LocalMesh]:
-    """The port's mesh for a :class:`MeshSpec`: ``None`` for 1x1, a
-    ``dist.LocalMesh`` of ``data`` ranks on ``device`` for ``data x 1``."""
+    """The port's mesh for a :class:`MeshSpec`: ``None`` for 1x1, else a
+    ``dist.LocalMesh`` of ``data x model`` ranks on ``device``."""
     if mspec.kind == "production":
         raise NotImplementedError(_PRODUCTION)
-    if mspec.model > 1:
-        raise NotImplementedError(_MODEL_AXIS)
-    if mspec.data == 1:
+    if mspec.data == 1 and mspec.model == 1:
         return None
-    return LocalMesh(mspec.data, resolve_device(device))
+    return LocalMesh(mspec.data, resolve_device(device), model=mspec.model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +85,8 @@ class GradCompression:
         if self.kind == "none":
             return None
         if self.wire and self.wire_layout == "2d":
-            raise NotImplementedError(_MODEL_AXIS)
+            return EFState(residual=collectives.ef_wire2d_init(
+                params, n_data, n_model))
         if self.wire:
             return EFState(residual=collectives.ef_wire_init(params,
                                                              n_data))
@@ -137,10 +138,10 @@ class TrainSetup:
         start, trees = ckpt_lib.restore(ckpt_dir, last, tmpl)
         self.params, self.qstate, self.opt = (
             trees["params"], trees["qstate"], trees["opt"])
-        # the 1D wire residual is [n_data, ...]: a run on another mesh, or
-        # one that turned compression on or changed its kind, cannot
-        # re-chunk it, so it restarts at zero (one biased window) and the
-        # run goes on
+        # the 1D wire residual is [n_data, ...] and the 2D one [n_data,
+        # n_model, C]: a run on another mesh (or layout), or one that
+        # turned compression on or changed its kind, cannot re-chunk it,
+        # so it restarts at zero (one biased window) and the run goes on
         if self.ef_state is not None and ckpt_lib.has_tree(
                 ckpt_dir, last, "ef"):
             try:
@@ -177,7 +178,7 @@ class RunContext:
         self.axes: AxisRegistry = registry_for_mesh(self.mesh)
         self.compute_dtype = _DTYPES[spec.precision.compute_dtype]
         self.n_data = collectives.data_axis_size(self.mesh)
-        self.n_model = self.axes.model_size
+        self.n_model = collectives.model_axis_size(self.mesh)
         # a missing plan and an explicit uniform-int8 plan both resolve to
         # None: every consumer takes the uniform int8 path
         plan = spec.plan
@@ -280,6 +281,41 @@ class RunContext:
             wire_widths=self.plan,
             wire_fused=self.spec.compression.fused)
         return self.wrap(step)
+
+    def _batch_shardings(self, mesh) -> Dict[str, Any]:
+        """Batch-axis placements of the pipeline's batch dict (tokens
+        ``[B, S]``; ASR batches add ``[B, T, d]`` frame embeddings)."""
+        b = self.spec.data.batch
+        sh = {"tokens": batch_sharding(mesh, b, 2)}
+        if self.spec.data.kind == "asr":
+            sh["frame_embeds"] = batch_sharding(mesh, b, 3)
+        return sh
+
+    def train_shardings(self, params, qstate, opt,
+                        ef_state: Optional[EFState],
+                        comp: GradCompression) -> Tuple[tuple, tuple]:
+        """(in_shardings, donate_argnums) of the train step, the
+        reference's: spec trees (``dist.sharding.NamedSharding`` leaves) of
+        params, qstate, AdamW, batch and step, and of the EF residual (the
+        wire's 1D or 2D layout)."""
+        mesh = self.mesh
+        in_shardings = (shard_tree(params, mesh, "train"),
+                        shard_tree(qstate, mesh, "train"),
+                        type(opt)(step=replicated(mesh),
+                                  mu=shard_tree(opt.mu, mesh, "train"),
+                                  nu=shard_tree(opt.nu, mesh, "train")),
+                        self._batch_shardings(mesh),
+                        replicated(mesh))
+        donate = (0, 2)
+        if ef_state is not None:
+            layout = self.spec.compression.resolved_residual_layout(
+                self.n_model)
+            res_sh = (ef_residual_sharding(ef_state.residual, mesh,
+                                           layout=layout) if comp.wire
+                      else shard_tree(ef_state.residual, mesh, "train"))
+            in_shardings += (EFState(residual=res_sh),)
+            donate += (5,)  # the residual threads step to step like opt
+        return in_shardings, donate
 
     def init_training(self, loss_fn: Optional[Callable] = None
                       ) -> TrainSetup:

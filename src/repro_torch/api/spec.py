@@ -52,7 +52,7 @@ class MeshSpec:
     ``kind="host"`` is a ``data x model`` mesh: ``MeshSpec()`` the 1x1
     mesh, ``MeshSpec(data=4)`` four data ranks (a ``dist.LocalMesh`` on
     one device in the port), ``MeshSpec(data=2, model=4)`` the 2x4 FSDP x
-    TP mesh, whose model axis the port does not build yet.
+    TP mesh (a ``dist.LocalMesh(2, model=4)`` on one device).
     ``kind="production"`` is the reference's 16x16 TPU pod slice;
     ``pods=2`` adds the outer ``pod`` data axis (2x16x16).  Both kinds
     round-trip here; ``build`` refuses what the port cannot run.

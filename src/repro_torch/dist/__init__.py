@@ -1,13 +1,14 @@
 """Distribution utilities (counterpart of ``repro/dist``).
 
 * :mod:`.scope` -- per-call dynamic scope;
-* :mod:`.axes` -- the logical-axis registry of a mesh (data meshes only);
-* :mod:`.sharding` -- the stacked-layer rule and the ``model`` axis rule
-  (the FSDP x TP placement over a mesh of cards is not ported yet);
-* :mod:`.mesh` -- data meshes: ``LocalMesh`` (ranks as threads on one
-  card) and ``ProcessGroupMesh`` (``torch.distributed``);
+* :mod:`.axes` -- the logical-axis registry of a mesh;
+* :mod:`.sharding` -- the placement rules (FSDP x TP) as the port's spec
+  trees, the stacked-layer rule and the ``model`` axis rule;
+* :mod:`.mesh` -- ``data x model`` meshes: ``LocalMesh`` (ranks as
+  threads on one card) and ``ProcessGroupMesh`` (``torch.distributed``);
 * :mod:`.collectives` -- the compressed mean all-reduce (two-phase
-  exchange, error feedback on both phases);
+  exchange, error feedback on both phases), 1D over the data axis and 2D
+  sliced over ``data x model``;
 * :mod:`.perf` -- the compute-dtype and packed-routing scopes and
   serving-weight packing;
 * this module -- post-reduce error-feedback gradient compression.
@@ -24,8 +25,9 @@ import torch
 
 from ..kernels.wire_pack.ref import true_div
 from ..tree import tree_map
-from .collectives import (WIRE_KINDS, ef_wire_init, ef_wire_pmean,
-                          record_wire_bytes, simulate_wire_pmean,
+from .collectives import (WIRE_KINDS, ef_wire2d_init, ef_wire_init,
+                          ef_wire_pmean, ef_wire_pmean_2d, record_wire_bytes,
+                          simulate_wire_pmean, simulate_wire_pmean_2d,
                           wire_bytes_model)
 from .mesh import LocalMesh, ProcessGroupMesh
 from .perf import (is_packed, pack_params_for_serving, packed_mantissas,
@@ -35,11 +37,12 @@ from .sharding import is_stacked_path, stacked_tree
 EF_KINDS = ("none", "bf16", "int8")
 
 __all__ = ["EFState", "EF_KINDS", "LocalMesh", "ProcessGroupMesh",
-           "WIRE_KINDS", "ef_compress", "ef_init", "ef_wire_init",
-           "ef_wire_pmean", "is_packed", "is_stacked_path",
-           "pack_params_for_serving", "packed_mantissas", "packed_storage",
-           "record_wire_bytes", "simulate_wire_pmean", "stacked_tree",
-           "unpack_weight", "wire_bytes_model"]
+           "WIRE_KINDS", "ef_compress", "ef_init", "ef_wire2d_init",
+           "ef_wire_init", "ef_wire_pmean", "ef_wire_pmean_2d", "is_packed",
+           "is_stacked_path", "pack_params_for_serving", "packed_mantissas",
+           "packed_storage", "record_wire_bytes", "simulate_wire_pmean",
+           "simulate_wire_pmean_2d", "stacked_tree", "unpack_weight",
+           "wire_bytes_model"]
 
 
 class EFState(NamedTuple):

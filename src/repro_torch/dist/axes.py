@@ -7,12 +7,13 @@ batch-like axis (over the data ranks), ``'m'`` a model-parallel axis
 The registry ``constrain`` reads is scoped, not global: a
 ``repro_torch.api.RunContext`` activates the :class:`AxisRegistry` of
 its mesh around every call it owns (:func:`axis_scope`), and outside any
-scope the single-device default applies.
+scope the single-device default applies.  Its readers: ``constrain``,
+and the head-TP branch of ``nn.attention`` (``get_model_size``).
 
-The port's meshes are data meshes (``dist.mesh``), whose ranks each hold
-whole activations: on a model axis of 1 ``constrain`` is the identity.
-A model axis above 1 (tensor parallelism, DTensor placement) is not
-ported yet (ROADMAP Queue 1 item 10), and ``constrain`` raises there.
+On the port's meshes (``dist.mesh``) each data shard's forward runs
+whole on the card, so ``constrain`` checks the pattern, builds the spec
+the reference would place the activation by (:func:`spec_for`) and
+returns the tensor as it is.
 """
 from __future__ import annotations
 
@@ -22,9 +23,7 @@ from typing import Tuple
 import torch
 
 from .scope import Scoped
-
-_MODEL_AXIS = ("a model axis above 1 (tensor parallelism, DTensor "
-               "placement) is not ported yet: ROADMAP Queue 1 item 10")
+from .sharding import P, PartitionSpec, _data_axes, _data_size, _mesh_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,24 +62,46 @@ def get_data_size() -> int:
 
 
 def registry_for_mesh(mesh) -> AxisRegistry:
-    """The :class:`AxisRegistry` of a mesh: ``None`` is the 1x1 mesh; a
-    ``dist.LocalMesh`` or ``dist.ProcessGroupMesh`` is a data mesh of its
-    ``size`` ranks and no model axis."""
+    """The :class:`AxisRegistry` of a mesh (``None`` is the 1 x 1 mesh;
+    pod is outer data parallelism)."""
     if mesh is None:
         return AxisRegistry()
-    return AxisRegistry(("data",), "model", int(mesh.size), 1)
+    return AxisRegistry(_data_axes(mesh) or ("data",), "model",
+                        _data_size(mesh),
+                        int(_mesh_sizes(mesh).get("model", 1)))
+
+
+def spec_for(pattern: str, shape: Tuple[int, ...]) -> PartitionSpec:
+    """The placement of a ``pattern`` tensor of ``shape`` under the registry
+    in scope: ``'b'`` over the data axes and ``'m'`` over ``model`` where
+    they divide the axis, else replicated."""
+    reg = _AXES.get()
+    entries = []
+    for ch, dim in zip(pattern, shape):
+        if ch == "b":
+            ok = reg.data_size > 1 and dim % reg.data_size == 0
+            entries.append(tuple(reg.data_axes) if ok else None)
+        elif ch == "m":
+            ok = reg.model_size > 1 and dim % reg.model_size == 0
+            entries.append(reg.model_axis if ok else None)
+        elif ch == ".":
+            entries.append(None)
+        else:
+            raise ValueError(f"bad axis char {ch!r} in pattern {pattern!r}")
+    return P(*entries)
 
 
 def constrain(x: torch.Tensor, pattern: str) -> torch.Tensor:
     """Check a pattern string against ``x`` (one character an axis, see
-    the module docstring) and return ``x``: on the port's data meshes an
-    activation needs no placement.  Raises on a model axis above 1."""
+    the module docstring), build its spec on a mesh of more than one rank,
+    and return ``x``: each rank's activations lie whole on the card."""
     if len(pattern) != x.ndim:
         raise ValueError(f"pattern {pattern!r} has {len(pattern)} axes, "
                          f"array has {x.ndim} ({tuple(x.shape)})")
     bad = set(pattern) - set("bm.")
     if bad:
         raise ValueError(f"bad axis chars {sorted(bad)!r} in {pattern!r}")
-    if _AXES.get().model_size > 1:
-        raise NotImplementedError(_MODEL_AXIS)
+    reg = _AXES.get()
+    if reg.data_size * reg.model_size > 1:
+        spec_for(pattern, tuple(x.shape))
     return x

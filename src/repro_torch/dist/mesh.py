@@ -1,37 +1,61 @@
-"""Data meshes for the compressed gradient reduce: the port's stand-in for
-``jax.make_mesh`` plus ``shard_map`` over the data axes.
+"""Meshes for the compressed gradient reduce: the port's stand-in for
+``jax.make_mesh`` plus ``shard_map`` over a ``data x model`` mesh.
 
 A collective body (``dist.collectives``) is written for one rank and
 talks to the others through a small interface, a *rank*:
 
-* ``size`` (ranks in the mesh), ``index`` (this rank);
-* ``pmax(x)``: the elementwise max over ranks;
-* ``all_to_all(x)``: ``x`` is ``[size, ...]``; row ``j`` goes to rank
-  ``j``, and row ``j`` of the result came from rank ``j``;
-* ``all_gather(x)``: ``[size, ...]``, row ``j`` from rank ``j``;
+* ``size`` (ranks in the mesh), ``index`` (this rank, ``d * M + m`` for
+  data index ``d`` and model index ``m`` on a ``D x M`` mesh),
+  ``data_index``, ``model_index``;
+* ``pmax(x)``: the elementwise max over every rank of the mesh;
+* ``all_to_all(x)``: over the data axis, among the ranks of this model
+  index: ``x`` is ``[D, ...]``; row ``j`` goes to data rank ``j``, and
+  row ``j`` of the result came from data rank ``j``;
+* ``all_gather(x, axis="data")``: ``[D, ...]``, row ``j`` from data rank
+  ``j`` of this model index; ``axis="model"``: ``[M, ...]``, row ``j``
+  from model rank ``j`` of this data index;
 * ``records``: whether this rank writes the wire-bytes records (a JAX
-  trace records once per program, so one rank of a mesh does).
+  trace records once per program, so one rank of a mesh does);
+* ``delivers``: whether this rank's result is the one the mesh returns
+  (every rank of a ``ProcessGroupMesh``; rank 0 of a ``LocalMesh``,
+  whose ranks share one device and return one delivered tree).
+
+A mesh has ``axis_names`` (``("data", "model")``) and ``axis_sizes``
+(``(D, M)``), which the placement rules (``dist.sharding``) and the axis
+registry (``dist.axes``) read, and ``data`` and ``model``, the two sizes.
+A mesh of ``model`` 1 is a data mesh: its collectives are the 1D
+exchange's, rank ``d`` of ``D``.
 
 Two meshes run such bodies:
 
-* :class:`LocalMesh` -- ``n`` ranks as ``n`` threads of one process on
-  one device, exchanging tensors through shared slots and a
-  ``threading.Barrier``.  This is how one card runs a data-parallel mesh:
-  NCCL refuses two ranks on one GPU.  Every rank issues its work on the
-  caller's current device and stream (both are per thread in PyTorch),
-  so a tensor one rank hands over is complete, in stream order, before
-  another rank's later work reads it.  Each rank runs in a copy of the
-  caller's ``contextvars`` context, with autograd off.
+* :class:`LocalMesh` -- ``D x M`` ranks as threads of one process on
+  one device, exchanging tensors through shared slots.  This is how one
+  card runs a mesh: NCCL refuses two ranks on one GPU.  The ranks take
+  turns: one runs at a time, up to its next collective, where it leaves
+  its value in its slot and hands the turn to the next rank; the last
+  rank's deposit completes the exchange, and each rank reads the slots
+  when its turn comes back.  So no two ranks contend for the
+  interpreter (their host work is serial under it anyway).  Every rank
+  issues its work on the caller's current device and stream (both are
+  per thread in PyTorch), so a tensor one rank hands over is complete,
+  in stream order, before another rank's later work reads it.  Each rank
+  runs in a copy of the caller's ``contextvars`` context, with autograd
+  off.  Every rank takes part in every exchange (the bodies issue one
+  sequence of collectives on every rank) and reads the slots of its own
+  row or column.
 * :class:`ProcessGroupMesh` -- one rank per process over a
   ``torch.distributed`` process group (gloo on the CPU, NCCL across
   cards): ``all_to_all_single``, list-form ``all_gather`` and
-  ``all_reduce(MAX)``.
+  ``all_reduce(MAX)``, over one group per model index (the data axis) and
+  one per data index (the model axis).
 
-``mesh.shards`` is how many ranks' data a process holds: ``n`` for a
-``LocalMesh`` (tensors with a leading ``[n]`` shard axis, as ``shard_map``
-sees the global array) and 1 for a ``ProcessGroupMesh`` (leading axis 1,
-this process's own shard).  ``mesh.run(body, args)`` runs ``body(rank,
-args[i])`` for each local shard ``i`` and returns the results in order.
+``mesh.shards`` is how many data shards a process holds: ``D`` for a
+``LocalMesh`` (tensors with a leading ``[D]`` shard axis, as
+``shard_map`` sees the global array) and 1 for a ``ProcessGroupMesh``
+(leading axis 1, this process's own shard).  ``mesh.local_ranks`` lists
+the ``(data shard, model index)`` of each rank the process runs, in
+order; ``mesh.run(body, args)`` runs ``body(rank, args[i])`` for each of
+them and returns the results in order.
 """
 from __future__ import annotations
 
@@ -45,28 +69,54 @@ import torch
 from ..device import resolve_device
 
 
-class LocalMesh:
-    """``n`` data ranks as threads of one process on one device."""
+AXIS_NAMES = ("data", "model")
 
-    def __init__(self, n: int, device=None):
-        if n < 1:
-            raise ValueError(f"a mesh needs at least one rank, got {n}")
-        self.size = int(n)
-        self.shards = self.size
+
+class LocalMesh:
+    """``n x model`` ranks as threads of one process on one device."""
+
+    def __init__(self, n: int, device=None, model: int = 1):
+        if n < 1 or model < 1:
+            raise ValueError(f"a mesh needs at least one rank on each axis, "
+                             f"got {n} x {model}")
+        self.data = int(n)
+        self.model = int(model)
+        self.size = self.data * self.model
+        self.shards = self.data
+        self.axis_names = AXIS_NAMES
+        self.axis_sizes = (self.data, self.model)
+        self.local_ranks = [(d, m) for d in range(self.data)
+                            for m in range(self.model)]
         self.device = resolve_device(device)
-        self._slots: List[Any] = [None] * self.size
-        self._barrier = threading.Barrier(self.size)
+        # two generations of slots: rank i reads generation g while the
+        # ranks before it already deposit g + 1
+        self._slots: List[List[Any]] = [[None] * self.size,
+                                        [None] * self.size]
+        self._turns = [threading.Event() for _ in range(self.size)]
+        self._gen = [0] * self.size
+        self._broken = False
 
     def __repr__(self) -> str:
-        return f"LocalMesh({self.size}, device={self.device})"
+        model = f", model={self.model}" if self.model > 1 else ""
+        return f"LocalMesh({self.data}{model}, device={self.device})"
+
+    def _hand_on(self, index: int) -> None:
+        self._turns[(index + 1) % self.size].set()
+
+    def _wait_turn(self, index: int) -> None:
+        self._turns[index].wait()
+        self._turns[index].clear()
+        if self._broken:
+            raise threading.BrokenBarrierError
 
     def _exchange(self, index: int, value: Any) -> List[Any]:
         """Every rank's ``value``, in rank order."""
-        self._slots[index] = value
-        self._barrier.wait()
-        out = list(self._slots)
-        self._barrier.wait()         # nobody overwrites a slot still read
-        return out
+        slots = self._slots[self._gen[index] % 2]
+        self._gen[index] += 1
+        slots[index] = value
+        self._hand_on(index)
+        self._wait_turn(index)
+        return list(slots)
 
     def run(self, body: Callable[[Any, Any], Any],
             args: Sequence[Any]) -> List[Any]:
@@ -77,7 +127,10 @@ class LocalMesh:
                 return [body(_LocalRank(self, 0), args[0])]
         results: List[Any] = [None] * self.size
         errors: List[Optional[BaseException]] = [None] * self.size
-        self._barrier.reset()
+        self._broken = False
+        self._gen = [0] * self.size
+        for ev in self._turns:
+            ev.clear()
         # the current device and stream are per thread: the ranks take the
         # caller's, so the work of every rank lands on one stream
         stream = (torch.cuda.current_stream(self.device)
@@ -85,21 +138,26 @@ class LocalMesh:
 
         def rank_main(i: int) -> None:
             try:
+                self._wait_turn(i)
                 with contextlib.ExitStack() as stack:
                     if stream is not None:
                         stack.enter_context(torch.cuda.device(self.device))
                         stack.enter_context(torch.cuda.stream(stream))
                     stack.enter_context(torch.no_grad())
                     results[i] = body(_LocalRank(self, i), args[i])
+                self._hand_on(i)
             except BaseException as e:          # noqa: BLE001
                 errors[i] = e
-                self._barrier.abort()           # release the other ranks
+                self._broken = True             # release the other ranks
+                for ev in self._turns:
+                    ev.set()
 
         threads = [threading.Thread(
             target=contextvars.copy_context().run, args=(rank_main, i),
             name=f"LocalMesh-rank{i}") for i in range(self.size)]
         for t in threads:
             t.start()
+        self._turns[0].set()
         for t in threads:
             t.join()
         # the rank that failed first, not the ranks its abort released
@@ -110,7 +168,7 @@ class LocalMesh:
         return results
 
     def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
-        """``[shards, ...]`` -> ``[size, ...]``: every shard is local."""
+        """``[shards, ...]`` -> ``[data, ...]``: every shard is local."""
         return x
 
 
@@ -121,7 +179,17 @@ class _LocalRank:
         self.mesh = mesh
         self.size = mesh.size
         self.index = index
-        self.records = index == 0
+        self.data_index, self.model_index = divmod(index, mesh.model)
+        self.records = self.delivers = index == 0
+
+    def _group(self, axis: str) -> range:
+        """The ranks along ``axis`` through this one, in axis order."""
+        M = self.mesh.model
+        if axis == "data":
+            return range(self.model_index, self.size, M)
+        if axis == "model":
+            return range(self.data_index * M, (self.data_index + 1) * M)
+        raise ValueError(f"axis must be 'data' or 'model', got {axis!r}")
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         vals = self.mesh._exchange(self.index, x)
@@ -132,27 +200,55 @@ class _LocalRank:
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         vals = self.mesh._exchange(self.index, x)
-        return torch.stack([v[self.index] for v in vals])
+        return torch.stack([vals[j][self.data_index]
+                            for j in self._group("data")])
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.stack(self.mesh._exchange(self.index, x))
+    def all_gather(self, x: torch.Tensor, axis: str = "data"
+                   ) -> torch.Tensor:
+        group = self._group(axis)
+        vals = self.mesh._exchange(self.index, x)
+        return torch.stack([vals[j] for j in group])
 
 
 class ProcessGroupMesh:
-    """One data rank per process over a ``torch.distributed`` group
-    (initialized by the caller)."""
+    """One rank per process over a ``torch.distributed`` group (initialized
+    by the caller): ``data x model`` ranks, rank ``r`` of the group at data
+    index ``r // model`` and model index ``r % model``.  With ``model`` above
+    1 every process creates one group per model index and one per data
+    index, in one order."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, model: int = 1):
         import torch.distributed as dist
         self._dist = dist
         self.group = group
         self.size = dist.get_world_size(group)
         self.index = dist.get_rank(group)
+        if model < 1 or self.size % model:
+            raise ValueError(f"a model axis of {model} does not divide "
+                             f"{self.size} ranks")
+        self.model = int(model)
+        self.data = self.size // self.model
+        self.data_index, self.model_index = divmod(self.index, self.model)
+        self.axis_names = AXIS_NAMES
+        self.axis_sizes = (self.data, self.model)
         self.shards = 1
-        self.records = True
+        self.local_ranks = [(0, 0)]
+        self.records = self.delivers = True
+        self._groups = {"data": group, "model": None}
+        if self.model > 1:
+            ranks = (list(range(self.size)) if group is None
+                     else dist.get_process_group_ranks(group))
+            D, M = self.data, self.model
+            cols = [dist.new_group([ranks[d * M + m] for d in range(D)])
+                    for m in range(M)]
+            rows = [dist.new_group([ranks[d * M + m] for m in range(M)])
+                    for d in range(D)]
+            self._groups = {"data": cols[self.model_index],
+                            "model": rows[self.data_index]}
 
     def __repr__(self) -> str:
-        return f"ProcessGroupMesh(rank {self.index} of {self.size})"
+        return (f"ProcessGroupMesh(rank {self.index} of {self.data} x "
+                f"{self.model})")
 
     def run(self, body: Callable[[Any, Any], Any],
             args: Sequence[Any]) -> List[Any]:
@@ -169,15 +265,21 @@ class ProcessGroupMesh:
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         out = torch.empty_like(x)
-        self._dist.all_to_all_single(out, x, group=self.group)
+        self._dist.all_to_all_single(out, x, group=self._groups["data"])
         return out
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis: str = "data"
+                   ) -> torch.Tensor:
+        if axis not in self._groups:
+            raise ValueError(f"axis must be 'data' or 'model', got {axis!r}")
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        self._dist.all_gather(parts, x, group=self.group)
+        n = self.data if axis == "data" else self.model
+        if n == 1:
+            return x[None]
+        parts = [torch.empty_like(x) for _ in range(n)]
+        self._dist.all_gather(parts, x, group=self._groups[axis])
         return torch.stack(parts)
 
     def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
-        """``[1, ...]`` -> ``[size, ...]``: every process's shard."""
+        """``[1, ...]`` -> ``[data, ...]``: every data shard."""
         return self.all_gather(x[0])

@@ -139,7 +139,8 @@ def wire_pack_rows(q: torch.Tensor) -> torch.Tensor:
 def wire_dequant_rows(q: torch.Tensor, s: torch.Tensor, shift: int,
                       n: int) -> torch.Tensor:
     """The CUDA kernel: contiguous int8 [R, C] and float32 scales [R, C]
-    (or one row [C]) -> float32 ``((q * 2^shift) * s) / n``."""
+    (or one row [C], every row's) -> float32 ``((q * 2^shift) * s) / n``.
+    The tallies key the launch by (R, C, shift, n, one scale row)."""
     _need("wire_dequant_rows takes contiguous int8 [R, C] and float32 "
           "[R, C] or [C] CUDA tensors", q.ndim == 2 and _cuda_contig(q, s)
           and q.dtype == torch.int8 and s.dtype == torch.float32
@@ -152,7 +153,7 @@ def wire_dequant_rows(q: torch.Tensor, s: torch.Tensor, shift: int,
         q.data_ptr(), s.data_ptr(), out.data_ptr(), R, C,
         C if s.ndim == 2 else 0, float(2 ** shift), n,
         _build.stream_ptr(q.device)), "wire_dequant_rows")
-    _count(wire_dequant_rows, (R, C, shift, n))
+    _count(wire_dequant_rows, (R, C, shift, n, s.ndim == 1))
     return out
 
 

@@ -8,9 +8,10 @@ are quantized per (query chunk, key chunk) pair, unnormalized, against
 the running maximum of the chunks seen so far, so the chunk sizes are
 part of the numbers.  The loops are plain PyTorch, as the reference's
 are plain jnp (no Pallas kernel); their memory is bounded by the layer's
-remat (``models/lm.py``), not by per-chunk checkpoints.  The reference's
-head-TP branch (k / v repeated to full heads over a ``model`` axis) is
-not ported: the port has no model axis.
+remat (``models/lm.py``), not by per-chunk checkpoints.  Under a
+``model`` axis that divides the heads (``dist.axes.get_model_size``), k
+and v are repeated to full heads first, the reference's head-TP branch:
+the same numbers, KV = H and G = 1.
 
 EBOPs: the dynamic QK^T / PV matmuls use per-tensor activation bits, so
 their ~EBOPs terms are analytic in the static shapes.
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from ..core import hgq
 from ..core.hgq import Aux, QTensor
 from ..core.quantizer import quantize, quantize_inference
+from ..dist.axes import get_model_size
 from ..kernels.kv_dequant.ops import kv_attention_decode, kv_quantize_store
 from ..kernels.kv_dequant.ref import attention_mask, ring_write
 from .basic import HDense
@@ -266,8 +268,16 @@ def _chunked_attention(qh, kh, vh, positions, cfg: AttnConfig, probs_f,
     ``max(l, 1e-20)``)."""
     del positions        # the reference's chunks sit at positions 0..S-1
     B, S, H, hd = qh.shape
-    KV = cfg.n_kv
-    G = H // KV
+    msize = get_model_size()
+    if msize > 1 and H % msize == 0:
+        # head TP: k / v at full heads, so heads shard over model
+        G = H // cfg.n_kv
+        kh = torch.repeat_interleave(kh, G, dim=2)       # [B, S, H, hd]
+        vh = torch.repeat_interleave(vh, G, dim=2)
+        KV, G = H, 1
+    else:
+        KV = cfg.n_kv
+        G = H // KV
     dev = qh.device
     scale = hd ** -0.5
     cq = min(cfg.q_chunk, S)

@@ -29,11 +29,6 @@ from . import checkpoint as ckpt_lib
 Forward = Callable[..., Tuple[torch.Tensor, Any, Any]]
 LossFn = Callable[[torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
 
-_WIRE_2D = ("wire_layout='2d' (the exchange sliced over a tensor-parallel "
-            "model axis) is not ported yet: the port's data meshes have no "
-            "model axis, and 'auto' and '1d' take the 1D exchange")
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     steps: int = 1000
@@ -109,19 +104,31 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
 
     ``reduce="compressed"`` moves the compression into the data-parallel
     reduce over ``mesh`` (a ``dist.LocalMesh`` or ``dist.ProcessGroupMesh``
-    of ``n_data`` ranks): the batch splits into ``n_data`` equal slices,
-    each slice's gradient is its shard's (no float32 mean is ever formed),
-    and ``collectives.ef_wire_pmean`` delivers their mean over the int8 /
-    nibble (``wire_kind="int8"``) or bf16 wire.  ``tx_state`` is an
-    ``EFState`` whose residual leads with the mesh's local shards
-    (``collectives.ef_wire_init``).  ``wire_widths`` (a ``PrecisionPlan``)
-    gives per-leaf wire widths through its ``wire_bits_tree``;
-    ``wire_fused`` picks the bucketed path (bit for bit the per-leaf one).
-    Global-norm clipping applies to the delivered mean.  With no mesh, or
-    one rank, the compressed step is the post-reduce
-    ``ef_compress(kind=wire_kind)`` transform, bit for bit.
-    ``wire_layout`` is ``"auto"`` or ``"1d"``; the 2D sliced exchange is
-    not ported yet.
+    of ``n_data x n_model`` ranks): the batch splits into ``n_data`` equal
+    slices, each slice's forward and backward run whole (on one card, its
+    model ranks share them), each slice's gradient is its shard's (no
+    float32 mean is ever formed), and the wire delivers their mean over the
+    int8 / nibble (``wire_kind="int8"``) or bf16 wire.  ``wire_layout``
+    picks the exchange:
+
+    * ``"1d"``: ``collectives.ef_wire_pmean`` over the data axis;
+      ``tx_state`` is an ``EFState`` whose residual leads with the mesh's
+      local shards (``collectives.ef_wire_init``);
+    * ``"2d"``: ``collectives.ef_wire_pmean_2d``, each ``(data, model)``
+      rank reducing its 1/(D*M) slice and one int8 all_gather over
+      ``model`` rematerializing the gradient; the gradients go in raw (the
+      residual add happens on the slice) and ``tx_state``'s residual is
+      the sliced ``[n_data, n_model, C]`` stack
+      (``collectives.ef_wire2d_init``);
+    * ``"auto"``: ``"2d"`` when the mesh's model axis is above 1 (with one
+      data rank too: the pure tensor-parallel mesh), else ``"1d"``.
+
+    ``wire_widths`` (a ``PrecisionPlan``) gives per-leaf wire widths
+    through its ``wire_bits_tree``; ``wire_fused`` picks the bucketed path
+    (bit for bit the per-leaf one).  Global-norm clipping applies to the
+    delivered mean.  With no mesh, or one rank and no model axis, the
+    compressed step is the post-reduce ``ef_compress(kind=wire_kind)``
+    transform, bit for bit.
     """
     if reduce not in ("full", "compressed"):
         raise ValueError(f"reduce must be 'full' or 'compressed', "
@@ -141,17 +148,19 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
                 "grad_tx and reduce='compressed' are mutually exclusive: "
                 "the compressed reduction IS the gradient transform "
                 "(wire_kind selects its quantization)")
-        if wire_layout == "2d":
-            raise NotImplementedError(_WIRE_2D)
         n_data = collectives.data_axis_size(mesh)
-        if n_data <= 1:
+        n_model = collectives.model_axis_size(mesh)
+        if wire_layout == "auto":
+            wire_layout = "2d" if n_model > 1 else "1d"
+        if n_data <= 1 and not (wire_layout == "2d" and n_model > 1):
             # one rank: the wire is a no-op, and the post-reduce
             # error-feedback path is the compressed path, exactly
             grad_tx = lambda g, s: ef_compress(g, s, kind=wire_kind)
         else:
             return _make_compressed_step(forward, loss_fn, tcfg, beta_sched,
                                          lr_sched, mesh, wire_kind, n_data,
-                                         wire_widths, wire_fused)
+                                         wire_layout, wire_widths,
+                                         wire_fused)
 
     def _step(params, qstate, opt: AdamWState, batch, step, tx_state):
         beta = beta_sched(step)
@@ -186,11 +195,13 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
 def _make_compressed_step(forward: Forward, loss_fn: LossFn,
                           tcfg: TrainConfig, beta_sched, lr_sched, mesh,
                           wire_kind: str, n_data: int,
+                          wire_layout: str = "1d",
                           wire_widths: Optional[Any] = None,
                           wire_fused: bool = True):
     """The step over the compressed wire (see ``make_train_step``): one
-    forward and backward per local batch slice, the wire collective the
-    only gradient communication."""
+    forward and backward per local batch slice, the wire collective
+    (``ef_wire_pmean`` or ``ef_wire_pmean_2d`` by ``wire_layout``) the only
+    gradient communication."""
     def step_fn_wire(params, qstate, opt: AdamWState, batch, step, tx_state):
         beta = beta_sched(step)
         lr = lr_sched(step)
@@ -203,7 +214,8 @@ def _make_compressed_step(forward: Forward, loss_fn: LossFn,
             return b.reshape((n_data, b.shape[0] // n_data) + b.shape[1:])
 
         sliced = tree_map(slice_leaf, batch)
-        own = (range(n_data) if mesh.shards == n_data else [mesh.index])
+        own = (range(n_data) if mesh.shards == n_data
+               else [mesh.data_index])
         outs = [_value_and_grad(forward, loss_fn, tcfg, params, qstate,
                                 tree_map(lambda b, i=i: b[i], sliced), beta)
                 for i in own]
@@ -214,9 +226,14 @@ def _make_compressed_step(forward: Forward, loss_fn: LossFn,
         newq = _merge_sliced_qstate(newqs)
         widths = (None if wire_widths is None
                   else wire_widths.wire_bits_tree(params))
-        err = tree_map(torch.add, grads, tx_state.residual)
-        delivered, residual = collectives.ef_wire_pmean(
-            err, mesh, wire_kind, widths=widths, fused=wire_fused)
+        if wire_layout == "2d":
+            delivered, residual = collectives.ef_wire_pmean_2d(
+                grads, tx_state.residual, mesh, wire_kind, widths=widths,
+                fused=wire_fused)
+        else:
+            err = tree_map(torch.add, grads, tx_state.residual)
+            delivered, residual = collectives.ef_wire_pmean(
+                err, mesh, wire_kind, widths=widths, fused=wire_fused)
         delivered, gnorm = clip_by_global_norm(delivered, tcfg.clip_norm)
         new_params, opt = adamw_update(delivered, opt, params, lr=lr,
                                        weight_decay=tcfg.weight_decay)

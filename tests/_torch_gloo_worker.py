@@ -22,3 +22,30 @@ def run_rank(rank, world, init_file, in_npz, out_npz, kind, widths, fused):
                  **{f"r/{k}": v.numpy() for k, v in r.items()})
     finally:
         dist.destroy_process_group()
+
+
+def run_rank_2d(rank, D, M, init_file, in_npz, res_npz, out_npz, widths,
+                fused):
+    """Rank ``rank`` of a ``D x M`` ``ProcessGroupMesh``: its data shard's
+    gradients (``rank // M``) and its residual slice through
+    ``ef_wire_pmean_2d``."""
+    from repro_torch.dist import ProcessGroupMesh
+    from repro_torch.dist.collectives import ef_wire_pmean_2d
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=D * M)
+    try:
+        mesh = ProcessGroupMesh(model=M)
+        d, m = mesh.data_index, mesh.model_index
+        with np.load(in_npz) as data:
+            tree = {k: torch.from_numpy(data[k][d:d + 1].copy())
+                    for k in data.files}
+        with np.load(res_npz) as data:
+            res = {k: torch.from_numpy(data[k][d:d + 1, m:m + 1].copy())
+                   for k in data.files}
+        dl, r = ef_wire_pmean_2d(tree, res, mesh, "int8", widths=widths,
+                                 fused=fused)
+        np.savez(out_npz.format(rank=rank),
+                 **{f"d/{k}": v.numpy() for k, v in dl.items()},
+                 **{f"r/{k}": v.numpy() for k, v in r.items()})
+    finally:
+        dist.destroy_process_group()

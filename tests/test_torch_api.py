@@ -77,6 +77,7 @@ from repro_torch.core.hgq import QTensor
 from repro_torch.core.pareto import ParetoFront
 from repro_torch.core.plan import LayerPlan, PrecisionPlan
 from repro_torch.data import DataSpec, make_pipeline
+from repro_torch.dist import LocalMesh
 from repro_torch.dist import perf as tperf
 from repro_torch.dist.axes import get_axes
 from repro_torch.nn.basic import HDense
@@ -371,9 +372,29 @@ def test_emit_pareto_specs_writes_the_references_files(tmp_path):
 
 
 def test_build_refuses_the_meshes_the_port_lacks():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build(RunSpec.from_file(str(SPEC_DIR / "host_2x4_int8wire2d.json")),
-              device=CPU)
+    # the 2 x 4 data x model mesh is built (a LocalMesh of 8 ranks) and
+    # trains over the 2D sliced exchange; only production meshes raise
+    two = build(RunSpec.from_args(
+        ["--spec", str(SPEC_DIR / "host_2x4_int8wire2d.json")]), device=CPU)
+    assert isinstance(two.mesh, LocalMesh)
+    assert two.mesh.axis_sizes == (2, 4) and two.n_data == 2
+    assert two.n_model == 4 and two.axes.model_size == 4
+    comp = two.grad_compression()
+    assert comp.wire and comp.wire_layout == "2d"
+    setup = two.init_training()
+    res = tree_leaves(setup.ef_state.residual)
+    assert all(r.shape[:2] == (2, 4) for r in res)
+    sh, donate = two.train_shardings(setup.params, setup.qstate, setup.opt,
+                                     setup.ef_state, comp)
+    assert donate == (0, 2, 5)
+    assert all(tuple(x.spec) == ("data", "model", None)
+               for x in tree_leaves(sh[5].residual))
+    assert tuple(sh[3]["tokens"].spec) == ("data", None)
+    assert tuple(sh[4].spec) == ()
+    assert any("model" in x.spec for x in tree_leaves(sh[0]))
+    losses = [float(setup.step(s)["loss"]) for s in range(2)]
+    assert all(np.isfinite(losses))
+    assert any(r.any() for r in tree_leaves(setup.ef_state.residual))
     with pytest.raises(NotImplementedError, match="item 11"):
         build(RunSpec(mesh=MeshSpec.production()), device=CPU)
     with pytest.raises(NotImplementedError, match="item 11"):

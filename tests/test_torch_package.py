@@ -8,6 +8,7 @@ a machine with a CUDA device and no JAX:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_package.py
 """
 import ast
+import collections
 import subprocess
 import sys
 import time
@@ -401,6 +402,45 @@ def test_fused_reduce_launches_the_bucket_kernels_on_cuda(cuda_device):
     for k in tree:
         assert torch.equal(_bits(d[k]), _bits(dl[k]))
         assert torch.equal(_bits(r[k]), _bits(rl[k]))
+
+
+@pytest.mark.cuda
+def test_2d_exchange_launches_the_per_position_kernels_on_cuda(cuda_device):
+    """A fused 2D exchange over LocalMesh(2, model=4) (mixed 4/8 widths, a
+    model-sharded leaf, a stacked leaf, a flat-sliced leaf) launches one
+    phase-1 quantize a leaf a rank, three packs a nibble leaf a rank and one
+    decode a leaf (rank 0 delivers), no bucket kernel, and delivers the
+    per-leaf path's and the simulator's bits."""
+    from repro_torch.dist import (LocalMesh, ef_wire2d_init,
+                                  ef_wire_pmean_2d, simulate_wire_pmean_2d)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    tree = {"w": torch.randn((2, 6, 8), generator=g, device=cuda_device),
+            "layers": torch.randn((2, 3, 8, 6), generator=g,
+                                  device=cuda_device),
+            "vec": torch.randn((2, 17), generator=g, device=cuda_device)}
+    widths = {"w": 4, "layers": 8, "vec": 4}
+    res = ef_wire2d_init({k: v[0] for k, v in tree.items()}, 2, 4)
+    mesh = LocalMesh(2, cuda_device, model=4)
+    kernels = (wp.wire_quantize_sflat, wp.wire_pack_rows,
+               wp.wire_dequant_rows, wp.wire_quantize_bucket,
+               wp.wire_dequant_bucket)
+    before = [k.launches for k in kernels]
+    decodes = collections.Counter(wp.wire_dequant_rows.shapes)
+    d, r = ef_wire_pmean_2d(tree, res, mesh, "int8", widths=widths)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [24, 48, 3, 0, 0]
+    # "w" and "layers" shard over model (one scale row for the model
+    # blocks), "vec" is flat-sliced (a scale a value)
+    decodes = collections.Counter(wp.wire_dequant_rows.shapes) - decodes
+    assert sorted(key[4] for key in decodes.elements()) == \
+        [False, True, True]
+    dl, rl = ef_wire_pmean_2d(tree, res, mesh, "int8", widths=widths,
+                              fused=False)
+    ds, rs = simulate_wire_pmean_2d(tree, res, 4, "int8", widths=widths)
+    for k in tree:
+        for a, b in ((d, dl), (d, ds), (r, rl), (r, rs)):
+            assert torch.equal(_bits(a[k]), _bits(b[k])), k
 
 
 @pytest.mark.cuda

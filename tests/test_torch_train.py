@@ -47,6 +47,7 @@ from repro_torch.core import pareto as tpareto
 from repro_torch.core import schedule as tsched
 from repro_torch.core.plan import PrecisionPlan
 from repro_torch.data import DataSpec, jet_batch, make_pipeline
+from repro_torch.dist import ef_compress, ef_init
 from repro_torch.models import JetTagger
 from repro_torch.nn import HGQConfig
 from repro_torch.train import TrainConfig, Trainer, checkpoint as tckpt
@@ -385,12 +386,23 @@ def test_eval_pareto_pins_and_gc(tmp_path):
 
 
 def test_gradient_compression_is_not_ported():
-    """Of gradient compression only the 2D sliced exchange is still to
-    port (grad_tx and the 1D compressed reduce are ported:
-    tests/test_torch_train_dp.py)."""
-    with pytest.raises(NotImplementedError, match="2d"):
-        make_train_step(None, None, TrainConfig(), reduce="compressed",
-                        wire_layout="2d")
+    """Every layout of gradient compression is ported (the wire:
+    tests/test_torch_train_dp.py, tests/test_torch_wire2d.py).  With no
+    mesh, wire_layout="2d" is the post-reduce ef_compress path, as in the
+    reference: one step equals the grad_tx step bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    p, q = JetTagger.init(g, HGQConfig(**QCFG), device="cpu")
+    fwd = lambda p_, q_, b, mode: JetTagger.forward(p_, q_, b, mode)
+    loss = lambda o, b: tlosses.softmax_xent(o, b["y"])
+    batch = make_pipeline(DataSpec(kind="jet", batch=64), device="cpu")(0)
+    two_d = make_train_step(fwd, loss, TrainConfig(), reduce="compressed",
+                            wire_layout="2d")
+    ref = make_train_step(fwd, loss, TrainConfig(),
+                          grad_tx=lambda g_, s: ef_compress(g_, s))
+    a = two_d(p, q, toptim.adamw_init(p), batch, 0, ef_init(p))
+    b = ref(p, q, toptim.adamw_init(p), batch, 0, ef_init(p))
+    for x, y in zip(tree_leaves((a[0], a[4])), tree_leaves((b[0], b[4]))):
+        assert torch.equal(x, y)
     tr = Trainer(None, None, TrainConfig(), {}, {},
                  grad_tx=lambda g, s: (g, s))
     assert tr.grad_tx is not None and tr.tx_state is not None

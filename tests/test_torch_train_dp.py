@@ -51,6 +51,7 @@ from repro_torch.core.hgq import ActState
 from repro_torch.data import DataSpec, make_pipeline
 from repro_torch.dist import (EFState, LocalMesh, ef_compress, ef_init,
                               ef_wire_init)
+from repro_torch.dist import collectives as tcoll
 from repro_torch.models import JetTagger
 from repro_torch.nn import HGQConfig
 from repro_torch.train import TrainConfig, Trainer, checkpoint as tckpt
@@ -280,9 +281,19 @@ def test_compressed_rejects_grad_tx_and_2d():
         make_train_step(_fwd, _loss, TrainConfig(), reduce="compressed",
                         mesh=LocalMesh(2, "cpu"),
                         grad_tx=lambda g, s: (g, s))
-    with pytest.raises(NotImplementedError, match="2d"):
-        make_train_step(_fwd, _loss, TrainConfig(), reduce="compressed",
-                        mesh=LocalMesh(2, "cpu"), wire_layout="2d")
+    # wire_layout="2d" on a data mesh is the sliced exchange with one model
+    # rank: it takes the [2, 1, C] residual and delivers the simulator's
+    # mean (tests/test_torch_wire2d.py holds the 2D exchange to JAX's)
+    g2 = torch.Generator().manual_seed(1)
+    p2, q2 = JetTagger.init(g2, HGQConfig(**QCFG), device="cpu")
+    step2d = make_train_step(_fwd, _loss, TrainConfig(**TCFG),
+                             reduce="compressed", mesh=LocalMesh(2, "cpu"),
+                             wire_layout="2d")
+    ef2 = EFState(residual=tcoll.ef_wire2d_init(p2, 2, 1))
+    batch = make_pipeline(DataSpec(kind="jet", batch=64), device="cpu")(0)
+    _, _, _, m2, ef2 = step2d(p2, q2, toptim.adamw_init(p2), batch, 0, ef2)
+    assert bool(torch.isfinite(m2["loss"]))
+    assert all(r.shape[:2] == (2, 1) for r in tree_leaves(ef2.residual))
     with pytest.raises(ValueError, match="wire_layout"):
         make_train_step(_fwd, _loss, TrainConfig(), reduce="compressed",
                         wire_layout="3d")

@@ -61,28 +61,6 @@ def _queries_two_ulps():
         yield
 
 
-@contextlib.contextmanager
-def _float32_cache():
-    """Whisper's float cache and memory kept in float32 (bfloat16 by
-    default, a grid of its own)."""
-    from repro_torch.models import WhisperModel
-
-    def f32(real):
-        return lambda *a, **k: real(*a, **{**k, "dtype": torch.float32})
-
-    with cs._patched_static(WhisperModel, "init_cache", f32):
-        yield
-
-
-def _without_probs_grid(tree):
-    if isinstance(tree, dict):
-        return {k: _without_probs_grid(v) for k, v in tree.items()
-                if k != "probs_f"}
-    if isinstance(tree, list):
-        return [_without_probs_grid(v) for v in tree]
-    return tree
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cpu")
@@ -127,16 +105,16 @@ def main(argv=None) -> int:
         out = {}
         for tag, pl, kv_bits in (("a", None, 8), ("b", plan, 4)):
             pp, qq = pack_for_serving(params, qstate, pl)
+            bare = cs._without_probs_grid(pp)
             out[tag] = {}
             for grid, tree, kvb in (
                     ("with_probs_grid", pp, kv_bits),
-                    ("without_probs_grid", _without_probs_grid(pp), kv_bits),
+                    ("without_probs_grid", bare, kv_bits),
                     ("with_probs_grid_fp_cache", pp, None),
-                    ("without_probs_grid_fp_cache", _without_probs_grid(pp),
-                     None)):
+                    ("without_probs_grid_fp_cache", bare, None)):
                 if kvb is None and not args.fp_cache:
                     continue
-                with (_float32_cache() if kvb is None
+                with (cs._float32_cache() if kvb is None
                       else contextlib.nullcontext()):
                     r = cs._logits_vs_plain(
                         tree, qq, cfg, kvb, dev,
