@@ -114,7 +114,7 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    stream, the per-head norm left out) exceed, one full tick's launches
    by shape exact (17 ``qmatmul``, no KV kernel), and one tick of each
    profiled last; then serves whisper-large-v3 at its published widths
-   and the first 4 of its 32 encoder and 4 of its 32 decoder layers
+   and the first 2 of its 32 encoder and 2 of its 32 decoder layers
    (``WHISPER_SERVE_LAYERS``; all 32 + 32 were held in earlier runs)
    through ``StreamingEngine`` (``whisper_serving``, 8
    slots, ``max_len`` 448, audio chunks of 250 frames): 6 audio requests
@@ -237,7 +237,7 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    on two leaves, the recorded bytes equal to the byte model, reads the
    fused reduce's own peak memory (its timed calls alone) beside the
    phase's, and traces one mixed reduce (no ``aten::constant_pad_nd``;
-   its events counted by name), the layer stacks cut to their first 8 of
+   its events counted by name), the layer stacks cut to their first 4 of
    24 (``QWEN_REDUCE_LAYERS``; all 24 in earlier runs); (c) trains
    qwen2-0.5b at full width from ``examples/specs/host_2x4_int8wire2d.json
    --full`` through ``build(spec).init_training()`` over
@@ -261,7 +261,24 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    the post-reduce int8 path (the loss curve tracked); then holds every
    ``wire_pack`` kernel shape those paths launched against its plain
    version and times it (the jet's 2D shapes, a few KB each, held only);
-7. prints one JSON line with every kernel's numbers, its times per unit
+7. analysis phase: runs every program rule of ``repro_torch.analysis``
+   and its census over four programs built on the card at full width
+   (the packed decode ticks of ``serving_packed.json`` -- llama3.2-3b at
+   ``API_SERVE_LAYERS`` of its layers -- and of ``serving_kv_plan.json``
+   -- qwen2-0.5b, the same depth --, the launcher's train step on
+   ``host_1x1.json --full`` and the 2D step of
+   ``host_2x4_int8wire2d.json --full``): no rule violated; four faulty
+   controls injected on the card each flagged (an f32 wire payload and
+   the in-place update dropped, on the two train specs' SMOKE programs,
+   a float64 parameter and the weights served unpacked on the full-width
+   decode ticks); then counts the work of the train phase's LM step
+   (qwen2-0.5b FULL, batch 2, seq 2048) and of a packed qwen2-0.5b decode
+   tick of 8 slots on the card (``launch.dryrun``'s cell builder, times
+   the median of ``WORK_TIMED`` runs) and holds both FLOP counts equal,
+   exactly, to the dry run's on ``meta`` (run in a child process started
+   at the script's start, on the CPU), printing the roofline terms, the
+   roofline fraction and the measured share of the peak;
+8. prints one JSON line with every kernel's numbers, its times per unit
    of its main path (a full decode tick -- an RWKV and a llama3.2-3b
    tick beside qwen2's, granite's, Griffin's and Whisper's for
    ``qmatmul``, and a Whisper
@@ -289,7 +306,8 @@ Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
 kernel) and leaves the per-unit fields null; ``--phase serve`` runs steps
 1-4, ``--phase train`` steps 1-3 and 5, ``--phase wire`` steps 1-3 and
-6.
+6, ``--phase analysis`` steps 1-3 and 7.  The peaks and bounds are
+``repro_torch.launch.roofline``'s (the H100 SXM data sheet).
 """
 from __future__ import annotations
 
@@ -314,11 +332,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 20241016
 
-# NVIDIA H100 SXM data sheet: device memory rate, the float32 rate
-# outside the tensor cores, and the dense bf16 tensor-core rate (qmatmul)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-PEAK_BF16_TC_PER_S = 989e12
 L2_BYTES = 50 * 2 ** 20
 
 # every pallas_call of the JAX package: (name, file:line of the function)
@@ -376,11 +389,20 @@ def check(cond: bool, msg: str) -> None:
 # timing
 # ---------------------------------------------------------------------------
 
-def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
+def peak_rate(dtype: str = "float32") -> float:
+    """The card's peak rate for ``dtype`` (``launch.roofline.PEAK_FLOPS``:
+    the NVIDIA H100 SXM data sheet; "float32" outside the tensor cores,
+    "bfloat16" the dense tensor-core rate ``qmatmul`` runs at)."""
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    return PEAK_FLOPS[dtype]
+
+
+def bound(nbytes: float, flops: float, rate: Optional[float] = None):
     """(least ms on the card, what bounds it) for moving ``nbytes`` and
-    doing ``flops`` operations of a type whose peak rate is ``peak``."""
-    tb, to = nbytes / PEAK_BYTES_PER_S, flops / peak
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+    doing ``flops`` operations of a type whose peak rate is ``rate``
+    (float32's by default): ``launch.roofline.bound``."""
+    from repro_torch.launch import roofline
+    return roofline.bound(nbytes, flops, rate or peak_rate("float32"))
 
 
 def n_copies(nbytes: int) -> int:
@@ -508,7 +530,7 @@ def qmatmul_case(M, K, N, bits, dev, g):
     nbytes = M * K * 4 + wbytes + N * 4 + M * N * 4
     # three bf16 terms of x through the tensor cores
     flops = 3 * 2.0 * M * K * N
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_TC_PER_S)
+    b_ms, b_by = bound(nbytes, flops, peak_rate("bfloat16"))
 
     def kern(x, w, s, m):
         return qmatmul(x, w, s, nib=nib)
@@ -525,7 +547,7 @@ def qmatmul_case(M, K, N, bits, dev, g):
             "plain_ms": plain_ms(plain, sets),
             "library_ms": plain_ms(library, sets),
             "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops, "peak": PEAK_BF16_TC_PER_S}
+            "bytes": nbytes, "flops": flops, "peak": peak_rate("bfloat16")}
 
 
 # The kernel splits x into three bf16 terms, so that every product is
@@ -2005,7 +2027,7 @@ def _per_unit(name, by_shape, unit, per):
     out["bound_ms"], out["bound_by"] = bound(
         sum(n * by_shape[k]["bytes"] for k, n in unit.items()),
         sum(n * by_shape[k]["flops"] for k, n in unit.items()),
-        next(iter(by_shape.values())).get("peak", PEAK_FP32_PER_S))
+        next(iter(by_shape.values())).get("peak", peak_rate("float32")))
     out["per"] = per
     out["calls_per_unit"] = {by_shape[k]["shape"]: n
                              for k, n in unit.items()}
@@ -3285,10 +3307,11 @@ def rwkv_serving(dev, cases):
 WHISPER_LOGITS_LAYERS = 2
 # whisper-large-v3 is served at the first this many of its 32 encoder and
 # of its 32 decoder layers, at its published widths (all 32 + 32 were held
-# in earlier runs, PERF.md §4): the cut pays for the api part within the
-# script's time; its tallies scale with the layers.  The layers are cut
+# in earlier runs, PERF.md §4): the cut pays for the api part and (2, 4
+# before) the analysis phase within the script's time; its tallies scale
+# with the layers.  The layers are cut
 # from the full model's init (``whisper_first_layers``)
-WHISPER_SERVE_LAYERS = 4
+WHISPER_SERVE_LAYERS = 2
 WHISPER_MLP = ("enc_layers/mlp", "dec_layers/mlp")
 # the audio requests' frames (1037 leaves power-of-two tails of 32, 4 and
 # 1), each with a decoder prompt of 4 tokens; the LM requests' prompts
@@ -4003,10 +4026,15 @@ def api_training(dev):
             str(API_TRAIN_STEPS), "--batch", str(LM_BATCH), "--seq",
             str(API_TRAIN_SEQ), "--ckpt-dir", str(ckpt), "--ckpt-every", "2"]
     spec = RunSpec.from_args(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()                           # the main path starts here
     t0 = time.perf_counter()
     setup, lines = _launcher(argv)
     wall = time.perf_counter() - t0
+    # the params, both AdamW moments updated in place (the step donates)
+    launcher_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = _counts(TRAINING)                # ... and ends here
     per_step = _per_step(_shapes(TRAINING), API_TRAIN_STEPS)
     cfg = setup.ctx.cfg
@@ -4082,13 +4110,15 @@ def api_training(dev):
         "step_ms_mean_incl_checkpoint": wall / API_TRAIN_STEPS * 1e3,
         "equal_to_hand_wired_trainer": same_hand,
         "resumed_equal": same_resumed, "launches": dict(launches),
+        "launcher_peak_mem_gib": launcher_peak,
         "launches_per_step": {k: {" ".join(map(str, key)): n
                                   for key, n in c.items()}
                               for k, c in per_step.items()},
         "wire_smoke_launches": wire_counts,
         "part_s": time.perf_counter() - t_part}
     print(f"[api] (a) launcher: qwen2-0.5b FULL, 4 steps in {wall:.1f} s "
-          f"(checkpoint included), losses {losses}; equal to the hand-wired "
+          f"(checkpoint included), losses {losses}, peak memory "
+          f"{launcher_peak:.2f} GiB; equal to the hand-wired "
           f"Trainer; resumed from step 3 bit for bit; LocalMesh(4) wire "
           f"{wire_counts}; the part took {report['part_s']:.1f} s",
           flush=True)
@@ -4299,13 +4329,11 @@ def _rounding_down():
 def _conv_tf32():
     """Control: the conv lets cuDNN run in TF32 (PyTorch's default for
     float32 convolutions), forward and backward."""
-    from repro_torch.nn.basic import CUDNN_FLAGS
-    real = CUDNN_FLAGS["allow_tf32"]
-    CUDNN_FLAGS["allow_tf32"] = True
-    try:
+    import types
+    from repro_torch.nn import basic
+    with _patched(basic, "CUDNN_FLAGS", lambda real: types.MappingProxyType(
+            {**real, "allow_tf32": True})):
         yield
-    finally:
-        CUDNN_FLAGS["allow_tf32"] = real
 
 
 @contextlib.contextmanager
@@ -4778,7 +4806,7 @@ GRANITE_CELL = LMCell(
     "n_active_params", True, layers=4)
 
 
-def _lm_run(dev, cell):
+def _lm_run(dev, cell, counted=None):
     """``cell`` through the port's ``Trainer.run`` on the card:
     ``LM_TRAIN`` at its batch and seq, random weights from ``SEED``, the
     ``lm`` data kind; steps timed, a step's launches tallied by shape;
@@ -4786,7 +4814,9 @@ def _lm_run(dev, cell):
     checked to give the same bits.  One model at a time: the first run's
     step is profiled and the run freed before the repeat.  Returns (the
     first run's Trainer, or None where it was freed, the report, the
-    launches a step by shape)."""
+    launches a step by shape).  ``counted``: the dry run's count of the
+    cell's step on ``meta`` (``WORK_CELLS``), whose share of the float32
+    peak and ratio to the useful FLOPs print beside ``lm_train_mfu_fp32``."""
     from repro_torch.configs import get
     from repro_torch.core.ebops import useful_model_flops_dense
     from repro_torch.data import DataSpec, make_pipeline
@@ -4883,8 +4913,15 @@ def _lm_run(dev, cell):
         "tokens_per_s": tokens / (med / 1e3), "wall_s": t1 - t0,
         "peak_mem_gib": peak, "held_before_gib": held,
         "lm_train_mfu_fp32": useful_model_flops_dense(n_mfu, tokens)
-        / (med / 1e3 * PEAK_FP32_PER_S),
+        / (med / 1e3 * peak_rate("float32")),
         "mfu_counts": f"6 * {cell.mfu_params} ({n_mfu}) * tokens",
+        "counted_flops": None if counted is None
+        else counted.get("flops_total"),
+        "counted_flops_share_fp32": None if not counted
+        else counted["flops_total"] / (med / 1e3 * peak_rate("float32")),
+        "useful_flops_ratio": None if not counted
+        else useful_model_flops_dense(n_mfu, tokens)
+        / counted["flops_total"],
         "launches": counts,
         "launches_per_step": {k: {" ".join(map(str, key)): n
                                   for key, n in c.items()}
@@ -5197,7 +5234,7 @@ def _lm_prefill_vs_decode(dev):
     return out
 
 
-def train_phase(dev):
+def train_phase(dev, meta_future):
     """The jet tagger (quickstart), then the SVHN and muon models; every
     step profiled after every timed run.  Returns the report and each
     model's launches a step by shape."""
@@ -5214,7 +5251,7 @@ def train_phase(dev):
         runs[name] = (tr, rep, ps)
         report[name] = rep
     t0 = time.perf_counter()
-    tr, rep, ps = _lm_run(dev, QWEN_CELL)
+    tr, rep, ps = _lm_run(dev, QWEN_CELL, meta_future.result()["lm_step"])
     lap("train: lm")
     rep["card_vs_cpu"] = _lm_card_vs_cpu(dev)
     lap("train: lm card vs CPU")
@@ -5250,7 +5287,11 @@ def train_phase(dev):
           f"{lm['peak_mem_gib']:.2f} GiB, profiled step busy "
           f"{lm['profiled_step']['device_busy_ms']:.1f} ms, idle "
           f"{lm['profiled_step']['idle_share_of_median_step']:.1%}, "
-          f"lm_train_mfu_fp32 {lm['lm_train_mfu_fp32']:.4f}; the LM part "
+          f"lm_train_mfu_fp32 {lm['lm_train_mfu_fp32']:.4f} (6 N D over "
+          f"the float32 peak), the counted FLOPs' share "
+          f"{lm['counted_flops_share_fp32']:.4f} "
+          f"({lm['counted_flops']:.6e} FLOPs, the dry run's count), "
+          f"useful_flops_ratio {lm['useful_flops_ratio']:.4f}; the LM part "
           f"took {lm['part_s']:.0f} s", flush=True)
     gr = report["granite"]
     print(f"[train] granite summary (granite-moe-3b-a800m at its published "
@@ -5289,8 +5330,9 @@ DP_TRAJ_REL_LIMIT = 1e-4
 QWEN_PLAN = "examples/specs/plan_mixed_w4w8.json"
 # (b) reduces the embedding and the first this many of qwen2-0.5b's 24
 # layers (all 24 in earlier runs, PERF.md §4): (c) reduces the whole tree
-# over the 2D exchange, and the cut pays for it
-QWEN_REDUCE_LAYERS = 8
+# over the 2D exchange, and the cut pays for it (4, 8 before, for the
+# analysis phase)
+QWEN_REDUCE_LAYERS = 4
 # (c): the 2D data x model mesh of examples/specs/host_2x4_int8wire2d.json,
 # the steps qwen2-0.5b takes from it, the jet's 20 card-vs-CPU steps; the
 # 2D exchange launches the per-position kernels (phase 1, the nibble packs,
@@ -6034,6 +6076,8 @@ def _dp2d_qwen2(dev):
     B, S = spec.data.batch, spec.data.seq
     starts, losses = [], []
     _sync(dev)
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()                           # the main path starts here
     for s in range(WIRE2D_STEPS):
         _sync(dev)
@@ -6042,6 +6086,8 @@ def _dp2d_qwen2(dev):
     _sync(dev)
     t1 = time.perf_counter()
     counts = _counts(TRAINING + WIRE)         # ... and ends here
+    # the steps alone: params, moments and the residual updated in place
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = _per_step(_shapes(TRAINING + WIRE), WIRE2D_STEPS)
     step_ms = np.diff(starts + [t1]) * 1e3
     check(all(math.isfinite(x) for x in losses)
@@ -6185,7 +6231,7 @@ def _dp2d_qwen2(dev):
     ops, busy, _, names = _profiled(lambda: setup.step(WIRE2D_STEPS))
     marks["profile"] = time.perf_counter() - t_part
     med = float(np.median(step_ms))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(init_peak, torch.cuda.max_memory_allocated()) / 2 ** 30
     report.update({
         "config": f"configs/qwen2_0_5b.py FULL from {WIRE2D_SPEC} --full "
                   f"through build(spec).init_training(): LocalMesh({D}, "
@@ -6199,11 +6245,13 @@ def _dp2d_qwen2(dev):
         "profiled_step": {"device_ops": ops, "device_busy_ms": busy,
                           "idle_share_of_median_step": 1.0 - busy / med,
                           "events_by_name": dict(names.most_common(40))},
-        "peak_mem_gib": peak, "part_s": time.perf_counter() - t_part,
+        "peak_mem_gib": peak, "steps_peak_mem_gib": step_peak,
+        "part_s": time.perf_counter() - t_part,
         "part_s_at": marks})
     print(f"[wire] (c) qwen2 2D step: median {med:.1f} ms; profiled: {ops} "
           f"device operations, busy {busy:.2f} ms, idle "
-          f"{1.0 - busy / med:.1%}; peak memory {peak:.2f} GiB; bytes per "
+          f"{1.0 - busy / med:.1%}; peak memory {peak:.2f} GiB (the steps "
+          f"alone {step_peak:.2f}); bytes per "
           f"element {report['int8']['bytes_per_element']:.6f} (1D + TP "
           f"replication "
           f"{report['int8']['bytes_per_element_1d_plus_tp_replication']:.6f});"
@@ -6317,10 +6365,290 @@ def wire_phase(dev, cases):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# analysis phase: the program rules on card programs, one count of work
+# ---------------------------------------------------------------------------
+
+# the cells whose count of work the card and the dry run on meta give
+# alike: (arch, (name, seq, batch, kind) of the ShapeSpec, variant) -- the
+# train phase's LM step, and a packed qwen2-0.5b decode tick of 8 slots
+# over a 1024-slot int8 ring (the dry run's "opt" variant)
+WORK_CELLS = {
+    "lm_step": ("qwen2-0.5b", ("lm_train", LM_SEQ, LM_BATCH, "train"),
+                "base"),
+    "decode_tick": ("qwen2-0.5b", ("decode_8", 1024, 8, "decode"), "opt"),
+}
+WORK_TIMED = {"lm_step": 2, "decode_tick": 10}   # timed runs on the card
+ANALYSIS_TRAIN_SEQ = API_TRAIN_SEQ               # the launcher's step
+
+
+def _meta_counts(src, cells):
+    """In a child process, on the CPU: each cell's count on ``meta``
+    (``launch.dryrun.build_cell``); a cell the dry run cannot trace comes
+    back ``FAILED`` with its error."""
+    sys.path.insert(0, src)
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    out = {}
+    for key, (arch, shape, variant) in cells.items():
+        t0 = time.perf_counter()
+        try:
+            r = dryrun.build_cell(arch, ShapeSpec(*shape), variant=variant)
+            out[key] = {k: r[k] for k in (
+                "status", "flops_total", "flops_by_dtype",
+                "counted_bytes_total", "kernel_ops", "model_flops_total",
+                "useful_flops_ratio", "analytic_flops_total",
+                "hbm_model_breakdown", "memory_analysis")}
+        except Exception as e:                  # noqa: BLE001
+            out[key] = {"status": "FAILED",
+                        "error": f"{type(e).__name__}: {e}"}
+        out[key]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def start_meta_counts():
+    """(the executor, the future of ``_meta_counts(WORK_CELLS)``): one
+    child process, started now, on the CPU, while the card works."""
+    import concurrent.futures
+    import multiprocessing
+    ex = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return ex, ex.submit(_meta_counts, str(ROOT / "src"), WORK_CELLS)
+
+
+def _violations(art):
+    from repro_torch.analysis import run_rules
+    return [str(v) for v in run_rules(art)]
+
+
+def _flagged(art, rule, what):
+    """Checks that the faulty control ``what`` trips ``rule``."""
+    got = _violations(art)
+    check(any(f"[{rule}]" in v for v in got),
+          f"analysis control ({what}): {rule} not flagged, {got}")
+    lap(f"analysis: control, {what}")
+    return got
+
+
+def _card_programs(dev):
+    """The rules and the census over the four card programs, and the four
+    faulty controls.  Returns the report."""
+    from repro_torch import analysis
+    from repro_torch.api import RunSpec, build
+    from repro_torch.dist import mesh as mesh_mod
+    from repro_torch.serving import Engine
+    from repro_torch.tree import tree_leaves
+    arts, controls, marks = [], {}, {}
+    t0 = time.perf_counter()
+
+    def lint(art):
+        arts.append(art)
+        v = _violations(art)
+        check(not v, f"analysis: {art.name} violates {v}")
+        marks[art.name] = time.perf_counter() - t0
+        lap(f"analysis: {art.name} linted")
+        return art
+
+    def serving(name):
+        path = f"examples/specs/{name}.json"
+        spec = RunSpec.from_args(["--spec", str(ROOT / path), "--full"])
+        ctx = build(spec, device=dev)
+        ctx.cfg = dataclasses.replace(ctx.cfg, n_layers=API_SERVE_LAYERS)
+        params, qstate = ctx.init_state()
+        unpacked = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+        eng = ctx.make_engine(params, qstate, max_len=1024,
+                              prefill_chunk=16)
+        return path, spec, ctx, params, qstate, unpacked, eng
+
+    # the packed llama3.2-3b tick; control: the weights served unpacked
+    path, spec, ctx, params, qstate, unpacked, eng = serving("serving_packed")
+    lint(analysis.decode_artifacts(spec, path, engine=eng,
+                                   unpacked_param_bytes=unpacked))
+    del eng
+    with ctx.activate(packed=False):
+        plain = Engine(ctx.model, params, qstate, ctx.cfg,
+                       batch_slots=spec.serving.slots, max_len=1024,
+                       packed=False, device=dev)
+    controls["weights served unpacked"] = _flagged(
+        analysis.decode_artifacts(spec, path, engine=plain,
+                                  unpacked_param_bytes=unpacked),
+        "packed-weights", "weights served unpacked")
+    del plain, params, qstate, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kv_plan qwen2 tick; control: a float64 parameter
+    path, spec, ctx, params, qstate, unpacked, eng = serving(
+        "serving_kv_plan")
+    del params
+    lint(analysis.decode_artifacts(spec, path, engine=eng,
+                                   unpacked_param_bytes=unpacked))
+    norm = eng.p["final_norm"]
+    real = norm["scale"]
+    norm["scale"] = real.to(torch.float64)       # the views share it
+    controls["a float64 parameter"] = _flagged(
+        analysis.decode_artifacts(spec, path, engine=eng,
+                                  unpacked_param_bytes=unpacked),
+        "no-f64", "a float64 parameter")
+    norm["scale"] = real
+    del eng, ctx, qstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher's step; control: the in-place update dropped
+    path = "examples/specs/host_1x1.json"
+    spec = RunSpec.from_args(["--spec", str(ROOT / path), "--full",
+                              "--batch", str(LM_BATCH), "--seq",
+                              str(ANALYSIS_TRAIN_SEQ)])
+    setup = build(spec, device=dev).init_training()
+    lint(analysis.train_artifacts(spec, path, setup=setup))
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the train controls run the spec's SMOKE program on the card (one step
+    # each at full width took ~5 and ~11 s)
+    smoke = build(RunSpec.from_args(["--spec", str(ROOT / path)]),
+                  device=dev).init_training()
+    smoke.step_fn = smoke.ctx.make_train_step(donate=())
+    controls["the in-place update dropped"] = _flagged(
+        analysis.train_artifacts(smoke.ctx.spec, path, setup=smoke),
+        "donation", "the in-place update dropped")
+    # the 2D step; control: an f32 wire payload
+    path = WIRE2D_SPEC
+    spec = RunSpec.from_args(["--spec", str(ROOT / path), "--full"])
+    setup = build(spec, device=dev).init_training()
+    two_d = lint(analysis.train_artifacts(spec, path, setup=setup))
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = build(RunSpec.from_args(["--spec", str(ROOT / path)]),
+                  device=dev).init_training()
+    real_a2a = mesh_mod._LocalRank.all_to_all
+
+    def f32_payload(self, x):
+        return real_a2a(self, x.to(torch.float32)).to(x.dtype)
+
+    mesh_mod._LocalRank.all_to_all = f32_payload
+    try:
+        controls["an f32 wire payload"] = _flagged(
+            analysis.train_artifacts(smoke.ctx.spec, path, setup=smoke),
+            "wire-dtype", "an f32 wire payload")
+    finally:
+        mesh_mod._LocalRank.all_to_all = real_a2a
+    del smoke
+    report = analysis.collect(arts)
+    census = {name: {k: v for k, v in rep.items() if k != "violations"}
+              for name, rep in report["programs"].items()}
+    # the reference's primitives and axes (one of each a bucket; the
+    # SMOKE tree is one bucket, as the CPU tests hold against the
+    # reference's census; the full tree several)
+    got = analysis.program_report(two_d)["explicit"]
+    check(set(got) == {"all_gather[data]", "all_gather[model]",
+                       "all_to_all[data]", "pmax[data,model]"}
+          and got["pmax[data,model]"] == 1
+          and len({got[k] for k in got if k.startswith("all_")}) == 1,
+          f"analysis: the 2D step's collectives {got}")
+    for name, c in census.items():
+        print(f"[analysis] {name}: clean; census {json.dumps(c)}",
+              flush=True)
+    for what, v in controls.items():
+        print(f"[analysis] control, {what}: flagged {v}", flush=True)
+    return {"programs": census, "controls": controls,
+            "part_s_at": marks}
+
+
+def _count_cell(dev, key, meta, smi, median_s=None):
+    """``WORK_CELLS[key]`` on the card: the median of ``WORK_TIMED[key]``
+    runs (``median_s`` where an earlier part timed the same cell), then
+    one run under the count, held equal to the dry run's count on
+    ``meta``.  Returns the reading."""
+    from repro_torch.analysis import ProgramTrace
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic import hbm_bytes_per_chip
+    from repro_torch.launch.roofline import RooflineTerms, mfu
+    arch, shape, variant = WORK_CELLS[key]
+    sp = ShapeSpec(*shape)
+    run, facts = dryrun.cell_program(arch, sp, variant, dev)
+    cfg = facts["cfg"]
+    times = []
+    for _ in range(0 if median_s else WORK_TIMED[key] + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    # the first run warms up
+    med = median_s or float(np.median(times[1:]))
+    with ProgramTrace() as tr:
+        run()
+    torch.cuda.synchronize()
+    del run, facts
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = meta[key]
+    on_meta = m.get("status") == "ok"
+    check(on_meta, f"analysis: the dry run could not trace {key} on meta: "
+                   f"{m}")
+    check(tr.flops == m["flops_total"],
+          f"analysis: {key} counts {tr.flops} FLOPs on the card, "
+          f"{m['flops_total']} on meta")
+    opt = variant == "opt" and sp.kind == "decode"
+    mem = hbm_bytes_per_chip(cfg, sp, 1, tp=1,
+                             weight_bits=8.0 if opt else 16.0,
+                             cache_bytes=1.0 if opt else 2.0)
+    terms = RooflineTerms(flops=tr.flops, hbm_bytes=mem["total"],
+                          coll_bytes=None, coll_breakdown={}, chips=1,
+                          flops_by_dtype=dict(tr.flops_by_dtype),
+                          coll_reason="one card")
+    out = {"cell": f"{arch} {sp}, variant {variant}",
+           "card": smi, "flops_card": tr.flops,
+           "flops_meta": m["flops_total"], "flops_equal": True,
+           "flops_by_dtype": dict(tr.flops_by_dtype),
+           "counted_bytes_card": tr.bytes,
+           "counted_bytes_meta": m["counted_bytes_total"],
+           "kernel_ops": dict(tr.kernel_ops),
+           "kernel_launches": tr.kernel_launches,
+           "terms": terms.as_dict(),
+           "model_flops_total": m["model_flops_total"],
+           "useful_flops_ratio": m["useful_flops_ratio"],
+           "roofline_fraction": mfu(m["model_flops_total"], terms),
+           "median_ms": med * 1e3, "ms": [t * 1e3 for t in times],
+           "median_of": "this phase's runs" if times
+           else "the train phase's run of the same cell",
+           "measured_share_of_peak": tr.flops / (terms.peak * med),
+           "peak_dtype": terms.dtype, "meta_s": m["seconds"]}
+    print(f"[analysis] count of work, {key} ({out['cell']}) on {smi}: "
+          f"{tr.flops:.6e} FLOPs on the card == {m['flops_total']:.6e} on "
+          f"meta; terms {json.dumps(out['terms'])}; roofline fraction "
+          f"{out['roofline_fraction']:.4f}; median {med * 1e3:.2f} ms, "
+          f"measured share of the {terms.dtype} peak "
+          f"{out['measured_share_of_peak']:.4f}; useful_flops_ratio "
+          f"{out['useful_flops_ratio']:.4f}", flush=True)
+    return out
+
+
+def analysis_phase(dev, meta_future, smi, medians_s=None):
+    """Step 7 (see the module docstring).  ``medians_s``: the median
+    seconds of a ``WORK_CELLS`` cell an earlier phase timed (the train
+    phase's LM step), which this phase then runs once, under the count.
+    Returns the report."""
+    t0 = time.perf_counter()
+    report = _card_programs(dev)
+    lap("analysis: rules")
+    meta = meta_future.result()
+    report["meta"] = meta
+    report["count"] = {k: _count_cell(dev, k, meta, smi,
+                                      (medians_s or {}).get(k))
+                       for k in WORK_CELLS}
+    report["part_s"] = time.perf_counter() - t0
+    lap("analysis: count of work")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
-                                        "wire"), default="all")
+                                        "wire", "analysis"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6334,7 +6662,6 @@ def main(argv=None) -> int:
     # repeated training run is bit-identical
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(src))
-    from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -6343,6 +6670,18 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip()
     print(smi, flush=True)
+    meta = None
+    if args.phase in ("all", "train", "analysis"):
+        meta = start_meta_counts()          # the dry run on meta, meanwhile
+    try:
+        return _main(args, smi, meta, _build)
+    finally:
+        if meta is not None:
+            meta[0].shutdown(wait=True, cancel_futures=True)
+
+
+def _main(args, smi, meta, _build) -> int:
+    from repro_torch.device import resolve_device
     dev = resolve_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6361,7 +6700,7 @@ def main(argv=None) -> int:
     lap("kernel phase done")
     tallies = collections.defaultdict(list)
     launches = collections.Counter()
-    slice_report = train_report = wire_report = None
+    slice_report = train_report = wire_report = analysis_report = None
     if args.phase in ("all", "serve"):
         (total, slice_report, tick_shapes, granite_ticks, griffin_ticks,
          rwkv_ticks, whisper_ticks, whisper_append,
@@ -6413,7 +6752,7 @@ def main(argv=None) -> int:
             tallies[k].append((whisper_append[k], append_per))
         lap("serving phase done")
     if args.phase in ("all", "train"):
-        train_report, per_step = train_phase(dev)
+        train_report, per_step = train_phase(dev, meta[1])
         units = {"jet": "one training step of the quickstart jet tagger",
                  "svhn": "one svhn step: a training step of SVHNNet at the "
                          "paper's configuration (batch 128)",
@@ -6441,6 +6780,11 @@ def main(argv=None) -> int:
         launches.update(wire_launches)
         for k, units in wire_tallies.items():
             tallies[k].extend(units)
+    if args.phase in ("all", "analysis"):
+        medians = None if train_report is None else {
+            "lm_step": train_report["lm"]["step_ms_median"] / 1e3}
+        analysis_report = analysis_phase(dev, meta[1], smi, medians)
+        lap("analysis phase done")
     kernels = kernels_line(cases, tallies)
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
@@ -6452,7 +6796,7 @@ def main(argv=None) -> int:
         "kernels": kernels,
         "still_to_port": still,
         "slice": slice_report, "train": train_report,
-        "wire": wire_report}), flush=True)
+        "wire": wire_report, "analysis": analysis_report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

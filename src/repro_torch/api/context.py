@@ -20,8 +20,9 @@ How it differs from the reference's:
 * meshes are the port's: ``MeshSpec.host(d, m)`` is no mesh at 1 x 1 and
   ``dist.LocalMesh(d, device, model=m)`` otherwise (``d x m`` ranks as
   threads on the one device); the reference's TPU pod meshes
-  (``kind="production"``) have no counterpart here (ROADMAP Queue 1 item
-  11) and raise ``NotImplementedError``;
+  (``kind="production"``) have no counterpart here and raise
+  ``NotImplementedError``, whose message names the dry run's chip count
+  (``launch.dryrun --chips N``) instead;
 * the train step runs eagerly (no jit): each data shard's forward and
   backward run whole on the device, and the ``model`` axis partitions the
   gradient exchange and its residual (``wire_layout="2d"``);
@@ -33,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import types
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -52,11 +54,14 @@ from ..train import checkpoint as ckpt_lib
 from ..train import lm_loss, make_train_step
 from .spec import MeshSpec, RunSpec
 
-_DTYPES = {None: None, "bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = types.MappingProxyType(
+    {None: None, "bfloat16": torch.bfloat16, "float32": torch.float32})
 
-_PRODUCTION = ("production meshes are the reference's TPU pod slices "
-               "(launch/mesh.py, launch/dryrun.py), which have no "
-               "counterpart in the port: ROADMAP Queue 1 item 11")
+_PRODUCTION = ("production meshes are the reference's TPU pod slices, "
+               "which have no counterpart in the port; for a cell's "
+               "roofline on N cards run the dry run with its chip count: "
+               "python -m repro_torch.launch.dryrun --arch A --shape S "
+               "--chips N")
 
 
 def build_mesh(mspec: MeshSpec, device=None) -> Optional[LocalMesh]:
@@ -268,9 +273,12 @@ class RunContext:
     # --------------------------- training ------------------------------
 
     def make_train_step(self, loss_fn: Optional[Callable] = None,
-                        comp: Optional[GradCompression] = None) -> Callable:
+                        comp: Optional[GradCompression] = None,
+                        donate: Tuple[int, ...] = ()) -> Callable:
         """The train step of this spec, run under this context.
-        ``loss_fn`` defaults to the LM loss."""
+        ``loss_fn`` defaults to the LM loss; ``donate`` the argument
+        positions the step updates in place (``train_shardings``'
+        ``donate_argnums``)."""
         comp = comp or self.grad_compression()
         loss_fn = loss_fn or (lambda out, b: lm_loss(out, b["tokens"]))
         step = make_train_step(
@@ -279,7 +287,7 @@ class RunContext:
             wire_kind=self.spec.compression.wire_kind,
             wire_layout=comp.wire_layout if comp.wire else "auto",
             wire_widths=self.plan,
-            wire_fused=self.spec.compression.fused)
+            wire_fused=self.spec.compression.fused, donate=donate)
         return self.wrap(step)
 
     def _batch_shardings(self, mesh) -> Dict[str, Any]:
@@ -320,13 +328,17 @@ class RunContext:
     def init_training(self, loss_fn: Optional[Callable] = None
                       ) -> TrainSetup:
         """Params, AdamW and EF state, the step and the pipeline, all from
-        the spec alone."""
+        the spec alone.  The step updates the trees that
+        ``train_shardings`` donates in place, as the reference's jitted
+        step donates them: params, both AdamW moments and the EF
+        residual keep their storage from step to step."""
         params, qstate = self.init_state()
         opt = adamw_init(params)
         comp = self.grad_compression()
         ef_state = comp.init_state(params, self.n_data, self.n_model)
+        _, donate = self.train_shardings(params, qstate, opt, ef_state, comp)
         return TrainSetup(self, params, qstate, opt, ef_state,
-                          self.make_train_step(loss_fn, comp),
+                          self.make_train_step(loss_fn, comp, donate),
                           self.make_pipeline())
 
     # --------------------------- serving -------------------------------

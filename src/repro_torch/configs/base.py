@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+import types
+from typing import Mapping, Tuple
 
 from ..models.config import ModelConfig
 
@@ -22,8 +23,8 @@ ARCHS = (
 )
 
 # public ids (hyphenated) -> module names
-ALIASES = {a.replace("_", "-"): a for a in ARCHS}
-ALIASES.update({
+ALIASES: Mapping[str, str] = types.MappingProxyType({
+    **{a.replace("_", "-"): a for a in ARCHS},
     "llama3.2-3b": "llama3_2_3b", "qwen2-0.5b": "qwen2_0_5b",
     "deepseek-67b": "deepseek_67b", "qwen1.5-110b": "qwen1_5_110b",
     "pixtral-12b": "pixtral_12b", "rwkv6-1.6b": "rwkv6_1_6b",
@@ -42,12 +43,12 @@ class ShapeSpec:
     kind: str            # train | prefill | decode
 
 
-SHAPES: Dict[str, ShapeSpec] = {
+SHAPES: Mapping[str, ShapeSpec] = types.MappingProxyType({
     "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
     "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
-}
+})
 
 
 def get(arch: str, smoke: bool = False) -> ModelConfig:

@@ -58,7 +58,7 @@ from ..kernels.qmatmul.ops import pack_nibbles, unpack_nibbles
 from ..kernels.wire_pack.ref import dequant_sum_ref, true_div
 from ..kernels.wire_pack.ref import own_chunk as _own_chunk
 from ..tree import tree_leaves, tree_map, tree_unflatten
-from .scope import Scoped
+from .mesh import RECORDER
 from .sharding import (_data_axes, _data_size, _mesh_sizes,
                        model_axis_for, stacked_tree)
 
@@ -67,23 +67,28 @@ WIRE_KINDS = ("int8", "bf16")
 # fused-path bucket budget: wire payload bytes per pipelined buffer
 _WIRE_BUCKET_BYTES = 1 << 20
 
-# recorder for bytes-on-wire accounting: (op, per-device bytes) per
-# collective issued inside a record_wire_bytes block
-_BYTES_TRACE: Scoped[Optional[List[Tuple[str, float]]]] = Scoped(
-    "repro_torch.dist.wire_bytes", None)
-
-
 class record_wire_bytes:
     """Context manager: collect (op, per-device payload bytes) tuples for
     every collective the wire reduce issues inside the block (one rank of
-    a mesh records, as one trace does in the reference)."""
+    a mesh records, as one trace does in the reference), and in
+    ``collectives`` each collective that rank's mesh issues: (primitive,
+    logical axes, dtype name, result shape), as ``analysis.collectives``
+    reads them."""
 
     def __init__(self):
         self.records: List[Tuple[str, float]] = []
+        self.collectives: List[Tuple[str, Tuple[str, ...], str,
+                                     Tuple[int, ...]]] = []
         self._cm = None
 
+    def collective(self, primitive: str, axes: Tuple[str, ...],
+                   out: torch.Tensor) -> None:
+        self.collectives.append((primitive, tuple(axes),
+                                 str(out.dtype).replace("torch.", ""),
+                                 tuple(out.shape)))
+
     def __enter__(self):
-        self._cm = _BYTES_TRACE.scope(self.records)
+        self._cm = RECORDER.scope(self)
         self._cm.__enter__()
         return self
 
@@ -96,9 +101,9 @@ class record_wire_bytes:
 
 
 def _record(op: str, nbytes: float) -> None:
-    records = _BYTES_TRACE.get()
-    if records is not None:
-        records.append((op, float(nbytes)))
+    rec = RECORDER.get()
+    if rec is not None:
+        rec.records.append((op, float(nbytes)))
 
 
 def _rec(rank, op: str, nbytes: float) -> None:

@@ -14,8 +14,10 @@ talks to the others through a small interface, a *rank*:
 * ``all_gather(x, axis="data")``: ``[D, ...]``, row ``j`` from data rank
   ``j`` of this model index; ``axis="model"``: ``[M, ...]``, row ``j``
   from model rank ``j`` of this data index;
-* ``records``: whether this rank writes the wire-bytes records (a JAX
-  trace records once per program, so one rank of a mesh does);
+* ``records``: whether this rank writes the wire-bytes records and notes
+  the collectives it issues in the recorder in scope (``RECORDER``, which
+  ``collectives.record_wire_bytes`` binds; a JAX trace records once per
+  program, so one rank of a mesh does);
 * ``delivers``: whether this rank's result is the one the mesh returns
   (every rank of a ``ProcessGroupMesh``; rank 0 of a ``LocalMesh``,
   whose ranks share one device and return one delivered tree).
@@ -40,9 +42,11 @@ Two meshes run such bodies:
   per thread in PyTorch), so a tensor one rank hands over is complete,
   in stream order, before another rank's later work reads it.  Each rank
   runs in a copy of the caller's ``contextvars`` context, with autograd
-  off.  Every rank takes part in every exchange (the bodies issue one
-  sequence of collectives on every rank) and reads the slots of its own
-  row or column.
+  off, inside the context managers ``RANK_SCOPES`` gives (a thread does
+  not inherit the caller's dispatch modes: a work counter adds its own).
+  Every rank takes part in every exchange (the bodies issue one sequence
+  of collectives on every rank) and reads the slots of its own row or
+  column.
 * :class:`ProcessGroupMesh` -- one rank per process over a
   ``torch.distributed`` process group (gloo on the CPU, NCCL across
   cards): ``all_to_all_single``, list-form ``all_gather`` and
@@ -62,14 +66,38 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import threading
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, ContextManager, List, Optional, Sequence, \
+    Tuple
 
 import torch
 
 from ..device import resolve_device
+from .scope import Scoped
 
 
 AXIS_NAMES = ("data", "model")
+
+# the recorder in scope (``collectives.record_wire_bytes``): it takes the
+# wire-bytes records and each collective a recording rank issues
+RECORDER: Scoped[Optional[Any]] = Scoped("repro_torch.dist.recorder", None)
+# factories of the context managers every LocalMesh rank thread enters
+RANK_SCOPES: Scoped[Tuple[Callable[[], ContextManager], ...]] = Scoped(
+    "repro_torch.dist.rank_scopes", ())
+
+
+def _note(rank, primitive: str, axes: Tuple[str, ...],
+          out: torch.Tensor) -> torch.Tensor:
+    """Note one collective's result in the recorder in scope (on the rank
+    that records); returns ``out``."""
+    rec = RECORDER.get()
+    if rec is not None and rank.records:
+        rec.collective(primitive, axes, out)
+    return out
+
+
+def _pmax_axes(mesh) -> Tuple[str, ...]:
+    """The logical axes ``pmax`` spans: every rank of the mesh."""
+    return AXIS_NAMES if mesh.model > 1 else AXIS_NAMES[:1]
 
 
 class LocalMesh:
@@ -144,6 +172,8 @@ class LocalMesh:
                         stack.enter_context(torch.cuda.device(self.device))
                         stack.enter_context(torch.cuda.stream(stream))
                     stack.enter_context(torch.no_grad())
+                    for scope in RANK_SCOPES.get():
+                        stack.enter_context(scope())
                     results[i] = body(_LocalRank(self, i), args[i])
                 self._hand_on(i)
             except BaseException as e:          # noqa: BLE001
@@ -196,18 +226,19 @@ class _LocalRank:
         out = vals[0]
         for v in vals[1:]:
             out = torch.maximum(out, v)
-        return out
+        return _note(self, "pmax", _pmax_axes(self.mesh), out)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         vals = self.mesh._exchange(self.index, x)
-        return torch.stack([vals[j][self.data_index]
-                            for j in self._group("data")])
+        return _note(self, "all_to_all", ("data",), torch.stack(
+            [vals[j][self.data_index] for j in self._group("data")]))
 
     def all_gather(self, x: torch.Tensor, axis: str = "data"
                    ) -> torch.Tensor:
         group = self._group(axis)
         vals = self.mesh._exchange(self.index, x)
-        return torch.stack([vals[j] for j in group])
+        return _note(self, "all_gather", (axis,),
+                     torch.stack([vals[j] for j in group]))
 
 
 class ProcessGroupMesh:
@@ -260,13 +291,13 @@ class ProcessGroupMesh:
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         y = x.clone()
         self._dist.all_reduce(y, op=self._dist.ReduceOp.MAX, group=self.group)
-        return y
+        return _note(self, "pmax", _pmax_axes(self), y)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         out = torch.empty_like(x)
         self._dist.all_to_all_single(out, x, group=self._groups["data"])
-        return out
+        return _note(self, "all_to_all", ("data",), out)
 
     def all_gather(self, x: torch.Tensor, axis: str = "data"
                    ) -> torch.Tensor:
@@ -275,10 +306,10 @@ class ProcessGroupMesh:
         x = x.contiguous()
         n = self.data if axis == "data" else self.model
         if n == 1:
-            return x[None]
+            return _note(self, "all_gather", (axis,), x[None])
         parts = [torch.empty_like(x) for _ in range(n)]
         self._dist.all_gather(parts, x, group=self._groups[axis])
-        return torch.stack(parts)
+        return _note(self, "all_gather", (axis,), torch.stack(parts))
 
     def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
         """``[1, ...]`` -> ``[data, ...]``: every data shard."""

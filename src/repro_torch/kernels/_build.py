@@ -6,7 +6,10 @@ Each source under ``csrc/`` is compiled for ``sm_90a`` at first use into
 ``.gitignore``), named by a hash of the source and the flags, so a stale
 library is never loaded.  ``build_all`` starts one ``nvcc`` per source at
 once.  ``variant`` routes ``load`` to a build with other ``-D`` values of
-a kernel's geometry constants (what ``torch_kernel_sweep.py`` times).
+a kernel's geometry constants (what ``torch_kernel_sweep.py`` times), as
+a dynamic scope (``dist.scope.Scoped``): the defines in force are the
+caller's, and a thread started in the block (a ``LocalMesh`` rank) sees
+them.
 No ``--use_fast_math``: the grid math needs IEEE division, no
 flush-to-zero and the accurate ``expf``.
 
@@ -22,12 +25,16 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
+
+from ..dist.scope import Scoped
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"qmatmul": "qmatmul.cu", "kv_dequant": "kv_dequant.cu",
-           "hgq_quantize": "hgq_quantize.cu", "wire_pack": "wire_pack.cu"}
+SOURCES = types.MappingProxyType({
+    "qmatmul": "qmatmul.cu", "kv_dequant": "kv_dequant.cu",
+    "hgq_quantize": "hgq_quantize.cu", "wire_pack": "wire_pack.cu"})
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # still hold work launched from it)
 _LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 # -D flags ``load`` builds a source with, by name: none outside ``variant``
-_DEFINES: Dict[str, Tuple[str, ...]] = {}
+_DEFINES: Scoped[Mapping[str, Tuple[str, ...]]] = Scoped(
+    "repro_torch.kernels.defines", types.MappingProxyType({}))
 # the ranks of a LocalMesh are threads: one of them builds and loads
 _LOAD_LOCK = threading.Lock()
 
@@ -113,8 +121,8 @@ def ptxas_report(name: str, defines: Sequence[str] = ()) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, building it first if needed."""
+    defines = _DEFINES.get().get(name, ())
     with _LOAD_LOCK:
-        defines = _DEFINES.get(name, ())
         lib = _LOADED.get((name, defines))
         if lib is None:
             out = _target(name, defines)
@@ -130,13 +138,9 @@ def variant(name: str, defines: Sequence[str]):
     """Within the block, ``load(name)`` (and so every wrapper of that
     source) gives the source built with ``defines`` added: another value
     of a geometry constant, for a sweep."""
-    with _LOAD_LOCK:
-        _DEFINES[name] = tuple(defines)
-    try:
+    with _DEFINES.scope(types.MappingProxyType(
+            {**_DEFINES.get(), name: tuple(defines)})):
         yield
-    finally:
-        with _LOAD_LOCK:
-            _DEFINES.pop(name, None)
 
 
 def check(status: int, what: str) -> None:

@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
+from .._work import kernel_op, nbytes
 from . import ref
 
 LAYOUTS = ("per_tensor", "per_channel", "per_parameter",
@@ -245,26 +246,52 @@ hgq_quantize_bwd.launches = 0
 hgq_quantize_bwd.shapes = collections.Counter()
 
 
+def _fwd_work(res, *args):
+    """The forward's work (``kernels._work``): no matmul; the x and f
+    given read, the quantized outputs written."""
+    return 0.0, nbytes(args) + nbytes(res[0]), ()
+
+
+@kernel_op("hgq_quantize_fwd", _fwd_work)
+def _fwd(x: torch.Tensor, f: torch.Tensor):
+    """(quantized x, the x and f the backward keeps): the kernel on CUDA
+    tensors, else the plain version."""
+    if x.is_cuda:
+        x, f = x.contiguous(), f.contiguous()
+        return hgq_quantize_fwd(x, f), x, f
+    return ref.hgq_quantize_ref(x, f), x, f
+
+
+@kernel_op("hgq_quantize_fwd_group", _fwd_work)
+def _fwd_group(xs: List[torch.Tensor], fs: List[torch.Tensor]):
+    """(the quantized members, the xs and fs the backward keeps)."""
+    if xs[0].is_cuda:
+        xs = [x.contiguous() for x in xs]
+        fs = [f.contiguous() for f in fs]
+        return hgq_quantize_fwd_group(xs, fs), xs, fs
+    return ref.hgq_quantize_group_ref(xs, fs), xs, fs
+
+
+@kernel_op("hgq_quantize_bwd", ref.hgq_bwd_work)
+def _bwd(g: torch.Tensor, x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """df of one member: the kernel on CUDA tensors, else the plain
+    version."""
+    if x.is_cuda:
+        return hgq_quantize_bwd(g.contiguous(), x, f)
+    return ref.hgq_quantize_grad_ref(g, x, f)
+
+
 class _HGQQuantize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, f):
-        if x.is_cuda:
-            x, f = x.contiguous(), f.contiguous()
-            out = hgq_quantize_fwd(x, f)
-        else:
-            out = ref.hgq_quantize_ref(x, f)
+        out, x, f = _fwd(x, f)
         ctx.save_for_backward(x, f)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, f = ctx.saved_tensors
-        df = None
-        if ctx.needs_input_grad[1]:
-            if x.is_cuda:
-                df = hgq_quantize_bwd(g.contiguous(), x, f)
-            else:
-                df = ref.hgq_quantize_grad_ref(g, x, f)
+        df = _bwd(g, x, f) if ctx.needs_input_grad[1] else None
         return (g if ctx.needs_input_grad[0] else None), df
 
 
@@ -274,13 +301,7 @@ class _HGQQuantizeGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *xf):
         n = len(xf) // 2
-        xs, fs = list(xf[:n]), list(xf[n:])
-        if xs[0].is_cuda:
-            xs = [x.contiguous() for x in xs]
-            fs = [f.contiguous() for f in fs]
-            outs = hgq_quantize_fwd_group(xs, fs)
-        else:
-            outs = ref.hgq_quantize_group_ref(xs, fs)
+        outs, xs, fs = _fwd_group(list(xf[:n]), list(xf[n:]))
         ctx.save_for_backward(*xs, *fs)
         return tuple(outs)
 
@@ -292,13 +313,8 @@ class _HGQQuantizeGroup(torch.autograd.Function):
         for i, g in enumerate(gs):
             x, f = saved[i], saved[n + i]
             dxs.append(g if ctx.needs_input_grad[i] else None)
-            df = None
-            if ctx.needs_input_grad[n + i]:
-                if x.is_cuda:
-                    df = hgq_quantize_bwd(g.contiguous(), x, f)
-                else:
-                    df = ref.hgq_quantize_grad_ref(g, x, f)
-            dfs.append(df)
+            dfs.append(_bwd(g, x, f) if ctx.needs_input_grad[n + i]
+                       else None)
         return (*dxs, *dfs)
 
 

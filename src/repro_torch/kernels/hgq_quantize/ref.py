@@ -8,6 +8,7 @@ from typing import List, Sequence
 import torch
 
 from ...core.quantizer import quantize_inference
+from .._work import io_work
 
 LN2 = 0.6931471805599453
 
@@ -36,3 +37,9 @@ def hgq_quantize_group_ref(xs: Sequence[torch.Tensor],
     """The grouped forward's plain version: ``hgq_quantize_ref`` member by
     member."""
     return [hgq_quantize_ref(x, f) for x, f in zip(xs, fs)]
+
+
+def hgq_bwd_work(df, g: torch.Tensor, x: torch.Tensor, f: torch.Tensor):
+    """The backward's work (``kernels._work``): no matmul; g, x and f
+    read, df written."""
+    return io_work(df, g, x, f)

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from .._work import io_work, kernel_op
 from . import ref
 
 __all__ = ["attention_cluster", "kv_attention_decode", "kv_attention_rows",
@@ -81,6 +82,7 @@ kv_quantize_rows.launches = 0
 kv_quantize_rows.shapes = collections.Counter()
 
 
+@kernel_op("kv_quantize_rows", io_work)
 def kv_quantize(x: torch.Tensor, bits: int = 8
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[..., hd]`` k/v rows -> (int8 mantissas ``[..., hd]``, int8 grid
@@ -97,6 +99,7 @@ def kv_quantize(x: torch.Tensor, bits: int = 8
     return q.reshape(lead + (hd,)), f.reshape(lead)
 
 
+@kernel_op("kv_quantize_store", ref.kv_quantize_store_work)
 def kv_quantize_store(kh: torch.Tensor, vh: torch.Tensor,
                       slot: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, cache_kf: torch.Tensor,
@@ -190,6 +193,7 @@ kv_dequant_rows.launches = 0
 kv_dequant_rows.shapes = collections.Counter()
 
 
+@kernel_op("kv_dequant_rows", io_work)
 def kv_dequant(q: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """(int8 mantissas ``[..., hd]``, int8 exponents ``[...]``) -> fp32
     ``q * 2^-f``."""
@@ -285,6 +289,7 @@ kv_attention_rows.launches = 0
 kv_attention_rows.shapes = collections.Counter()
 
 
+@kernel_op("kv_attention_rows", ref.kv_attention_work)
 def kv_attention_decode(qh: torch.Tensor, km: torch.Tensor, kf: torch.Tensor,
                         vm: torch.Tensor, vf: torch.Tensor,
                         qpos: torch.Tensor, tpos: torch.Tensor, *,

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.quantizer import _exp2i, quantize_inference
+from .._work import nbytes
 from ..qmatmul.ops import (grid_exponent, mantissa_max, pack_nibbles,
                            unpack_nibbles)
 
@@ -128,3 +129,30 @@ def kv_attention_ref(qg: torch.Tensor, km: torch.Tensor, kf: torch.Tensor,
     o = torch.einsum("bkgst,btkh->bskgh", pt / torch.clamp(l, min=1e-20),
                      v_all)
     return o.to(qg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the ops' work (``kernels._work``), from their arguments' shapes
+# ---------------------------------------------------------------------------
+
+def kv_attention_work(out, qh, km, kf, vm, vf, qpos, tpos, **kwargs):
+    """4 B S H W hd FLOPs: the scores and the probabilities times the
+    values over every one of the ring's W slots a row reads; the bytes of
+    the queries, both rings as stored, the positions and the output."""
+    B, S, H, hd = qh.shape
+    W = km.shape[1]
+    return (4.0 * B * S * H * W * hd,
+            nbytes(qh, km, kf, vm, vf, qpos, tpos, out), ())
+
+
+def kv_quantize_store_work(out, kh, vh, slot, cache_k, cache_v, cache_kf,
+                           cache_vf, bits):
+    """No matmul: the new k / v rows and their slots read, each row's
+    stored mantissas and exponent written into the four ring buffers
+    (written in place)."""
+    B, S, KV = kh.shape[:3]
+    hdm = cache_k.shape[-1]
+    written = 2.0 * B * S * KV * (hdm * cache_k.element_size()
+                                  + cache_kf.element_size())
+    return (0.0, nbytes(kh, vh, slot) + written,
+            (cache_k, cache_v, cache_kf, cache_vf))

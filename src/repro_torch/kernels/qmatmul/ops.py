@@ -18,7 +18,8 @@ import torch
 
 from ...core.quantizer import _exp2i, floor_log2
 from .. import _build
-from .ref import pack_ref, qmatmul_ref, unpack_nibbles
+from .._work import kernel_op
+from .ref import pack_ref, qmatmul_ref, qmatmul_work, unpack_nibbles
 
 
 def mantissa_max(bits: int = 8) -> int:
@@ -166,6 +167,7 @@ qmatmul.launches = 0
 qmatmul.shapes = collections.Counter()
 
 
+@kernel_op("qmatmul", qmatmul_work, "bfloat16")
 def qmatmul_any(x: torch.Tensor, w_int: torch.Tensor,
                 scale: torch.Tensor, *, nib: bool = False) -> torch.Tensor:
     """``x [..., K] @ packed w`` scaled per output channel, in x's dtype;

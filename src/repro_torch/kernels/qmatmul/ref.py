@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ...core.quantizer import _exp2i
+from .._work import nbytes, rows_of
 
 
 def unpack_nibbles(packed: torch.Tensor, orig: int,
@@ -59,3 +60,12 @@ def bf16_split3(x: torch.Tensor):
     mid = r.to(torch.bfloat16)
     lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
     return hi, mid, lo
+
+
+def qmatmul_work(out, x: torch.Tensor, w_int: torch.Tensor,
+                 scale: torch.Tensor, *, nib: bool = False):
+    """The op's work (``kernels._work``): 2 M K N FLOPs for ``x [..., K]``
+    (M rows) times the [K, N] weight, the bytes of x, the stored weight
+    as it lies (int8 or nibble pairs), the scale and the output."""
+    K, N = x.shape[-1], w_int.shape[1]
+    return (2.0 * rows_of(x) * K * N, nbytes(x, w_int, scale, out), ())

@@ -28,6 +28,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import _build
+from .._work import io_work, kernel_op
 from . import ref
 from .ref import grid_scale
 
@@ -308,6 +309,7 @@ for _fn in (wire_quantize_rows, wire_quantize_sflat, wire_pack_rows,
     _fn.shapes = collections.Counter()
 
 
+@kernel_op("wire_quantize_rows", io_work)
 def quantize_leaf(rows: torch.Tensor, amax: torch.Tensor, bits: int = 8
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Phase 1 of one leaf in stacked-row layout: [L, P] rows + per-row
@@ -319,6 +321,7 @@ def quantize_leaf(rows: torch.Tensor, amax: torch.Tensor, bits: int = 8
                               amax.to(torch.float32).contiguous(), bits)
 
 
+@kernel_op("wire_quantize_sflat", io_work)
 def quantize_chunks(e: torch.Tensor, s: torch.Tensor, bits: int = 8
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 with a scale per position: ``e`` and ``s`` of one shape ->
@@ -329,6 +332,7 @@ def quantize_chunks(e: torch.Tensor, s: torch.Tensor, bits: int = 8
                                s.to(torch.float32).contiguous(), bits)
 
 
+@kernel_op("wire_pack_rows", io_work)
 def pack_chunks(q: torch.Tensor) -> torch.Tensor:
     """Nibble-pack int4-range mantissas along the last axis, two per byte
     (an odd length pads one zero nibble): ``qmatmul.pack_nibbles``'s
@@ -340,6 +344,7 @@ def pack_chunks(q: torch.Tensor) -> torch.Tensor:
     return packed.reshape(lead + ((C + 1) // 2,))
 
 
+@kernel_op("wire_dequant_rows", io_work)
 def dequant_sum(q: torch.Tensor, s: torch.Tensor, shift: int,
                 n: int) -> torch.Tensor:
     """Phase-2 decode: requantized mantissa sums -> the float32 delivered
@@ -361,6 +366,7 @@ def dequant_sum(q: torch.Tensor, s: torch.Tensor, shift: int,
     return out.reshape(shape)
 
 
+@kernel_op("wire_quantize_bucket", io_work)
 def quantize_bucket(leaves: Sequence[torch.Tensor],
                     steps: Sequence[torch.Tensor], n: int, bits: int = 8,
                     nibble: bool = False
@@ -375,6 +381,7 @@ def quantize_bucket(leaves: Sequence[torch.Tensor],
                                  for s in steps], n, bits, nibble)
 
 
+@kernel_op("wire_dequant_bucket", io_work)
 def dequant_bucket(q: torch.Tensor, err2c: torch.Tensor,
                    residuals: Sequence[torch.Tensor],
                    leaves: Sequence[torch.Tensor],

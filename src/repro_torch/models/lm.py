@@ -17,6 +17,7 @@ and projection outputs.
 """
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -72,9 +73,9 @@ def layer_views(stacked: Any, n_layers: int) -> List[Any]:
 # launch makes in TRAIN: a dense projection's kernel and bias, an MoE
 # block's router kernel and its three expert stacks (stored weights
 # themselves, ``{"w", "f"}``)
-_PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
-                "mlp": ("gate", "up", "down"),
-                "moe": ("router", "gate", "up", "down")}
+_PROJECTIONS = types.MappingProxyType({
+    "attn": ("wq", "wk", "wv", "wo"), "mlp": ("gate", "up", "down"),
+    "moe": ("router", "gate", "up", "down")})
 
 
 def _layer_weights(lp, mode: str) -> Dict[str, Any]:

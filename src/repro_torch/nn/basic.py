@@ -2,6 +2,7 @@
 (counterpart of ``repro/nn/basic.py``)."""
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -13,6 +14,7 @@ from ..core.hgq import Aux, QTensor
 from ..core.quantizer import f_shape_for
 from ..dist.perf import (get_packed_matmul, is_packed, packed_mantissas,
                          packed_storage)
+from ..kernels._work import io_work, kernel_op
 from ..kernels.qmatmul.ops import qmatmul_any
 from .common import HGQConfig, act_q_init, apply_act_q, get_qw, qweight_init
 
@@ -91,8 +93,8 @@ class HDense:
 # default lets cuDNN run float32 convs in TF32, ~10 mantissa bits, which
 # puts the card ~1e-3 off the CPU) and deterministic algorithms (two runs
 # give the same bits)
-CUDNN_FLAGS = dict(enabled=True, benchmark=False, deterministic=True,
-                   allow_tf32=False)
+CUDNN_FLAGS = types.MappingProxyType(dict(
+    enabled=True, benchmark=False, deterministic=True, allow_tf32=False))
 
 
 class _Conv2d(torch.autograd.Function):
@@ -214,16 +216,34 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ids, = ctx.saved_tensors
-        flat = ids.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        uniq, counts = torch.unique_consecutive(flat[order],
-                                                return_counts=True)
-        sums = torch.segment_reduce(g.reshape(-1, g.shape[-1])[order], "sum",
-                                    lengths=counts, axis=0)
-        out = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype,
-                          device=g.device)
-        out[uniq] = sums
-        return out, None
+        return _table_grad(g, ids, ctx.rows), None
+
+
+def _table_grad_work(out, g, ids, rows):
+    """The table gradient's work (``kernels._work``): no matmul; the
+    gradients and ids read, the whole [rows, d] table written."""
+    return io_work(out, g, ids)
+
+
+def _zero_table(g, ids, rows):
+    return torch.zeros((rows, g.shape[-1]), dtype=g.dtype, device=g.device)
+
+
+@kernel_op("embedding_grad", _table_grad_work, meta=_zero_table)
+def _table_grad(g: torch.Tensor, ids: torch.Tensor, rows: int
+                ) -> torch.Tensor:
+    """``[rows, d]`` gradient of a gather of ``ids``: the segmented sums,
+    whose segments depend on the ids (on ``meta``, where there are none,
+    a table of the right shape)."""
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    uniq, counts = torch.unique_consecutive(flat[order],
+                                            return_counts=True)
+    sums = torch.segment_reduce(g.reshape(-1, g.shape[-1])[order], "sum",
+                                lengths=counts, axis=0)
+    out = _zero_table(g, ids, rows)
+    out[uniq] = sums
+    return out
 
 
 class HEmbedding:

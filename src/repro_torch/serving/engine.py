@@ -169,6 +169,32 @@ class Engine:
         return self._run(self.model.decode_step, self._pv, self._qv, caches,
                          tok, pos, self.cfg, kv_bits=self.kv_bits)
 
+    def decode_program(self):
+        """One decode tick as a program run (``analysis.trace.ProgramRun``;
+        counterpart of the reference's ``decode_program``, which traces
+        and compiles it): the tick ``step()`` runs, with its sampling, on
+        representative full-batch args (token 0 at position 0 of every
+        slot), run once under ``analysis.trace.ProgramTrace``.  It writes
+        those rows of the caches.  This is what ``repro_torch.analysis``
+        lints: packed-weight dtypes, the cache written in place, float64."""
+        from ..analysis.trace import ProgramRun, ProgramTrace
+        from ..tree import tree_leaves
+        B = self.slots
+        tok = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
+        temp = torch.zeros((B,), dtype=torch.float32, device=self.device)
+        topk = torch.zeros((B,), dtype=torch.int64, device=self.device)
+        before = [c for c in self.caches if c is not None]
+        with ProgramTrace() as tr:
+            logits, self.caches = self._decode(self.caches, tok,
+                                               np.zeros(B, np.int64))
+            nxt = _sample(logits[:, -1], self._gen, temp, topk, True)
+        return ProgramRun(
+            trace=tr,
+            inputs={"params": tree_leaves(self.p),
+                    "qstate": tree_leaves(self.q), "caches": before},
+            outputs={"caches": [c for c in self.caches if c is not None],
+                     "returned": [logits, nxt]})
+
     def _new_slot(self):
         """A zeroed single-slot cache slice [L, 1, W, ...]; a field the
         cache leaves empty (None) stays empty."""

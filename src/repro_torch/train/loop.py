@@ -88,15 +88,16 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
                     reduce: str = "full", mesh=None,
                     wire_kind: str = "int8", wire_layout: str = "auto",
                     wire_widths: Optional[Any] = None,
-                    wire_fused: bool = True, donate: bool = False):
+                    wire_fused: bool = True, donate=False):
     """The step ``(params, qstate, opt, batch, step) -> (params, qstate,
     opt, metrics)``: value and gradient of the Eq.-16 total over the
     params' leaves (``torch.autograd.grad``), global-norm clipping, AdamW.
     Returns new trees; the inputs stay as they were.  With ``donate`` (the
-    reference Trainer's ``donate_argnums``, for a model whose parameters
-    and moments fill the card) the step writes the new params and AdamW
-    moments over the given ones and returns them: the same bits, one copy
-    of the state.
+    reference's ``donate_argnums``: ``True``, or the tuple of argument
+    positions) the step writes the new params and AdamW moments over the
+    given ones (positions 0 and 2) and the new error-feedback residual
+    over the given one (position 5, the ``tx_state``), and returns them:
+    the same bits, one copy of the state.
 
     With ``grad_tx`` (a ``(grads, state) -> (grads, state)`` transform
     applied after clipping, e.g. ``dist.ef_compress``) the step takes and
@@ -140,9 +141,8 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
                   else log_ramp(tcfg.beta0, tcfg.beta1, tcfg.steps))
     lr_sched = lr_sched or constant(tcfg.lr)
 
+    in_place, residual_in_place = _donated(donate)
     if reduce == "compressed":
-        if donate:
-            raise ValueError("donate takes the uncompressed step only")
         if grad_tx is not None:
             raise ValueError(
                 "grad_tx and reduce='compressed' are mutually exclusive: "
@@ -160,7 +160,8 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
             return _make_compressed_step(forward, loss_fn, tcfg, beta_sched,
                                          lr_sched, mesh, wire_kind, n_data,
                                          wire_layout, wire_widths,
-                                         wire_fused)
+                                         wire_fused, in_place,
+                                         residual_in_place)
 
     def _step(params, qstate, opt: AdamWState, batch, step, tx_state):
         beta = beta_sched(step)
@@ -174,10 +175,13 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
         grads = tree_unflatten(params, leaves)
         del leaves
         if grad_tx is not None:
+            old = tx_state
             grads, tx_state = grad_tx(grads, tx_state)
+            if residual_in_place:
+                tx_state = _written_over(old, tx_state)
         new_params, opt = adamw_update(grads, opt, params, lr=lr,
                                        weight_decay=tcfg.weight_decay,
-                                       in_place=donate)
+                                       in_place=in_place)
         metrics = {"loss": base, "total": total, "ebops": ebops,
                    "gnorm": gnorm, "beta": beta}
         return new_params, newq, opt, metrics, tx_state
@@ -192,16 +196,41 @@ def make_train_step(forward: Forward, loss_fn: LossFn, tcfg: TrainConfig,
     return step_fn_tx
 
 
+def _donated(donate) -> Tuple[bool, bool]:
+    """(params and moments in place, residual in place) of ``donate``:
+    a bool, or the donated argument positions (0 params, 2 AdamW, 5 the
+    error-feedback state)."""
+    if isinstance(donate, bool):
+        return donate, donate
+    pos = set(donate)
+    if pos - {0, 2, 5} or (0 in pos) != (2 in pos):
+        raise ValueError(f"donate takes positions 0 and 2 (params and "
+                         f"AdamW, together) and 5 (the residual), got "
+                         f"{tuple(donate)}")
+    return 0 in pos, 5 in pos
+
+
+def _written_over(old, new):
+    """``new``'s error-feedback residual written over ``old``'s leaves
+    (``old`` returned): the state keeps its storage from step to step."""
+    for o, n in zip(tree_leaves(old.residual), tree_leaves(new.residual)):
+        if n is not o:
+            o.copy_(n)
+    return old
+
+
 def _make_compressed_step(forward: Forward, loss_fn: LossFn,
                           tcfg: TrainConfig, beta_sched, lr_sched, mesh,
                           wire_kind: str, n_data: int,
                           wire_layout: str = "1d",
                           wire_widths: Optional[Any] = None,
-                          wire_fused: bool = True):
+                          wire_fused: bool = True, in_place: bool = False,
+                          residual_in_place: bool = False):
     """The step over the compressed wire (see ``make_train_step``): one
     forward and backward per local batch slice, the wire collective
     (``ef_wire_pmean`` or ``ef_wire_pmean_2d`` by ``wire_layout``) the only
-    gradient communication."""
+    gradient communication.  ``in_place`` updates the params and moments
+    where they lie, ``residual_in_place`` the residual."""
     def step_fn_wire(params, qstate, opt: AdamWState, batch, step, tx_state):
         beta = beta_sched(step)
         lr = lr_sched(step)
@@ -236,12 +265,15 @@ def _make_compressed_step(forward: Forward, loss_fn: LossFn,
                 err, mesh, wire_kind, widths=widths, fused=wire_fused)
         delivered, gnorm = clip_by_global_norm(delivered, tcfg.clip_norm)
         new_params, opt = adamw_update(delivered, opt, params, lr=lr,
-                                       weight_decay=tcfg.weight_decay)
+                                       weight_decay=tcfg.weight_decay,
+                                       in_place=in_place)
         metrics = {"loss": torch.mean(bases), "total": torch.mean(totals),
                    "ebops": torch.mean(ebops_s), "gnorm": gnorm,
                    "beta": beta}
-        return new_params, newq, opt, metrics, type(tx_state)(
-            residual=residual)
+        new_state = type(tx_state)(residual=residual)
+        if residual_in_place:
+            new_state = _written_over(tx_state, new_state)
+        return new_params, newq, opt, metrics, new_state
 
     return step_fn_wire
 

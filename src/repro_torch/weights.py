@@ -12,6 +12,7 @@ gradient compression included, can resume in the port.
 """
 from __future__ import annotations
 
+import types
 from typing import Any, Tuple
 
 import numpy as np
@@ -22,8 +23,9 @@ from .device import resolve_device
 from .dist import EFState
 from .optim import AdamWState
 
-_NAMED = {("vmin", "vmax"): ActState, ("step", "mu", "nu"): AdamWState,
-          ("residual",): EFState}
+_NAMED = types.MappingProxyType({
+    ("vmin", "vmax"): ActState, ("step", "mu", "nu"): AdamWState,
+    ("residual",): EFState})
 
 
 def _convert(obj: Any, device: torch.device) -> Any:

@@ -395,9 +395,9 @@ def test_build_refuses_the_meshes_the_port_lacks():
     losses = [float(setup.step(s)["loss"]) for s in range(2)]
     assert all(np.isfinite(losses))
     assert any(r.any() for r in tree_leaves(setup.ef_state.residual))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="--chips N"):
         build(RunSpec(mesh=MeshSpec.production()), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="--chips N"):
         build(RunSpec(mesh=MeshSpec.production(multi_pod=True)),
               device=CPU)
     ctx = _ctx(RunSpec(mesh=MeshSpec.host(4, 1)))

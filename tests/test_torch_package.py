@@ -78,6 +78,9 @@ def test_sources_import_neither_jax_nor_repro():
         + sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
     assert ROOT / "torch_granite_gaps.py" in files
+    assert ROOT / "torch_check_no_globals.py" in files
+    assert ROOT / "torch_lint_programs.py" in files
+    assert PKG / "analysis" / "trace.py" in files
     assert PKG / "models" / "rwkv.py" in files
     assert PKG / "nn" / "recurrent.py" in files
     assert PKG / "models" / "whisper.py" in files
@@ -89,14 +92,15 @@ def test_sources_import_neither_jax_nor_repro():
 
 
 def test_api_launch_axes_and_serve_example_import_neither_jax_nor_repro():
-    """``api/``, ``launch/``, ``dist/axes.py`` and
-    ``examples/torch_serve_llm.py`` name no JAX or ``repro`` import, and
-    loading them (the example through ``runpy`` without running its
+    """``api/``, ``launch/`` (the launcher, and since the analysis slice
+    ``analytic``, ``roofline``, ``mesh`` and ``dryrun``), ``dist/axes.py``
+    and ``examples/torch_serve_llm.py`` name no JAX or ``repro`` import,
+    and loading them (the example through ``runpy`` without running its
     ``main``) pulls in neither package."""
     files = sorted((PKG / "api").glob("*.py")) \
         + sorted((PKG / "launch").glob("*.py")) \
         + [PKG / "dist" / "axes.py", ROOT / "examples" / "torch_serve_llm.py"]
-    assert len(files) == 7 and all(f.is_file() for f in files), files
+    assert len(files) == 11 and all(f.is_file() for f in files), files
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
@@ -104,6 +108,7 @@ def test_api_launch_axes_and_serve_example_import_neither_jax_nor_repro():
     code = (
         "import runpy, sys\n"
         "import repro_torch.api, repro_torch.launch.train\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
         "import repro_torch.dist.axes\n"
         "runpy.run_path('examples/torch_serve_llm.py', run_name='example')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
