@@ -217,7 +217,25 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    a hand-wired ``Trainer``, the same call again resumed from step 3 to
    the same bits, and at SMOKE ``--mesh 4x1 --grad-compression int8-wire
    --plan plan_mixed_w4w8.json`` launching the fused wire kernels over a
-   ``LocalMesh(4)``; the other models' steps traced last;
+   ``LocalMesh(4)``; then the family part (``family_training``):
+   recurrentgemma-2b (5 of 26 layers: one unit and the 2-layer
+   remainder), rwkv6-1.6b (2 of 24) and whisper-large-v3 (2 + 2 of 32 +
+   32, the ``asr`` data kind) at their published widths, one at a time,
+   each 5 steps through ``build(spec).init_training()`` (batch 2, seq
+   2048, Whisper 1500 frames and 448 tokens): step 0's loss near
+   ln(vocab) (+ 1/2 for the untied heads), every loss finite, the
+   qstate's leaf paths after every step the init's, a step's
+   ``hgq_quantize`` launches by shape, the quantizer's plain versions
+   raising on the card, one step traced, step 0 run twice from the same
+   init (the same bits; the second counted by ``analysis.ProgramTrace``:
+   the FLOPs' share of the float32 peak), the quantizer's new shapes held
+   and timed as in the kernel phase; then step 0 on the card against the
+   CPU at seq 64 / 128 / 256 (Whisper 250 frames) without activation
+   quantizers and probabilities' grids: the card's launches by shape equal to the CPU's
+   quantizer calls, the loss's and the gradient tree's relative gaps
+   under limits that two faulty controls exceed, one of which changes
+   only the backward (the scan's ``a``, the WKV's ``w``, the cross
+   memory detached); the other models' steps traced last;
 6. wire phase: (a) trains the same jet tagger data-parallel over
    ``dist.LocalMesh(4)`` (four ranks as threads on the one card: NCCL
    refuses two ranks on one GPU) with ``reduce="compressed"`` (1D, fused,
@@ -239,11 +257,13 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    phase's, and traces one mixed reduce (no ``aten::constant_pad_nd``;
    its events counted by name), the layer stacks cut to their first 4 of
    24 (``QWEN_REDUCE_LAYERS``; all 24 in earlier runs); (c) trains
-   qwen2-0.5b at full width from ``examples/specs/host_2x4_int8wire2d.json
-   --full`` through ``build(spec).init_training()`` over
-   ``dist.LocalMesh(2, model=4)`` (8 ranks as threads: each data shard's
-   forward and backward whole on the card, the ``model`` axis slicing the
-   2D compressed exchange and its residual), batch 4, seq 32, 2 steps
+   qwen2-0.5b at full width and its first 2 of 24 layers
+   (``QWEN_2D_LAYERS``; all 24 in earlier runs) from
+   ``examples/specs/host_2x4_int8wire2d.json --full`` through
+   ``build(spec).init_training()`` over ``dist.LocalMesh(2, model=4)``
+   (8 ranks as threads: each data shard's forward and backward whole on
+   the card, the ``model`` axis slicing the 2D compressed exchange and
+   its residual), batch 4, seq 32, 2 steps
    (launches by shape exact: the per-position kernels, one phase-1
    quantize a leaf a rank, one decode a leaf on rank 0, whose tree the
    mesh returns), then puts one step's full
@@ -284,8 +304,8 @@ only the port under ``src/repro_torch``, never JAX.  In order it
    ``qmatmul``, and a Whisper
    250-frame append for ``qmatmul`` and the store --, a training step --
    the jet's,
-   with an svhn, a muon, an LM, a granite and a launcher step beside
-   it --, a compressed
+   with an svhn, a muon, an LM, a granite, a launcher, a Griffin, an
+   RWKV and a Whisper step beside it --, a compressed
    data-parallel step, a qwen2 gradient reduce, a 2D step) weighted by
    those tallies (a granite step among the training units), the TPU kernels
    still to port, then, last, ``{"ok": true,
@@ -305,14 +325,16 @@ held and timed in the kernel phase only.
 Any failure raises and exits non-zero before the last line.
 ``--phase kernels`` stops after step 3 (a short check of a changed
 kernel) and leaves the per-unit fields null; ``--phase serve`` runs steps
-1-4, ``--phase train`` steps 1-3 and 5, ``--phase wire`` steps 1-3 and
-6, ``--phase analysis`` steps 1-3 and 7.  The peaks and bounds are
+1-4, ``--phase train`` steps 1-3 and 5, ``--phase families`` steps 1-3
+and step 5's family part alone, ``--phase wire`` steps 1-3 and 6,
+``--phase analysis`` steps 1-3 and 7.  The peaks and bounds are
 ``repro_torch.launch.roofline``'s (the H100 SXM data sheet).
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -2059,7 +2081,7 @@ def kernels_line(cases, tallies):
                  "per": None, "calls_per_unit": None}
         if name == "hgq_quantize_bwd":
             entry["note"] = ("the backward of the kernel's op, the custom_vjp "
-                             "at src/repro/kernels/hgq_quantize/ops.py:164; "
+                             "at src/repro/kernels/hgq_quantize/ops.py:73; "
                              "per channel and per tensor one launch of a "
                              "thread block cluster (partials summed in rank "
                              "order in rank 0's shared memory, no scratch) up "
@@ -5063,11 +5085,13 @@ def _granite_controls():
 
 def _continuous(tree):
     """The tree without activation quantizers and the probabilities'
-    grid."""
-    tree = _without_act_quantizers(tree)
-    attn = {k: v for k, v in tree["layers"]["attn"].items()
-            if k != "probs_f"}
-    return {**tree, "layers": {**tree["layers"], "attn": attn}}
+    grids (every ``probs_f``), in dicts and in lists of layers."""
+    if isinstance(tree, dict):
+        return {k: _continuous(v) for k, v in _without_act_quantizers(
+            tree).items() if k != "probs_f"}
+    if isinstance(tree, list):
+        return [_continuous(v) for v in tree]
+    return tree
 
 
 def _granite_run(dev, params, qstate, batches, fwd, loss):
@@ -5234,8 +5258,571 @@ def _lm_prefill_vs_decode(dev):
     return out
 
 
-def train_phase(dev, meta_future):
-    """The jet tagger (quickstart), then the SVHN and muon models; every
+# ---------------------------------------------------------------------------
+# HGQ training of the hybrid (Griffin), ssm (RWKV-6) and audio (Whisper)
+# families at their published widths
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = 5
+FAMILY_BATCH = 2
+# The card against the CPU: step 0's loss and gradient (the step's
+# ``train.loop._value_and_grad``) from one init and one batch at the
+# cell's width and depth, the CPU at a shorter sequence (``small_seq``:
+# Griffin 64, RWKV 128, Whisper 256 and 250 frames) for its time.  The
+# trees lose their activation quantizers and the probabilities' grids
+# (``_continuous``): with them a one-ulp difference of another summation
+# order decides a rounding tie and moves the loss and the gradient by a
+# grid step, a gap that would hide a fault of a few parameters'
+# gradients.  RWKV's init constants are redrawn
+# (``rwkv_constants``, as its serving reading does): with ``bonus_u`` at
+# 0 its gradient is 30x the embedding's and so ill-conditioned that a
+# 1e-7 relative change of the weights moves the tree's gradient by 1.9e-3
+# (d 512, the CPU), which is what the card read (3.8e-3).  The readings:
+# the loss's relative gap and the whole gradient tree's relative L2 gap;
+# each limit lies between the sound reading and those of two faulty
+# controls, one of which changes only the backward (readings in PERF.md).
+FAMILY_SMALL_FRAMES = 250
+FAMILY_LIMITS = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4}
+# step 0's loss against ln(vocab): an untied LeCun-uniform head over the
+# final norm's unit-RMS output gives logits of variance 1 (Griffin, RWKV:
+# ln(vocab) + 1/2, as granite's); Whisper's head is its table, U(+-0.02)
+# on the 2^-6 grid, variance d * 1.49e-4 = 0.191 (ln(vocab) + 0.095, as
+# qwen2's); the margin is qwen2's, LM_LOSS0_MARGIN
+WHISPER_LOSS0_EXCESS = 0.5 * WHISPER["d"] * 1.49e-4
+
+
+# the published widths each cell checks its config against (its depth is
+# the published depth, before the cut)
+GRIFFIN_TRAIN_DIMS = dict(L=GRIFFIN["L"], d=GRIFFIN["d"], H=GRIFFIN["H"],
+                          KV=GRIFFIN["KV"], hd=GRIFFIN["hd"],
+                          ff=GRIFFIN["ff"], V=GRIFFIN["V"],
+                          window=GRIFFIN["window"])
+RWKV_TRAIN_DIMS = dict(L=RWKV["L"], d=RWKV["d"], H=32, KV=32, hd=64,
+                       ff=RWKV["ff"], V=RWKV["V"], chunk=64)
+WHISPER_TRAIN_DIMS = dict(L=WHISPER["L"], d=WHISPER["d"], H=WHISPER["H"],
+                          KV=WHISPER["KV"], hd=WHISPER["hd"],
+                          ff=WHISPER["ff"], V=WHISPER["V"],
+                          enc=WHISPER["enc"], T=WHISPER["T"])
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyCell:
+    """A training cell of a family the LM cells do not cover: the arch at
+    its published widths (``dims``, checked against the config), the depth
+    it is cut to (config fields), the data kind and sequence, what step 0's
+    loss should be near, and its faulty controls (name -> (whether it
+    changes the backward only, a context manager factory)); the
+    card-vs-CPU reading's sequence, and what it redraws in its init
+    (``redraw(params, gen)``, in place)."""
+    name: str
+    arch: str
+    dims: dict
+    depth: dict
+    kind: str
+    seq: int
+    loss0_excess: float
+    desc: str
+    controls: object
+    small_seq: int = 256
+    redraw: object = None
+
+
+def _family_dims(cfg):
+    dims = dict(L=cfg.n_layers, d=cfg.d_model, H=cfg.n_heads, KV=cfg.n_kv,
+                hd=cfg.hd, ff=cfg.d_ff, V=cfg.vocab)
+    if cfg.family == "audio":
+        dims.update(enc=cfg.enc_layers, T=cfg.enc_seq)
+    if cfg.family == "hybrid":
+        dims["window"] = cfg.window
+    if cfg.family == "ssm":
+        dims["chunk"] = cfg.rwkv_chunk
+    return dims
+
+
+def _griffin_train_controls():
+    """The scan's decay ``a`` detached (the backward loses the
+    recurrence's path into ``lambda`` and ``gate_a``; the forward is the
+    same), and the RG-LRU without its input normalization (forward)."""
+    import repro_torch.nn.recurrent as rec
+    return {"scan_a_detached": (True, lambda: _patched(
+                rec, "_linear_scan", lambda real: lambda a, b, h0:
+                real(a.detach(), b, h0))),
+            "rglru_without_input_norm": (
+                False, _griffin_controls(None)["rglru_without_input_norm"][1])}
+
+
+def _rwkv_train_controls():
+    """The WKV's decay ``w`` detached (the backward loses its path into
+    the decay LoRA and ``decay_w0``; the forward is the same), and the
+    per-head norm left out (forward)."""
+    import repro_torch.nn.recurrent as rec
+    return {"wkv_w_detached": (True, lambda: _patched(
+                rec, "_wkv_chunked", lambda real: lambda r, k, v, w, u, s,
+                c: real(r, k, v, w.detach(), u, s, c))),
+            "head_norm_left_out": (
+                False, _rwkv_controls(None)["head_norm_left_out"][1])}
+
+
+def _whisper_train_controls():
+    """The encoder memory detached before the cross K/V (the backward
+    loses every path from the decoder into the encoder; the forward is
+    the same), and the decoder's learned positions dropped (forward)."""
+    import repro_torch.models.whisper as wh
+    from repro_torch.core.hgq import QTensor
+    return {"cross_memory_detached": (True, lambda: _patched_static(
+                wh.CrossAttention, "kv", lambda real: lambda p, q, m, *a:
+                real(p, q, QTensor(m.q.detach(), m.bits), *a))),
+            "decoder_positions_dropped": (False, _whisper_controls(None)[
+                "decoder_positions_dropped"][1])}
+
+
+FAMILY_CELLS = (
+    FamilyCell(
+        "griffin", "recurrentgemma-2b", GRIFFIN_TRAIN_DIMS, {"n_layers": 5},
+        "lm", 2048, GRANITE_LOSS0_EXCESS,
+        "configs/recurrentgemma_2b.py FULL (d 2560, 10 heads over 1 kv head "
+        "of 256, window 2048, MLP 7680, vocab 256000, untied head; "
+        "arXiv:2402.19427), random weights from the seed, lm data, batch 2, "
+        "seq 2048, remat; 5 of its 26 layers (one (rec, rec, att) unit and "
+        "the 2-layer recurrent remainder, as served); 5 steps of the "
+        "launcher's settings (lr 1e-3, beta 1e-9 -> 1e-7 over them) through "
+        "build(spec).init_training(), params and AdamW state in place",
+        _griffin_train_controls, small_seq=64),
+    FamilyCell(
+        "rwkv", "rwkv6-1.6b", RWKV_TRAIN_DIMS, {"n_layers": 2}, "lm", 2048,
+        GRANITE_LOSS0_EXCESS,
+        "configs/rwkv6_1_6b.py FULL (d 2048, 32 heads of 64, channel mix "
+        "7168, vocab 65536, WKV chunks of 64; arXiv:2404.05892), random "
+        "weights from the seed, lm data, batch 2, seq 2048 (32 WKV chunks), "
+        "remat; 2 of its 24 layers; 5 steps of the launcher's settings "
+        "through build(spec).init_training(), params and AdamW state in "
+        "place", _rwkv_train_controls, small_seq=128, redraw=rwkv_constants),
+    FamilyCell(
+        "whisper", "whisper-large-v3", WHISPER_TRAIN_DIMS,
+        {"n_layers": 2, "enc_layers": 2}, "asr", 448, WHISPER_LOSS0_EXCESS,
+        "configs/whisper_large_v3.py FULL (d 1280, 20 heads of 64, MLP "
+        "5120, vocab 51866, 1500 frames; arXiv:2212.04356), random weights "
+        "from the seed, asr data (1500 frame embeddings and 448 tokens, "
+        "Whisper's text context), batch 2, remat; 2 + 2 of its 32 + 32 "
+        "layers; 5 steps of the launcher's settings through "
+        "build(spec).init_training(), params and AdamW state in place",
+        _whisper_train_controls),
+)
+
+
+def _family_ctx(cell, dev, seed=SEED):
+    """``build(spec)`` of the cell on ``dev``: the launcher's spec for the
+    arch at full width (``--full --steps 5 --batch 2 --seq S``), the
+    cell's data kind, seeds ``seed`` (init) and ``SEED`` (data); the
+    config checked at its published widths, then cut to the cell's
+    depth."""
+    from repro_torch.api import RunSpec, build
+    spec = RunSpec.from_args(["--arch", cell.arch, "--full", "--steps",
+                              str(FAMILY_STEPS), "--batch",
+                              str(FAMILY_BATCH), "--seq", str(cell.seq)])
+    spec = dataclasses.replace(spec, seed=seed, data=dataclasses.replace(
+        spec.data, kind=cell.kind, seed=SEED))
+    ctx = build(spec, device=dev)
+    check(_family_dims(ctx.cfg) == cell.dims and ctx.cfg.remat,
+          f"{cell.name}: not {cell.arch} at its published width: "
+          f"{_family_dims(ctx.cfg)}")
+    ctx.cfg = dataclasses.replace(ctx.cfg, **cell.depth)
+    return ctx
+
+
+def _paths(tree):
+    from repro_torch.tree import tree_flatten_with_path
+    return [p for p, _ in tree_flatten_with_path(tree)]
+
+
+@contextlib.contextmanager
+def _no_plain_quantizer_on_the_card():
+    """The quantizer's plain versions (``hgq_quantize.ref``) raise on a
+    CUDA tensor: every TRAIN quantizer of the card's steps must launch
+    the kernels."""
+    import repro_torch.kernels.hgq_quantize.ref as ref
+
+    def guard(name):
+        def wrap(real):
+            def plain(*args, **kw):
+                tensors = [a for a in args if isinstance(a, torch.Tensor)]
+                tensors += [t for a in args if isinstance(a, (list, tuple))
+                            for t in a if isinstance(t, torch.Tensor)]
+                if any(t.is_cuda for t in tensors):
+                    raise SmokeFailure(f"{name} ran on the card")
+                return real(*args, **kw)
+            return plain
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        for name in ("hgq_quantize_ref", "hgq_quantize_group_ref",
+                     "hgq_quantize_grad_ref"):
+            stack.enter_context(_patched(ref, name, guard(name)))
+        yield
+
+
+@contextlib.contextmanager
+def _plain_quantizer_calls(tally):
+    """Counts the quantizer's calls on CPU tensors made by this thread
+    (a CPU graph's backward runs on the thread that asks for it) into
+    ``tally`` under the kernel wrappers' keys: a single forward by
+    (layout, shape, dtype), a group by its members' keys (one forward
+    launch on the card), a backward by its member's key."""
+    import repro_torch.kernels.hgq_quantize.ops as ops
+    owner = threading.get_ident()
+
+    def key(x, f):
+        return (ops.layout_of(x.shape, f.shape), tuple(x.shape),
+                str(x.dtype).replace("torch.", ""))
+
+    def mine(x):
+        return not x.is_cuda and threading.get_ident() == owner
+
+    def fwd(real):
+        def counted(x, f):
+            if mine(x) and x.numel():
+                tally["hgq_quantize_fwd"][key(x, f)] += 1
+            return real(x, f)
+        return counted
+
+    def group(real):
+        def counted(xs, fs):
+            if mine(xs[0]):
+                members = tuple(key(x, f) for x, f in zip(xs, fs)
+                                if x.numel())
+                if members:
+                    tally["hgq_quantize_fwd_group"][members] += 1
+            return real(xs, fs)
+        return counted
+
+    def bwd(real):
+        def counted(g, x, f):
+            if mine(x) and x.numel():
+                tally["hgq_quantize_bwd"][key(x, f)] += 1
+            return real(g, x, f)
+        return counted
+
+    with _patched(ops, "_fwd", fwd), _patched(ops, "_fwd_group", group), \
+            _patched(ops, "_bwd", bwd):
+        yield
+
+
+def _family_batch(cell, cfg, dev):
+    """The card-vs-CPU reading's batch: ``cell.small_seq`` tokens (and,
+    for Whisper, ``FAMILY_SMALL_FRAMES`` frames) of the cell's data kind."""
+    from repro_torch.data import asr_batch, lm_batch
+    if cell.kind == "asr":
+        return asr_batch(SEED, 0, FAMILY_BATCH, cell.small_seq, cfg.vocab,
+                         cfg.d_model, FAMILY_SMALL_FRAMES, device=dev)
+    return lm_batch(SEED, 0, FAMILY_BATCH, cell.small_seq, cfg.vocab,
+                    device=dev)
+
+
+def _step0_grads(ctx, params, qstate, batch):
+    """(the loss, the gradient tree) of step 0: the train step's own
+    ``_value_and_grad`` under the context, at step 0's beta."""
+    from repro_torch.core.schedule import log_ramp
+    from repro_torch.train import lm_loss
+    from repro_torch.train.loop import _value_and_grad
+    tc = ctx.spec.train
+    beta = log_ramp(tc.beta0, tc.beta1, tc.steps)(0)
+    with ctx.activate():
+        _, _, _, base, grads = _value_and_grad(
+            ctx.forward, lambda out, b: lm_loss(out, b["tokens"]), tc,
+            params, qstate, batch, beta)
+    return float(base), grads
+
+
+def _grad_gap(grads, ref):
+    """The whole gradient tree's relative L2 gap to ``ref`` (on one
+    device), summed in float64."""
+    from repro_torch.tree import tree_leaves
+    num = den = 0.0
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref)):
+        num += float(((a.double() - b.double()) ** 2).sum())
+        den += float((b.double() ** 2).sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _family_reading_init(cell, dev):
+    """The reading's init (``build(spec)`` seeded ``SEED + 1``, drawn on
+    the card, ``cell.redraw`` applied, ``_continuous``) and its batch,
+    copied to the CPU."""
+    from repro_torch.tree import tree_map
+    ctx = _family_ctx(cell, dev, seed=SEED + 1)
+    params, qstate = ctx.init_state()
+    if cell.redraw is not None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 1)
+        cell.redraw(params, gen)
+    trees = tree_map(lambda t: t.cpu(), (_continuous(params), qstate))
+    return trees + (_family_batch(cell, ctx.cfg, torch.device("cpu")),)
+
+
+def _family_cpu_step0(cell, trees):
+    """The CPU's side of the cell's card-vs-CPU reading, run on a worker
+    thread beside the card's work: step 0's loss and gradient of the
+    reading's init and batch (``trees``) through the plain versions, and
+    the quantizer's calls by key.  Every module function the card's
+    faulty controls patch is one of this cell's family, and the card
+    joins this reading before it patches any of its own.  The worker
+    leaves two of the host's cores to the card's thread (the intra-op
+    thread count is the calling thread's)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
+    t0 = time.perf_counter()
+    ctx = _family_ctx(cell, torch.device("cpu"), seed=SEED + 1)
+    calls = {k: collections.Counter() for k in TRAINING}
+    with _plain_quantizer_calls(calls):
+        loss, grads = _step0_grads(ctx, *trees)
+    return {"trees": trees + (grads,), "loss": loss, "calls": calls,
+            "cpu_s": time.perf_counter() - t0}
+
+
+def start_family_readings(pool, dev):
+    """{cell name: the future of its CPU reading}, each init drawn on the
+    card now and its CPU step submitted to ``pool`` (one worker thread:
+    the cells in order)."""
+    return {c.name: pool.submit(_family_cpu_step0, c,
+                                _family_reading_init(c, dev))
+            for c in FAMILY_CELLS}
+
+
+def _family_card_vs_cpu(cell, dev, cpu_future):
+    """Step 0 on the card (kernels) against the CPU's (``cpu_future``,
+    ``_family_cpu_step0``) from one init and one batch at the cell's width
+    and depth: the gaps, the card's launches by shape against the CPU's
+    quantizer calls, and each faulty control's gaps."""
+    from repro_torch.tree import tree_map
+    ctx_d = _family_ctx(cell, dev, seed=SEED + 1)
+    cpu = cpu_future.result()
+    # the CPU's gradient compared on the card: one copy
+    p_d, q_d, b_d, g_ref = tree_map(lambda t: t.to(dev), cpu.pop("trees"))
+    loss_c, calls = cpu["loss"], cpu["calls"]
+
+    def reading():
+        loss, grads = _step0_grads(ctx_d, p_d, q_d, b_d)
+        return {"loss_rel": abs(loss - loss_c) / abs(loss_c),
+                "grad_rel_l2": _grad_gap(grads, g_ref)}
+
+    def over(r):
+        return max(r[k] / v for k, v in FAMILY_LIMITS.items())
+
+    with _no_plain_quantizer_on_the_card():
+        _reset_counts()
+        sound = reading()
+        launches = _shapes(TRAINING)
+        faulty = {}
+        for name, (bwd_only, fault) in cell.controls().items():
+            with fault():
+                faulty[name] = dict(reading(), backward_only=bwd_only)
+    out = {"seq": cell.small_seq, "cpu_loss": loss_c,
+           "cpu_s": cpu["cpu_s"], "limits": FAMILY_LIMITS, "sound": sound,
+           "controls": faulty, "launches_equal_cpu_calls": launches == calls}
+    print(f"[train] {cell.name} card vs CPU, step 0 at seq "
+          f"{cell.small_seq}: {json.dumps(out)}", flush=True)
+    check(launches == calls,
+          f"{cell.name}: the card's hgq_quantize launches by shape "
+          f"{launches} are not the CPU's quantizer calls {calls}")
+    check(over(sound) <= 1.0, f"{cell.name}: card vs CPU {sound} beyond "
+                              f"{FAMILY_LIMITS}")
+    check(all(over(r) > 1.0 for r in faulty.values())
+          and any(r["backward_only"] for r in faulty.values()),
+          f"{cell.name}: the card-vs-CPU check misses a control: {faulty}")
+    del g_ref, p_d, q_d, b_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hgq_case_inputs(key):
+    """(x shape, f shape, dtype) of a quantizer tally key."""
+    lay, shape, dt = key
+    fshape = {"per_tensor": (), "per_channel": shape[-1:],
+              "per_parameter": shape,
+              "per_expert_channel": (shape[0],) + (1,) * (len(shape) - 2)
+              + shape[-1:],
+              "per_expert_tensor": (shape[0],) + (1,) * (len(shape) - 1)}[lay]
+    return shape, fshape, _DTYPES[dt]
+
+
+def _time_new_hgq_shapes(cases, per_step, dev):
+    """Every quantizer shape a step launched that the kernel phase did not
+    time, held against its plain version and timed as the kernel phase
+    does, into ``cases``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    keys = set(per_step["hgq_quantize_fwd"]) | set(
+        per_step["hgq_quantize_bwd"])
+    for key in sorted(keys - set(cases["hgq_quantize_fwd"])):
+        k, fwd, bwd = hgq_quantize_case(*_hgq_case_inputs(key), dev, g)
+        check(k == key, f"hgq_quantize: case {k} for the tally's {key}")
+        cases["hgq_quantize_fwd"][key] = fwd
+        cases["hgq_quantize_bwd"][key] = bwd
+    for key in per_step["hgq_quantize_fwd_group"]:
+        if key not in cases["hgq_quantize_fwd_group"]:
+            k, case = hgq_group_case([_hgq_case_inputs(m) for m in key],
+                                     dev, g)
+            cases["hgq_quantize_fwd_group"][key] = case
+
+
+def _family_run(cell, dev, cases, cpu_future):
+    """``cell`` through ``build(spec).init_training()`` on the card: 5
+    timed steps (the qstate's leaf paths after each the init's), a step's
+    launches by shape, one step profiled; step 0 again from the same init
+    (the same bits), counted (``analysis.ProgramTrace``); the quantizer's
+    new shapes timed; step 0 on the card against the CPU.  Returns the
+    report and a step's launches by shape."""
+    from repro_torch.analysis import ProgramTrace
+    from repro_torch.tree import tree_leaves, tree_map
+    import types
+    t_part = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = _family_ctx(cell, dev)
+    cfg = ctx.cfg
+    with _no_plain_quantizer_on_the_card():
+        setup = ctx.init_training()
+        paths0 = _paths(setup.qstate)
+        n_tree = sum(t.numel() for t in tree_leaves(setup.params))
+        hist, step_ms, same_paths, snap = [], [], [], None
+        torch.cuda.synchronize()
+        _reset_counts()                       # the main path starts here
+        for s in range(FAMILY_STEPS):
+            t = time.perf_counter()
+            m = setup.step(s)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            hist.append({"loss": float(m["loss"]), "ebops": float(m["ebops"])})
+            same_paths.append(_paths(setup.qstate) == paths0)
+            if s == 0:
+                snap = tree_map(lambda a: a.detach().clone(),
+                                (setup.params, setup.qstate))
+        counts = _counts(TRAINING)            # ... and ends here
+        per_step = _per_step(_shapes(TRAINING), FAMILY_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = float(np.median(step_ms))
+        trainer = types.SimpleNamespace(
+            tcfg=dataclasses.replace(ctx.spec.train, steps=FAMILY_STEPS),
+            pipeline=setup.pipeline, step_fn=setup.step_fn,
+            params=setup.params, qstate=setup.qstate, opt=setup.opt)
+        profiled = _profile_step(trainer, per_step, cell.name, med)
+        del setup, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        # step 0 again from the same init, counted on the way (the count's
+        # dispatch mode runs every operation as it is)
+        again = ctx.init_training()
+        with ProgramTrace() as tr:
+            m0 = again.step(0)
+        torch.cuda.synchronize()
+        same_bits = float(m0["loss"]) == hist[0]["loss"] and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves((again.params, again.qstate)),
+                tree_leaves(snap)))
+        del again, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+    _time_new_hgq_shapes(cases, per_step, dev)
+    # these families quantize each weight on its own: no grouped forward
+    hgq = {k: _per_unit(k, cases[k], per_step[k], _family_unit(cell.name))
+           for k in TRAINING if per_step[k]}
+    tokens = FAMILY_BATCH * cell.seq
+    report = {
+        "config": cell.desc, "card": None,
+        "n_params_tree": n_tree, "loss": [h["loss"] for h in hist],
+        "ln_vocab": math.log(cfg.vocab),
+        "loss0_expected": math.log(cfg.vocab) + cell.loss0_excess,
+        "ebops": [h["ebops"] for h in hist], "step_ms": step_ms,
+        "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
+        "peak_mem_gib": peak, "launches": counts,
+        "launches_per_step": {k: {" ".join(map(str, key)): n
+                                  for key, n in c.items()}
+                              for k, c in per_step.items()},
+        "qstate_paths_kept": same_paths, "step0_same_bits": same_bits,
+        "profiled_step": profiled,
+        "hgq_ms_per_step": {k: {f: v[f] for f in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
+                            for k, v in hgq.items()},
+        "counted_flops": tr.flops,
+        "counted_flops_share_fp32": tr.flops / (med / 1e3
+                                                * peak_rate("float32"))}
+    print(f"[train] {cell.name} on the card: {json.dumps(report)}",
+          flush=True)
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["ebops"])
+              for h in hist), f"{cell.name}: a loss or ~EBOPs is not finite")
+    check(abs(hist[0]["loss"] - report["loss0_expected"]) <= LM_LOSS0_MARGIN,
+          f"{cell.name}: step 0 loss {hist[0]['loss']} not within "
+          f"{LM_LOSS0_MARGIN} of {report['loss0_expected']}")
+    check(all(same_paths), f"{cell.name}: a step changed the qstate's leaf "
+                           f"paths: {same_paths}")
+    check(same_bits, f"{cell.name}: two card runs of step 0 differ")
+    check(counts["hgq_quantize_fwd"] > 0 and counts["hgq_quantize_bwd"] > 0,
+          f"{cell.name}: a quantizer kernel never launched: {counts}")
+    report["card_vs_cpu"] = _family_card_vs_cpu(cell, dev, cpu_future)
+    report["part_s"] = time.perf_counter() - t_part
+    return report, per_step
+
+
+def _family_unit(name):
+    cell = {c.name: c for c in FAMILY_CELLS}[name]
+    return (f"one {name} step: a training step of {cell.arch} at its "
+            f"published width and depth {json.dumps(cell.depth)} (batch "
+            f"{FAMILY_BATCH}, seq {cell.seq}, remat), calls by shape as "
+            f"counted on the main path")
+
+
+def family_training(dev, cases, smi, cpu=None):
+    """Each family cell in turn, one at a time on the card, the CPU's
+    sides of their card-vs-CPU readings computed meanwhile on a worker
+    thread (``cpu``: the futures ``start_family_readings`` gave, started
+    here when None).  Returns {name: report} and {name: a step's launches
+    by shape}."""
+    reports, per_steps = {}, {}
+    with contextlib.ExitStack() as stack:
+        if cpu is None:
+            pool = stack.enter_context(
+                concurrent.futures.ThreadPoolExecutor(1))
+            cpu = start_family_readings(pool, dev)
+        try:
+            _family_cells(dev, cases, smi, cpu, reports, per_steps)
+        finally:
+            for f in cpu.values():
+                f.cancel()
+    return reports, per_steps
+
+
+def _family_cells(dev, cases, smi, cpu, reports, per_steps):
+    """``family_training``'s cells, each run, reported and lapped; ``cpu``
+    maps a cell's name to the future of its CPU reading."""
+    for cell in FAMILY_CELLS:
+        rep, ps = _family_run(cell, dev, cases, cpu.pop(cell.name))
+        rep["card"] = smi
+        reports[cell.name], per_steps[cell.name] = rep, ps
+        lap(f"train: {cell.name}")
+        prof, hgq = rep["profiled_step"], rep["hgq_ms_per_step"]
+        print(f"[train] {cell.name} summary ({cell.arch} at its published "
+              f"width, {json.dumps(cell.depth)}; {smi}): step "
+              f"{rep['step_ms_median']:.1f} ms median, "
+              f"{rep['tokens_per_s']:.0f} tokens/s, peak "
+              f"{rep['peak_mem_gib']:.2f} GiB, profiled step busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle "
+              f"{prof['idle_share_of_median_step']:.1%}; hgq_quantize a "
+              f"step: forward {hgq['hgq_quantize_fwd']['ms']:.3f} ms (bound "
+              f"{hgq['hgq_quantize_fwd']['bound_ms']:.3f}, plain "
+              f"{hgq['hgq_quantize_fwd']['plain_ms']:.3f}), backward "
+              f"{hgq['hgq_quantize_bwd']['ms']:.3f} ms (bound "
+              f"{hgq['hgq_quantize_bwd']['bound_ms']:.3f}, plain "
+              f"{hgq['hgq_quantize_bwd']['plain_ms']:.3f}); "
+              f"{rep['counted_flops']:.6e} FLOPs counted a step, "
+              f"{rep['counted_flops_share_fp32']:.4f} of the float32 peak; "
+              f"the part took {rep['part_s']:.0f} s", flush=True)
+
+
+def train_phase(dev, meta_future, cases, smi, readings):
+    """The jet tagger (quickstart), then the SVHN and muon models, the LM
+    cells, the launcher, and the Griffin, RWKV and Whisper cells (their
+    CPU readings ``readings``, ``start_family_readings``' futures); every
     step profiled after every timed run.  Returns the report and each
     model's launches a step by shape."""
     trainer, report, per_step = _quickstart(dev)
@@ -5274,6 +5861,10 @@ def train_phase(dev, meta_future):
     lap("train: api")
     runs["api"] = (None, rep, ps)
     report["api"] = rep
+    reps, pss = family_training(dev, cases, smi, readings)
+    for name, rep in reps.items():
+        runs[name] = (None, rep, pss[name])
+        report[name] = rep
     # profiled only now, after every timed run
     for name, (tr, rep, ps) in runs.items():
         if tr is not None:
@@ -5339,6 +5930,11 @@ QWEN_REDUCE_LAYERS = 4
 # the decode), which the 1D paths never launch
 WIRE2D_SPEC = "examples/specs/host_2x4_int8wire2d.json"
 WIRE2D_STEPS = 2
+# (c) trains, and reduces the tree of, the first this many of qwen2-0.5b's
+# 24 layers (the spec checked at full width first; all 24 until PR 28,
+# whose family training part this cut pays for): the int8 exchange still
+# moves 1.000002 B an element against the 1D exchange's 3.99998
+QWEN_2D_LAYERS = 2
 WIRE2D = ("wire_quantize_sflat", "wire_pack_rows", "wire_dequant_rows")
 # The 2D step against the post-reduce int8 path from one init, 8 steps at
 # batch 256 (the reference's tests/test_wire2d.py: step 0 within 5e-3,
@@ -6071,6 +6667,7 @@ def _dp2d_qwen2(dev):
           and comp.wire and comp.wire_layout == "2d",
           f"{WIRE2D_SPEC} --full is not qwen2-0.5b over the 2D wire on "
           f"LocalMesh(2, model=4): {ctx.mesh}, {comp}")
+    ctx.cfg = cfg = dataclasses.replace(cfg, n_layers=QWEN_2D_LAYERS)
     setup = ctx.init_training()
     marks = {"init": time.perf_counter() - t_part}
     B, S = spec.data.batch, spec.data.seq
@@ -6234,7 +6831,8 @@ def _dp2d_qwen2(dev):
     peak = max(init_peak, torch.cuda.max_memory_allocated()) / 2 ** 30
     report.update({
         "config": f"configs/qwen2_0_5b.py FULL from {WIRE2D_SPEC} --full "
-                  f"through build(spec).init_training(): LocalMesh({D}, "
+                  f"through build(spec).init_training(), its first "
+                  f"{QWEN_2D_LAYERS} of 24 layers: LocalMesh({D}, "
                   f"model={M}) on one card, batch {B} ({B // D} a data "
                   f"shard), seq {S}, the 2D fused int8 exchange, "
                   f"{WIRE2D_STEPS} steps",
@@ -6274,9 +6872,11 @@ def _dp2d(dev):
     jet, counts_j, jet_step = _dp2d_jet(dev, D, M)
     launches = collections.Counter(counts_q) + collections.Counter(counts_j)
     per_q = ("one 2D step of qwen2-0.5b FULL from " + WIRE2D_SPEC + " --full"
-             " (LocalMesh(2, model=4), batch 4, seq 32, uniform int8), calls "
-             "by shape as counted on the main path")
-    per_m = ("one 2D reduce of qwen2-0.5b's gradient tree over "
+             f" at {QWEN_2D_LAYERS} of its 24 layers (LocalMesh(2, model=4), "
+             "batch 4, seq 32, uniform int8), calls by shape as counted on "
+             "the main path")
+    per_m = (f"one 2D reduce of qwen2-0.5b's gradient tree ({QWEN_2D_LAYERS} "
+             "of 24 layers) over "
              "LocalMesh(2, model=4) with plan_mixed_w4w8, fused, calls by "
              "shape as counted on the main path")
     per_j = ("one 2D compressed step of the jet tagger over LocalMesh(2, "
@@ -6648,7 +7248,8 @@ def analysis_phase(dev, meta_future, smi, medians_s=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
-                                        "wire", "analysis"), default="all")
+                                        "families", "wire", "analysis"),
+                    default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6673,14 +7274,16 @@ def main(argv=None) -> int:
     meta = None
     if args.phase in ("all", "train", "analysis"):
         meta = start_meta_counts()          # the dry run on meta, meanwhile
+    pool = concurrent.futures.ThreadPoolExecutor(1)   # the family readings
     try:
-        return _main(args, smi, meta, _build)
+        return _main(args, smi, meta, _build, pool)
     finally:
         if meta is not None:
             meta[0].shutdown(wait=True, cancel_futures=True)
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
-def _main(args, smi, meta, _build) -> int:
+def _main(args, smi, meta, _build, pool) -> int:
     from repro_torch.device import resolve_device
     dev = resolve_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6696,8 +7299,17 @@ def _main(args, smi, meta, _build) -> int:
         print(f"[build] {name} ptxas:\n{_build.ptxas_report(name)}",
               flush=True)
 
+    # the family cells' CPU readings on a worker thread beside the kernel
+    # phase, which patches no model function, and joined before the
+    # serving phase patches some
+    readings = None
+    if args.phase in ("all", "train", "families"):
+        readings = start_family_readings(pool, dev)
     cases = kernel_phase(dev)
     lap("kernel phase done")
+    if readings is not None:
+        concurrent.futures.wait(list(readings.values()))
+        lap("the family readings' CPU steps done")
     tallies = collections.defaultdict(list)
     launches = collections.Counter()
     slice_report = train_report = wire_report = analysis_report = None
@@ -6751,8 +7363,17 @@ def _main(args, smi, meta, _build) -> int:
         for k in ("qmatmul", "kv_quantize_store"):
             tallies[k].append((whisper_append[k], append_per))
         lap("serving phase done")
+    if args.phase == "families":
+        train_report, per_step = family_training(dev, cases, smi, readings)
+        for name, rep in train_report.items():
+            launches.update(rep["launches"])
+            for k in TRAINING:
+                if per_step[name][k]:
+                    tallies[k].append((per_step[name][k], _family_unit(name)))
+        lap("families done")
     if args.phase in ("all", "train"):
-        train_report, per_step = train_phase(dev, meta[1])
+        train_report, per_step = train_phase(dev, meta[1], cases, smi,
+                                             readings)
         units = {"jet": "one training step of the quickstart jet tagger",
                  "svhn": "one svhn step: a training step of SVHNNet at the "
                          "paper's configuration (batch 128)",
@@ -6767,12 +7388,18 @@ def _main(args, smi, meta, _build) -> int:
                  "api": "one launcher step of qwen2-0.5b FULL, batch 2, seq "
                         "256 (python -m repro_torch.launch.train --spec "
                         "examples/specs/host_1x1.json --full)"}
+        units.update({c.name: None for c in FAMILY_CELLS})
         for name, unit in units.items():
             rep = train_report if name == "jet" else train_report[name]
             launches.update(rep["launches"])
             for k in TRAINING:
-                tallies[k].append((per_step[name][k], unit + ", calls by "
-                                   "shape as counted on the main path"))
+                if unit is None and per_step[name][k]:
+                    tallies[k].append((per_step[name][k],
+                                       _family_unit(name)))
+                elif unit is not None:
+                    tallies[k].append((per_step[name][k], unit + ", calls "
+                                       "by shape as counted on the main "
+                                       "path"))
         lap("train phase done")
     if args.phase in ("all", "wire"):
         wire_report, wire_launches, wire_tallies = wire_phase(dev, cases)

@@ -24,6 +24,13 @@ cross rows sit on the self ring's int8 2^-f grids and go through the same
 kernels: one ``kv_quantize_store`` launch stores a chunk's rows for every
 layer, ``kv_attention_rows`` reads them.
 
+The TRAIN and EVAL forward return the cross K/V range states under
+``dec_layers/xattn/{wk,wv}``, where the init qstate keeps them, so the
+new qstate has the init qstate's leaf paths and a trained qstate takes
+the next step or builds an engine.  The reference returns them under a
+key of its own (``dec_layers/xattn_kv``) and drops them from ``xattn``:
+the same values, another tree, which its second jitted step refuses.
+
 Caches are written IN PLACE (the self ring by ``GQAAttention``, the cross
 memory and ``mem_len`` by ``append_cross``); the caches object is
 returned as given.  The head dequantizes the (packed) table and
@@ -348,15 +355,21 @@ class WhisperModel:
                                          mode=mode, aux=a)
         if cross is not None:
             ck, cv, ckf, cvf, tpos = cross
-            nq["xattn_kv"] = {}
+            # the stored memory's K/V range states stay as they were
+            kv_states = {k: lq["xattn"][k] for k in ("wk", "wv")
+                         if k in lq["xattn"]}
             xt, nq["xattn"] = CrossAttention.decode(
                 lp["xattn"], lq["xattn"], nx, ck, cv, None, cfg, mode, a,
                 ckf=ckf, cvf=cvf, tpos=tpos)
         else:
-            kh, vh, nq["xattn_kv"] = CrossAttention.kv(
+            kh, vh, kv_states = CrossAttention.kv(
                 lp["xattn"], lq["xattn"], memory, cfg, mode, a)
             xt, nq["xattn"] = CrossAttention.apply(
                 lp["xattn"], lq["xattn"], nx, kh, vh, cfg, mode, a)
+        # the cross K/V range states go back where the init qstate keeps
+        # them (``xattn/{wk,wv}``), so a trained qstate has the init
+        # qstate's leaf paths and takes a second step
+        nq["xattn"].update(kv_states)
         h = h + xt.q
         n2, nq["ln2"] = LayerNorm.apply(lp["ln2"], lq["ln2"], h, mode=mode,
                                         aux=a)
